@@ -1,0 +1,61 @@
+"""Weight conversion from the JAX package's LM parameter tree.
+
+``lm_params_from_numpy`` takes the tree of ``models/transformer_lm``'s
+``init_lm_params`` (or a checkpoint of it) after conversion to numpy
+(``jax.tree_util.tree_map(np.asarray, params)``) and returns the port's
+tree: the same nested dict, the same keys, the same layouts ((L, ...)
+stacked blocks, weights stored (in, out)), as torch tensors. The two
+packages then compute the same function.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch._device import DeviceLike, resolve_device, \
+    tree_map
+
+_LM_KEYS = ("embed", "blocks", "dec_w", "dec_b")
+_BLOCK_KEYS = ("ln_g", "ln_b", "wq", "wk", "wv", "wo", "ln2_g", "ln2_b",
+               "router", "experts")
+_EXPERT_KEYS = ("w1", "b1", "w2", "b2")
+
+
+def _check_keys(tree: dict, keys: tuple, where: str) -> None:
+    if not isinstance(tree, dict) or sorted(tree) != sorted(keys):
+        got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+        raise ValueError(f"{where} must hold exactly {sorted(keys)}, "
+                         f"got {got}")
+
+
+def _to_tensor(x, device: torch.device,
+               dtype: Optional[torch.dtype]) -> torch.Tensor:
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        # numpy has no bfloat16 of its own: widen exactly, narrow in torch
+        t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    else:
+        # a copy: device arrays converted by np.asarray are read-only
+        t = torch.from_numpy(np.array(arr, copy=True))
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def lm_params_from_numpy(tree: dict, device: DeviceLike = None,
+                         dtype: Optional[torch.dtype] = None) -> dict:
+    """The JAX package's LM params (numpy leaves: ``embed``,
+    ``blocks{ln_g, ln_b, wq, wk, wv, wo, ln2_g, ln2_b, router,
+    experts{w1, b1, w2, b2}}``, ``dec_w``, ``dec_b``) as the port's tree on
+    ``device`` (CUDA unless ``device="cpu"``). ``dtype`` casts every float
+    leaf (None keeps the stored dtype). Raises on a tree of another
+    shape of keys."""
+    dev = resolve_device(device)
+    _check_keys(tree, _LM_KEYS, "the LM params tree")
+    _check_keys(tree["blocks"], _BLOCK_KEYS, "params['blocks']")
+    _check_keys(tree["blocks"]["experts"], _EXPERT_KEYS,
+                "params['blocks']['experts']")
+    return tree_map(lambda _, x: _to_tensor(x, dev, dtype), tree)
