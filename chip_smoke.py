@@ -5,29 +5,42 @@
 
 Phases, each fatal on failure:
 
-1. build: compile every kernel of the serving path from csrc/ with nvcc for
-   sm_90a (one nvcc per source, started together) and print the build time
-   and the ptxas report;
+1. build: compile every kernel from csrc/ with nvcc for sm_90a (one nvcc
+   per source, started together) and print the build time and the ptxas
+   report;
 2. kernel parity: each kernel against its plain PyTorch version on the card
-   over T in {8, 100, 512, 1024, 2048} (1024 and 2048 are the buckets the
-   serving run sends to the kernel), Dh in {16, 128}, causal and not, f32
-   and bf16; then its time at the serving shape (B=1, H=4, T=2048, Dh=128,
-   causal, bf16; CUDA events, median of 30 after warm-up) beside the plain
-   version's, torch's scaled_dot_product_attention (a yardstick the port
-   never calls) and the card's bound;
+   over T in {8, 100, 512, 1024, 2048}, Dh in {16, 128}, causal and not,
+   f32 and bf16: the forward (K3f) as (o, lse), the backward pair (K3k:
+   dK, dV; K3q: dQ) from K3f's o and lse; then K3f's time at the serving
+   shape (B=1, H=4, T=2048, Dh=128, causal, bf16) and all three at the
+   training shape (B=4, H=4, T=2048, Dh=128, causal; f32, the training
+   path's type, and bf16), each beside its plain version's time, torch's
+   scaled_dot_product_attention (forward for K3f, fwd+bwd minus fwd for
+   the K3k+K3q pair: a yardstick the port never calls) and the card's bound
+   (CUDA events, median of 30 after warm-up);
 3. serving at the flagship's full width (vocab 2048, d_model 512, 4 heads of
    128, 4 experts, d_ff 1024, 2 layers; random weights from a seed):
    DecodeEngine(n_slots=8, max_len=2048, serve_dtype="bf16") answers 10
    greedy requests submitted before run_until_idle(), as the CLI's predict
-   does, with prompts across the buckets; the kernel's launch count over
-   that run must equal n_layers x the admissions whose bucket resolves to
-   the kernel. A second engine with attn_impl="flash" on short prompts
+   does, with prompts across the buckets; the forward kernel's launch count
+   over that run must equal n_layers x the admissions whose bucket resolves
+   to the kernel. A second engine with attn_impl="flash" on short prompts
    must do the same. The main path's requests run once more under
    torch.profiler for the device busy share and the kernels that take it.
    Prefill logits of one long prompt through the kernel and through dense
    attention must agree within 1e-3 at f32;
-4. output: the card's name and power limit from nvidia-smi, one JSON line
-   listing each kernel, and as the last line
+4. training at the same width: make_single_device_train_step(4,
+   donate=True) with the auto core takes 2 warm-up and 10 timed SGD steps
+   on one (B=4, T=2048) batch; every loss is finite, the last below the
+   first, and each of K3f, K3k and K3q launches exactly n_layers x 10
+   times. One step's loss and grads through the kernels agree with dense
+   attention's (f32), with non-zero grads for wq, wk and wv; two steps of
+   the Adam step with guard= and with_metrics= run through the kernels;
+   the timed steps run once more under torch.profiler for the busy share;
+5. output: the card's name and power limit from nvidia-smi, one JSON line
+   listing each kernel (K3f at the serving shape, and K3f, K3k, K3q at the
+   training shape with their launches over the timed training run), and as
+   the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Parity phases run with TF32 off (torch.backends.cuda.matmul.allow_tf32 and
@@ -47,8 +60,10 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit); f32 is the
+# CUDA cores' rate, outside the tensor cores
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 DEVICE = "cuda"
 
@@ -61,6 +76,27 @@ PARITY_LEN = 1500
 
 TOL = {"float32": {"o": 2e-5, "lse": 2e-5},
        "bfloat16": {"o": 2e-2, "lse": 1e-3}}
+# backward kernels: max abs error over the reference's max abs value. Both
+# sides compute in f32 from the same inputs, in other summation orders (f32:
+# ~1e-6 expected); bf16 outputs round once to bf16 (2^-8 relative)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+# the flagship's single-chip training shape (bench.py:101-102, 583-665)
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 4, 2048, 10
+TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq")
+# kernel vs dense training step at f32: loss absolute, grads as max abs error
+# over the leaf's max abs value. Both sides are full f32 summed in other
+# orders, but at full width some of the 67M ReLU units of the expert FFNs
+# sit within f32 noise of their kink and switch between the two runs; each
+# switch moves one token's share (1/8192) of every grad it feeds, and more
+# of one expert column: measured up to 2.1e-3 on experts.w1, ~1e-4 on the
+# other block leaves, 1e-7 on the decoder's
+LOSS_TOL, GRAD_TOL = 1e-4, 1e-2
+ADAM_LR = 1e-3
+OPT_METRICS = {"loss", "task_loss", "aux_loss", "router_load", "grad_norm",
+               "param_norm", "update_ratio", "moment_norm_m",
+               "moment_norm_v", "nonfinite", "clipped", "guard_grad_norm"}
 
 
 def log(msg: str) -> None:
@@ -104,7 +140,8 @@ def build_kernels() -> None:
         for name, path in zip(names, pool.map(_kernels.build, names)):
             log(f"[build] {name}: {path.name}")
             for line in _kernels.build_logs.get(name, "").splitlines():
-                if "ptxas" in line or "error" in line or "warning" in line:
+                if any(w in line for w in ("registers", "spill", "error",
+                                           "warning")):
                     log(f"[build]   {line.strip()}")
     log(f"[build] {len(names)} kernel(s) built in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -191,6 +228,153 @@ def flash_measure() -> dict:
             "plain_ms": plain_ms, "bound_ms": max(op_ms, byte_ms),
             "bound_by": "operations" if op_ms >= byte_ms else "bytes",
             "library_ms": library_ms}
+
+
+def bwd_parity() -> None:
+    """K3k and K3q against ``flash_attention_bwd_reference`` on the card,
+    with o and lse from K3f. Error: max abs error over the reference's max
+    abs value, per output."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+    n = 0
+    for t in (8, 100, 512, 1024, 2048):
+        for dh in (16, 128):
+            for causal in (True, False):
+                for dtype in (torch.float32, torch.bfloat16):
+                    q, k, v = _qkv((2, 2, t, dh), dtype, seed=3 * t + dh)
+                    do = _qkv((2, 2, t, dh), dtype, seed=7 * t + dh)[0]
+                    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+                    delta = fa.attention_delta(o, do)
+                    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, do,
+                                                        delta, causal)
+                    dq = fa.flash_attention_bwd_dq(q, k, v, lse, do, delta,
+                                                   causal)
+                    want = fa.flash_attention_bwd_reference(q, k, v, o, lse,
+                                                            do, causal)
+                    sync()
+                    tol = BWD_TOL[str(dtype).split(".")[1]]
+                    errs = [_rel_err(g, w) for g, w in zip((dq, dk, dv),
+                                                           want)]
+                    ok = (all(e <= tol for e in errs)
+                          and all(g.dtype == dtype
+                                  and torch.isfinite(g.float()).all().item()
+                                  for g in (dq, dk, dv)))
+                    log(f"[parity] bwd T={t} Dh={dh} causal={causal} "
+                        f"{dtype}: rel err dq {errs[0]:.3g} dk {errs[1]:.3g} "
+                        f"dv {errs[2]:.3g} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(
+                            f"backward kernels disagree with their plain "
+                            f"version at T={t} Dh={dh} causal={causal} "
+                            f"{dtype}: dq/dk/dv {errs} (tol {tol})")
+                    n += 1
+    log(f"[parity] flash_attention_bwd_dkv, flash_attention_bwd_dq: {n} "
+        f"cases agree")
+
+
+def _rel_err(got, want) -> float:
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def _kernel_entry(name, replaces, ms, plain_ms, flops, nbytes, peak, err,
+                  library_ms, shape, **extra) -> dict:
+    op_ms = flops / peak * 1e3
+    byte_ms = nbytes / PEAK_BYTES * 1e3
+    return {"name": name, "route": "cuda",
+            "source": f"deeplearning4j_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(op_ms, byte_ms),
+            "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+            "library_ms": library_ms, "shape": shape, **extra}
+
+
+def train_shape_measure() -> list:
+    """K3f, K3k and K3q at the training shape (B=4, H=4, T=2048, Dh=128,
+    causal) in f32, the training path's type, and bf16: each kernel's time
+    beside its plain version's, its bound, and torch's SDPA (forward for
+    K3f; fwd+bwd minus fwd for the K3k+K3q pair), a yardstick the port
+    never calls. Returns the f32 entries of the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+    b, h, t, dh = TRAIN_B, N_HEADS, TRAIN_T, D_MODEL // N_HEADS
+    pairs = b * h * t * t / 2 * dh * 2        # FLOPs of one causal product
+    entries = []
+    for dtype, peak in ((torch.float32, PEAK_F32_FLOPS),
+                        (torch.bfloat16, PEAK_BF16_FLOPS)):
+        q, k, v = _qkv((b, h, t, dh), dtype, seed=21)
+        do = _qkv((b, h, t, dh), dtype, seed=22)[0]
+        elt = q.element_size()
+        tile = b * h * t * dh * elt           # bytes of one (B,H,T,Dh) tensor
+        row = b * h * t * 4                   # bytes of lse or delta
+        o, lse = fa.flash_attention_fwd(q, k, v, True)
+        delta = fa.attention_delta(o, do)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta, True)
+        dq = fa.flash_attention_bwd_dq(q, k, v, lse, do, delta, True)
+        ro, _ = fa.flash_attention_reference(q, k, v, True)
+        rdq, rdk, rdv = fa.flash_attention_bwd_reference(q, k, v, o, lse,
+                                                         do, True)
+        err_fwd = (o.float() - ro.float()).abs().max().item()
+        err_dkv = max((dk.float() - rdk.float()).abs().max().item(),
+                      (dv.float() - rdv.float()).abs().max().item())
+        err_dq = (dq.float() - rdq.float()).abs().max().item()
+
+        fwd_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, True))
+        dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, lse, do, delta, True))
+        dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq(
+            q, k, v, lse, do, delta, True))
+        fwd_plain = time_ms(lambda: fa.flash_attention_reference(
+            q, k, v, True), reps=10)
+        dkv_plain = time_ms(lambda: fa._bwd_dkv_plain(
+            q, k, v, lse, do, delta, True), reps=10)
+        dq_plain = time_ms(lambda: fa._bwd_dq_plain(
+            q, k, v, lse, do, delta, True), reps=10)
+        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), reps=20)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        sdpa_fwd_bwd = time_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qg, kg, vg, is_causal=True),
+            (qg, kg, vg), do), reps=20)
+        sdpa_bwd = sdpa_fwd_bwd - sdpa_fwd
+        shape = f"B={b} H={h} T={t} Dh={dh} causal {str(dtype)[6:]}"
+        pair_note = ("SDPA backward for the K3k+K3q pair (dq, dk, dv): "
+                     "fwd+bwd minus fwd")
+        group = [
+            _kernel_entry("flash_attention_fwd",
+                          "deeplearning4j_tpu/ops/flash_attention.py:405",
+                          fwd_ms, fwd_plain, 2 * pairs, 4 * tile + row, peak,
+                          err_fwd, sdpa_fwd, shape),
+            _kernel_entry("flash_attention_bwd_dkv",
+                          "jax/experimental/pallas/ops/tpu/"
+                          "flash_attention.py:1121 (_flash_attention_bwd_dkv,"
+                          " via deeplearning4j_tpu/ops/flash_attention.py:405)",
+                          dkv_ms, dkv_plain, 4 * pairs, 6 * tile + 2 * row,
+                          peak, err_dkv, sdpa_bwd, shape,
+                          library_covers=pair_note),
+            _kernel_entry("flash_attention_bwd_dq",
+                          "jax/experimental/pallas/ops/tpu/"
+                          "flash_attention.py:1456 (_flash_attention_bwd_dq,"
+                          " via deeplearning4j_tpu/ops/flash_attention.py:405)",
+                          dq_ms, dq_plain, 3 * pairs, 5 * tile + 2 * row,
+                          peak, err_dq, sdpa_bwd, shape,
+                          library_covers=pair_note)]
+        for e in group:
+            log(f"[measure] {e['name']} {shape}: kernel {e['ms']:.4f} ms, "
+                f"plain {e['plain_ms']:.4f} ms, sdpa {e['library_ms']:.4f} "
+                f"ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']}); "
+                f"max abs err {e['max_abs_err']:.3g}")
+        if dtype == torch.float32:
+            entries = group
+        del q, k, v, do, o, lse, delta, dk, dv, dq, ro, rdq, rdk, rdv
+        torch.cuda.empty_cache()
+    return entries
 
 
 # ------------------------------------------------------------- phase 3 ----
@@ -321,6 +505,166 @@ def prefill_parity(params) -> None:
         raise AssertionError(f"prefill logits flash vs dense differ by {err}")
 
 
+# ------------------------------------------------------------- phase 4 ----
+
+def _train_setup(seed: int = 0):
+    """Fresh f32 flagship params from a generator seeded ``seed`` and one
+    (B, T) batch of tokens and next-token targets from a numpy seed."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer_lm import init_lm_params
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = init_lm_params(gen, VOCAB, D_MODEL, N_HEADS, N_EXPERTS, D_FF,
+                            n_layers=N_LAYERS, device=DEVICE)
+    toks = np.random.RandomState(5).randint(0, VOCAB,
+                                            (TRAIN_B, TRAIN_T + 1))
+    toks = torch.as_tensor(toks, device=DEVICE)
+    return params, toks[:, :-1], toks[:, 1:]
+
+
+def _check_launches(run: str, steps: int) -> dict:
+    from deeplearning4j_tpu_torch.ops import _kernels
+
+    launches = dict(_kernels.LAUNCHES)
+    want = N_LAYERS * steps
+    for name in TRAIN_KERNELS:
+        if launches[name] != want:
+            raise AssertionError(f"{run}: {name} launched {launches[name]} "
+                                 f"times, expected n_layers x steps = {want}")
+    return launches
+
+
+def train(profiled: bool = False) -> dict:
+    """The flagship's single-device training step at full width with the
+    auto attention core (the flash kernels at T=2048): 2 warm-up steps,
+    then TRAIN_STEPS timed steps on one batch, launches counted from 0 over
+    exactly those steps. With ``profiled`` the steps run under
+    torch.profiler for the device busy share."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.models.transformer_lm import (
+        make_single_device_train_step,
+        selected_attn_impl,
+    )
+    from deeplearning4j_tpu_torch.ops import _kernels
+
+    impl = selected_attn_impl(TRAIN_T)
+    if impl not in ("flash", "blockwise"):
+        raise AssertionError(f"auto core at T={TRAIN_T} is {impl!r}")
+    params, tokens, targets = _train_setup()
+    step = make_single_device_train_step(N_HEADS, donate=True, device=DEVICE)
+    for _ in range(2):
+        params, loss = step(params, tokens, targets)
+    sync()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+           if profiled else contextlib.nullcontext())
+    _kernels.reset_launches()
+    losses = []
+    with ctx as prof:
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            params, loss = step(params, tokens, targets)
+            losses.append(loss)
+        sync()
+        wall = time.perf_counter() - t0
+    launches = _check_launches("training run", TRAIN_STEPS)
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses {losses}: not finite or not "
+                             "falling")
+    ms = wall * 1e3 / TRAIN_STEPS
+    out = {"profiled": profiled, "attn_impl": impl, "steps": TRAIN_STEPS,
+           "batch": [TRAIN_B, TRAIN_T], "wall_s": wall, "ms_per_step": ms,
+           "samples_per_s": TRAIN_B * 1e3 / ms,
+           "tokens_per_s": TRAIN_B * TRAIN_T * 1e3 / ms,
+           "losses": losses, "launches": launches}
+    if DEVICE == "cuda":
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if profiled:
+        out.update(device_busy(prof, wall))
+    log(f"[train] {json.dumps(out)}")
+    return out
+
+
+def grad_parity() -> None:
+    """One step's loss and grads through the flash kernels
+    (attn_impl="blockwise") against dense attention, f32 with TF32 off. The
+    grads of wq, wk and wv must be non-zero in every layer: the first
+    slice's flash output carried no graph, and those leaves got none."""
+    import torch
+
+    from deeplearning4j_tpu_torch._device import tree_leaves, tree_map
+    from deeplearning4j_tpu_torch.models.transformer_lm import (
+        _get as _leaf,
+        dense_loss_fn,
+        lm_value_and_grad,
+    )
+
+    params, tokens, targets = _train_setup()
+    kl, kg = lm_value_and_grad(dense_loss_fn(N_HEADS, attn_impl="blockwise"),
+                               params, tokens, targets)
+    dl, dg = lm_value_and_grad(dense_loss_fn(N_HEADS, attn_impl="dense"),
+                               params, tokens, targets)
+    loss_err = abs(float(kl) - float(dl))
+    errs = {}
+    tree_map(lambda path, g: errs.__setitem__(
+        ".".join(path), _rel_err(g, _leaf(dg, path))), kg)
+    grad_err = max(errs.values())
+    log(f"[parity] grad rel err per leaf: {json.dumps(errs)}")
+    zero = [key for key in ("wq", "wk", "wv")
+            if not bool((kg["blocks"][key].abs().amax((1, 2)) > 0).all())]
+    finite = all(torch.isfinite(g).all().item() for g in tree_leaves(kg))
+    log(f"[parity] training step flash kernels vs dense, f32, B={TRAIN_B} "
+        f"T={TRAIN_T}: loss {float(kl):.6f} vs {float(dl):.6f} (abs err "
+        f"{loss_err:.3g}), worst leaf grad rel err {grad_err:.3g}, "
+        f"zero-grad attention leaves {zero}")
+    if not (loss_err <= LOSS_TOL and grad_err <= GRAD_TOL and not zero
+            and finite):
+        raise AssertionError(
+            f"kernel vs dense training step: loss err {loss_err} (tol "
+            f"{LOSS_TOL}), grad rel err {grad_err} (tol {GRAD_TOL}), zero "
+            f"grads {zero}, finite {finite}")
+
+
+def optimizer_path() -> None:
+    """Two steps of the Adam step with the guard and metrics seams at full
+    width, through the kernels, at Adam's usual rate ADAM_LR (the SGD
+    default of 0.1 moves every weight by ~0.1 and throws the loss to ~2e4
+    in one step)."""
+    from deeplearning4j_tpu_torch.models.transformer_lm import (
+        init_lm_opt_state,
+        make_single_device_train_step,
+    )
+    from deeplearning4j_tpu_torch.ops import _kernels
+
+    params, tokens, targets = _train_setup()
+    step = make_single_device_train_step(N_HEADS, ADAM_LR, optimizer="adam",
+                                         guard=True, with_metrics=True,
+                                         device=DEVICE)
+    state = init_lm_opt_state("adam", params, device=DEVICE)
+    _kernels.reset_launches()
+    for _ in range(2):
+        params, state, loss, metrics = step(params, state, tokens, targets)
+    sync()
+    _check_launches("adam run", 2)
+    values = {k: v.tolist() for k, v in metrics.items()}
+    log(f"[train] adam+guard+metrics, 2 steps: loss {float(loss):.6f}, "
+        f"count {int(state['count'])}, metrics {json.dumps(values)}")
+    missing = OPT_METRICS - set(metrics)
+    if (missing or int(state["count"]) != 2 or values["nonfinite"] != 0.0
+            or not np.isfinite(float(loss))
+            or not all(np.isfinite(np.asarray(v)).all()
+                       for v in values.values())):
+        raise AssertionError(f"adam step: missing metrics {missing}, count "
+                             f"{int(state['count'])}, metrics {values}")
+
+
 # ---------------------------------------------------------------- main ----
 
 def main() -> int:
@@ -343,19 +687,29 @@ def main() -> int:
 
     build_kernels()
     flash_parity()
-    kernel = flash_measure()
+    bwd_parity()
+    serve_entry = flash_measure()
+    train_entries = train_shape_measure()
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     params = init_lm_params(gen, VOCAB, D_MODEL, N_HEADS, N_EXPERTS, D_FF,
                             n_layers=N_LAYERS, device=DEVICE)
     main_run = serve(params, None, PROMPT_LENS, seed=1)
-    kernel["launches"] = main_run["kernel_launches"]
+    serve_entry["launches"] = main_run["kernel_launches"]
     serve(params, "flash", FLASH_PROMPT_LENS, seed=2)
     serve(params, None, PROMPT_LENS, seed=3, profiled=True)
     prefill_parity(params)
+    del params
+
+    train_main = train()
+    for entry in train_entries:
+        entry["launches"] = train_main["launches"][entry["name"]]
+    grad_parity()
+    optimizer_path()
+    train(profiled=True)
 
     print(smi)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [serve_entry, *train_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,5 +7,10 @@ mirrors its counterpart's path and name there and is held against it by the
 
 Slice 1 is the LM decode server: ``serve.engine.DecodeEngine`` over
 ``models.transformer_lm``, with prefill attention on the hand-written
-Hopper flash-attention kernel in ``csrc/flash_attention_fwd.cu``.
+Hopper flash-attention kernel in ``csrc/flash_attention_fwd.cu``. Slice 2
+is single-device LM training: ``models.transformer_lm.
+make_single_device_train_step`` with the ``optimize`` updaters and
+guardrails, its attention differentiated by ``ops.flash_attention.
+FlashAttention`` over that kernel and the backward pair in
+``csrc/flash_attention_bwd_dkv.cu`` and ``csrc/flash_attention_bwd_dq.cu``.
 """

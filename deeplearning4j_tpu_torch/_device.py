@@ -35,3 +35,26 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_unflatten(tree, leaves: list):
+    """A nested dict shaped like ``tree`` holding ``leaves`` in
+    ``tree_leaves`` order (the inverse of ``tree_leaves``)."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+
+    out = build(tree)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has places for")
+    return out
+
+
+def tree_zip_map(fn, tree, *rest):
+    """``fn`` over the matching leaves of trees of one shape
+    (``jax.tree_util.tree_map(fn, tree, *rest)``)."""
+    groups = zip(tree_leaves(tree), *(tree_leaves(r) for r in rest))
+    return tree_unflatten(tree, [fn(*xs) for xs in groups])

@@ -1,4 +1,5 @@
-"""Weight conversion from the JAX package's LM parameter tree.
+"""Weight and state conversion between the JAX package's trees and the
+port's.
 
 ``lm_params_from_numpy`` takes the tree of ``models/transformer_lm``'s
 ``init_lm_params`` (or a checkpoint of it) after conversion to numpy
@@ -59,3 +60,26 @@ def lm_params_from_numpy(tree: dict, device: DeviceLike = None,
     _check_keys(tree["blocks"]["experts"], _EXPERT_KEYS,
                 "params['blocks']['experts']")
     return tree_map(lambda _, x: _to_tensor(x, dev, dtype), tree)
+
+
+def opt_state_from_numpy(state: dict, device: DeviceLike = None) -> dict:
+    """The JAX package's optimizer state (``{"m": tree, "v": tree,
+    "count": int scalar}`` with numpy leaves) as the port's, on ``device``
+    (CUDA unless ``device="cpu"``); ``count`` becomes an int32 0-dim
+    tensor."""
+    dev = resolve_device(device)
+    _check_keys(state, ("m", "v", "count"), "the optimizer state")
+    return {"m": tree_map(lambda _, x: _to_tensor(x, dev, None), state["m"]),
+            "v": tree_map(lambda _, x: _to_tensor(x, dev, None), state["v"]),
+            "count": torch.tensor(int(np.asarray(state["count"])),
+                                  dtype=torch.int32, device=dev)}
+
+
+def tree_to_numpy(tree):
+    """A nested dict of tensors as a nested dict of numpy arrays (bf16
+    widened exactly to float32: numpy has no bfloat16 of its own)."""
+    def one(_, x):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+
+    return tree_map(one, tree)

@@ -1,5 +1,6 @@
 """Counterpart of ``deeplearning4j_tpu/models/transformer_lm.py``: the
-single-device serving half of the transformer LM with MoE FFNs.
+single-device serving and training halves of the transformer LM with MoE
+FFNs.
 
 ``n_layers`` causal decoder blocks (pre-LN multi-head attention + pre-LN
 top-k MoE FFN, both with residuals) between an embedding and a vocab
@@ -24,12 +25,20 @@ cache tensors IN PLACE (and returns the same dict): the serving engine
 always rebinds, and in-place writes save a cache-sized copy per step.
 ``lax.scan`` over the layer stack becomes a Python loop over layer index.
 
+Training: ``make_single_device_train_step`` builds the flagship's
+single-device step (plain SGD, or the ``optimizer=`` seam's stateful
+update, with the ``guard=`` and ``with_metrics=`` seams). Gradients come
+from ``torch.autograd``; on a CUDA tensor the attention's backward runs on
+the flash backward kernels through ``ops.flash_attention.FlashAttention``.
+
 The mesh, sharding, pipeline, composed, verify and chunk-prefill step
-factories come with later slices.
+factories, and the ``profile=``/``runprof=``/``tuned=`` seams, come with
+later slices.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
@@ -40,6 +49,8 @@ from deeplearning4j_tpu_torch._device import (
     resolve_device,
     tree_leaves,
     tree_map,
+    tree_unflatten,
+    tree_zip_map,
 )
 from deeplearning4j_tpu_torch.nn.layers.attention import (
     _layernorm,
@@ -47,8 +58,26 @@ from deeplearning4j_tpu_torch.nn.layers.attention import (
     _split_heads,
 )
 from deeplearning4j_tpu_torch.ops.activations import softmax
-from deeplearning4j_tpu_torch.ops.flash_attention import attention_core
-from deeplearning4j_tpu_torch.parallel.moe import _routing
+from deeplearning4j_tpu_torch.ops.flash_attention import (
+    attention_core,
+    resolve_attention_impl,
+)
+from deeplearning4j_tpu_torch.optimize.guardrails import (
+    GuardConfig,
+    guarded_sgd_update,
+)
+from deeplearning4j_tpu_torch.optimize.updaters import (
+    OptimizerConfig,
+    guarded_opt_update,
+    init_opt_state,
+    opt_update,
+)
+from deeplearning4j_tpu_torch.parallel.moe import (
+    _routing,
+    load_balance_loss,
+    router_load_fraction,
+)
+from deeplearning4j_tpu_torch.telemetry.metrics import train_step_metrics
 
 _NEG_INF = -1e30
 
@@ -177,6 +206,239 @@ def lm_forward(params: dict, tokens: torch.Tensor, n_heads: int, attn_core,
         moe_ins.append(flat)
     logits = h @ params["dec_w"] + params["dec_b"]
     return logits, torch.stack(moe_ins)
+
+
+def _task_and_aux(params: dict, tokens: torch.Tensor,
+                  targets: torch.Tensor, n_heads: int, attn_core,
+                  moe_fn) -> tuple:
+    """(task, aux, moe_ins): next-token cross-entropy, the mean over layers
+    of the load-balance aux, and the (L, B·T, d) pre-MoE activations."""
+    logits, moe_ins = lm_forward(params, tokens, n_heads, attn_core, moe_fn)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    routers = params["blocks"]["router"]
+    aux = torch.stack([load_balance_loss(routers[i], moe_ins[i])
+                       for i in range(moe_ins.shape[0])]).mean()
+    return nll.mean(), aux, moe_ins
+
+
+def lm_loss(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
+            n_heads: int, attn_core, moe_fn,
+            aux_weight: float = 1e-2) -> torch.Tensor:
+    """Next-token softmax cross-entropy + the Switch load-balance aux
+    (averaged over layers, so the weight is depth-independent)."""
+    task, aux, _ = _task_and_aux(params, tokens, targets, n_heads,
+                                 attn_core, moe_fn)
+    return task + aux_weight * aux
+
+
+def lm_loss_and_metrics(params: dict, tokens: torch.Tensor,
+                        targets: torch.Tensor, n_heads: int, attn_core,
+                        moe_fn, aux_weight: float = 1e-2,
+                        top_k: int = 2) -> tuple:
+    """``lm_loss`` with a metrics dict: (loss, metrics). The loss is the
+    same op sequence as ``lm_loss``; the metrics only read intermediates:
+    the task/aux split and the per-expert router-load fraction (mean over
+    layers; sums to 1)."""
+    task, aux, moe_ins = _task_and_aux(params, tokens, targets, n_heads,
+                                       attn_core, moe_fn)
+    loss = task + aux_weight * aux
+    routers = params["blocks"]["router"]
+    with torch.no_grad():
+        load = torch.stack([router_load_fraction(routers[i], moe_ins[i],
+                                                 top_k)
+                            for i in range(moe_ins.shape[0])]).mean(0)
+    metrics = {"task_loss": task.detach(), "aux_loss": aux.detach(),
+               "router_load": load}
+    return loss, metrics
+
+
+def selected_attn_impl(seq_len: int, attn_impl: Optional[str] = None) -> str:
+    """The attention core a step with this sequence length will run:
+    per-call arg > global/env override > auto shape gate."""
+    return attn_impl or resolve_attention_impl(seq_len)
+
+
+def dense_loss_fn(n_heads: int, top_k: int = 2, aux_weight: float = 1e-2,
+                  attn_impl: Optional[str] = None,
+                  with_metrics: bool = False):
+    """Single-device loss (dense MoE; attention through the core seam).
+    ``attn_impl=None`` auto-gates by shape: the flash kernels for long T,
+    dense for short. ``with_metrics`` swaps in the (loss, metrics) twin.
+    Returns ``loss_fn(params, tokens, targets)``."""
+    def attn_core(q, k, v):
+        return attention_core(q, k, v, causal=True, impl=attn_impl)
+
+    def moe_fn(rw, ex, x):
+        return dense_moe(rw, ex, x, top_k)
+
+    if with_metrics:
+        return partial(lm_loss_and_metrics, n_heads=n_heads,
+                       attn_core=attn_core, moe_fn=moe_fn,
+                       aux_weight=aux_weight, top_k=top_k)
+    return partial(lm_loss, n_heads=n_heads, attn_core=attn_core,
+                   moe_fn=moe_fn, aux_weight=aux_weight)
+
+
+def lm_value_and_grad(loss_fn, params: dict, tokens, targets,
+                      has_aux: bool = False) -> tuple:
+    """``jax.value_and_grad(loss_fn[, has_aux])(params, tokens, targets)``
+    by torch.autograd: ``(loss, grads)`` or ``((loss, aux), grads)``, with
+    grads a tree shaped like ``params``. Every param leaf is a leaf of the
+    graph (a detached alias, so the caller's tensors gain no grad state)."""
+    leaves = [x.detach().requires_grad_() for x in tree_leaves(params)]
+    with torch.enable_grad():
+        out = loss_fn(tree_unflatten(params, leaves), tokens, targets)
+        loss = out[0] if has_aux else out
+        grads = torch.autograd.grad(loss, leaves)
+    loss = loss.detach()
+    value = (loss, out[1]) if has_aux else loss
+    return value, tree_unflatten(params, list(grads))
+
+
+def init_lm_opt_state(optimizer, params: dict, *,
+                      device: DeviceLike = None) -> dict:
+    """The optimizer state the optimizer-threaded step expects: ``{"m",
+    "v", "count"}`` with zero moments like the params, on ``device`` (CUDA
+    unless ``device="cpu"``). There is no mesh here: the sharded (ZeRO)
+    mode is rejected."""
+    dev = resolve_device(device)
+    cfg = OptimizerConfig.coerce(optimizer)
+    if cfg is None:
+        raise ValueError("init_lm_opt_state needs an optimizer "
+                         "(name or OptimizerConfig)")
+    if cfg.sharded:
+        raise ValueError(
+            "update_sharding='sharded' needs a mesh with a dp axis — "
+            "single-device steps run the replicated update")
+    return init_opt_state(cfg, tree_map(lambda _, x: x.to(dev), params))
+
+
+def _commit(old: dict, new: dict, donate: bool) -> dict:
+    """``new`` as the step's result; with ``donate`` it is written into the
+    tensors of ``old`` in place, which the step then returns."""
+    if not donate:
+        return new
+    with torch.no_grad():
+        for o, n in zip(tree_leaves(old), tree_leaves(new)):
+            if o is not n:
+                o.copy_(n)
+    return old
+
+
+def _loss_and_grads(loss_fn, params, tokens, targets, dev,
+                    with_metrics: bool) -> tuple:
+    """(loss, metrics or None, grads) with the batch moved to ``dev``."""
+    value, grads = lm_value_and_grad(
+        loss_fn, params, torch.as_tensor(tokens, device=dev),
+        torch.as_tensor(targets, device=dev), has_aux=with_metrics)
+    loss, metrics = value if with_metrics else (value, None)
+    return loss, metrics, grads
+
+
+def _make_sgd_step(loss_fn, lr: float, with_metrics: bool, dev,
+                   donate: bool = False, guard=None):
+    """The SGD step: ``step(params, tokens, targets) -> (new_params, loss)``,
+    plus the guard block (``guard``) or the metrics dict
+    (``with_metrics``, guard block merged in) as a third output."""
+    def step(params, tokens, targets):
+        loss, metrics, grads = _loss_and_grads(loss_fn, params, tokens,
+                                               targets, dev, with_metrics)
+        with torch.no_grad():
+            if guard is None:
+                new_params = tree_zip_map(lambda p, g: p - lr * g, params,
+                                          grads)
+                block = None
+            else:
+                new_params, block = guarded_sgd_update(params, grads, loss,
+                                                       lr, guard)
+            if with_metrics:
+                block = {**metrics,
+                         **train_step_metrics(params, grads, lr, loss=loss),
+                         **(block or {})}
+        new_params = _commit(params, new_params, donate)
+        if block is None:
+            return new_params, loss
+        return new_params, loss, block
+
+    return step
+
+
+def _make_opt_step(loss_fn, lr: float, with_metrics: bool,
+                   optimizer: OptimizerConfig, dev, donate: bool = False,
+                   guard=None):
+    """The optimizer-threaded step: ``step(params, opt_state, tokens,
+    targets) -> (new_params, new_opt_state, loss[, metrics/guard
+    block])``. The loss and grads are the SGD step's; only the update
+    differs. With ``donate`` the params and moments are updated in
+    place."""
+    def step(params, opt_state, tokens, targets):
+        loss, metrics, grads = _loss_and_grads(loss_fn, params, tokens,
+                                               targets, dev, with_metrics)
+        with torch.no_grad():
+            if guard is None:
+                out = opt_update(optimizer, params, grads, opt_state, lr,
+                                 with_metrics=with_metrics)
+            else:
+                out = guarded_opt_update(params, grads, opt_state, loss, lr,
+                                         optimizer, guard,
+                                         with_metrics=with_metrics)
+            new_params, new_state = out[0], out[1]
+            block = out[2] if len(out) == 3 else None
+            if with_metrics:
+                # the optimizer block LAST: its true ‖Δp‖/‖p‖ update_ratio
+                # overrides the lr·‖g‖ SGD proxy of train_step_metrics
+                block = {**metrics,
+                         **train_step_metrics(params, grads, lr, loss=loss),
+                         **block}
+        new_params = _commit(params, new_params, donate)
+        new_state = _commit(opt_state, new_state, donate)
+        if block is None:
+            return new_params, new_state, loss
+        return new_params, new_state, loss, block
+
+    return step
+
+
+def make_single_device_train_step(n_heads: int, lr: float = 0.1,
+                                  top_k: int = 2, aux_weight: float = 1e-2,
+                                  attn_impl: Optional[str] = None,
+                                  with_metrics: bool = False,
+                                  donate: bool = False, guard=None,
+                                  optimizer=None, *,
+                                  device: DeviceLike = None):
+    """The flagship's single-device train step (the parity oracle with
+    ``attn_impl="dense"``; the single-chip training path with the default
+    auto core, which sends T >= 1024 through the flash kernels).
+
+    Plain SGD: ``step(params, tokens, targets) -> (params, loss)``. With
+    ``guard=`` (True or a ``GuardConfig``) a third output carries the guard
+    block; with ``with_metrics`` it carries the metrics dict (guard block
+    merged in). With ``optimizer=`` (a name or an ``OptimizerConfig``) the
+    step carries the state from ``init_lm_opt_state``:
+    ``step(params, opt_state, tokens, targets) -> (params, opt_state,
+    loss[, block])``; ``update_sharding="sharded"`` is rejected, as there
+    are no replicas to shard the update over.
+
+    ``donate=True`` writes the new params (and moments) into the incoming
+    tensors in place and returns them: callers rebind, as they do with
+    JAX's donated buffers. The default returns new tensors and leaves the
+    inputs untouched. Tokens and targets (tensors or arrays) are moved to
+    ``device`` (CUDA unless ``device="cpu"``), where the params must be."""
+    dev = resolve_device(device)
+    loss_fn = dense_loss_fn(n_heads, top_k, aux_weight, attn_impl=attn_impl,
+                            with_metrics=with_metrics)
+    guard_cfg = GuardConfig.coerce(guard)
+    opt_cfg = OptimizerConfig.coerce(optimizer)
+    if opt_cfg is None:
+        return _make_sgd_step(loss_fn, lr, with_metrics, dev, donate=donate,
+                              guard=guard_cfg)
+    if opt_cfg.sharded:
+        raise ValueError(
+            "update_sharding='sharded' needs a dp mesh axis — the "
+            "single-device step has no replicas to shard the update over")
+    return _make_opt_step(loss_fn, lr, with_metrics, opt_cfg.resolved(), dev,
+                          donate=donate, guard=guard_cfg)
 
 
 # --------------------------------------------------------------- serving ----

@@ -30,7 +30,9 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
+                            "flash_attention_bwd_dkv": 0,
+                            "flash_attention_bwd_dq": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -45,6 +47,14 @@ _SIGNATURES = {
     "flash_attention_fwd": {
         "dl4j_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _F, _I, _P],
+    },
+    "flash_attention_bwd_dkv": {
+        "dl4j_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                         _I, _I, _I, _F, _I, _P],
+    },
+    "flash_attention_bwd_dq": {
+        "dl4j_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                        _I, _I, _F, _I, _P],
     },
 }
 

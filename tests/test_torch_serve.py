@@ -252,7 +252,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'deeplearning4j_tpu' or "
         "m.startswith('deeplearning4j_tpu.'))\n"
-        "assert len(names) >= 12, names\n"
+        "assert len(names) >= 23, names\n"
+        "for m in ('optimize.guardrails', 'optimize.updaters', "
+        "'telemetry.metrics'):\n"
+        "    assert 'deeplearning4j_tpu_torch.' + m in names, m\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

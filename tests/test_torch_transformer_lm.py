@@ -23,7 +23,10 @@ import torch
 from deeplearning4j_tpu.models import transformer_lm as jlm
 from deeplearning4j_tpu.nn.layers.attention import _layernorm as j_layernorm
 from deeplearning4j_tpu.ops.flash_attention import attention_core as j_core
-from deeplearning4j_tpu_torch.interop import lm_params_from_numpy
+from deeplearning4j_tpu_torch.interop import (
+    lm_params_from_numpy,
+    opt_state_from_numpy,
+)
 from deeplearning4j_tpu_torch.models import transformer_lm as tlm
 from deeplearning4j_tpu_torch.nn.layers.attention import (
     _layernorm as t_layernorm,
@@ -247,6 +250,16 @@ def test_entry_points_raise_without_cuda(np_params):
         lm_params_from_numpy(np_params)
     with pytest.raises(RuntimeError, match="CUDA"):
         tlm.init_kv_cache(L, 2, H, D // H, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tlm.make_single_device_train_step(H)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tlm.make_single_device_train_step(H, optimizer="adam")
+    tp = lm_params_from_numpy(np_params, "cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tlm.init_lm_opt_state("adam", tp)
+    state = {"m": np_params, "v": np_params, "count": np.int32(0)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        opt_state_from_numpy(state)
 
 
 def test_interop_rejects_foreign_tree(np_params):
