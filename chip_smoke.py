@@ -37,10 +37,27 @@ Phases, each fatal on failure:
    attention's (f32), with non-zero grads for wq, wk and wv; two steps of
    the Adam step with guard= and with_metrics= run through the kernels;
    the timed steps run once more under torch.profiler for the busy share;
-5. output: the card's name and power limit from nvidia-smi, one JSON line
-   listing each kernel (K3f at the serving shape, and K3f, K3k, K3q at the
-   training shape with their launches over the timed training run), and as
-   the last line
+5. the MNIST MLP (models/zoo.mnist_mlp at the bench's full width:
+   784-500-300-10, relu, softmax/MCXENT, SGD lr 0.1 momentum 0.9, batch 512,
+   data from synthetic_mnist): the fused-dense kernel K1 against its plain
+   version on the card over 6 shapes x 4 activations x f32/bf16, then its
+   time at both hidden layers' shapes (f32 and bf16) beside its plain
+   version, torch.relu(torch.addmm(b, x, w)) (two calls, a yardstick the
+   port never calls) and the card's bound, timed with the card held busy
+   while the host enqueues each call (device_ms);
+   MultiLayerNetwork.fit_epochs over a ListDataSetIterator, 2 warm-up and
+   MLP_STEPS timed steps (K1 launches exactly 2 x steps; the score on the
+   first timed batch finite and lower after the run);
+   make_train_epoch(conf, 200, donate=True) at f32 and under BF16_COMPUTE
+   on a (200, 512, 784) chunk as bench.measure builds it (400 launches a
+   chunk), a profiled chunk for the busy share;
+   predict on 512 held-out examples (2 launches, accuracy above 0.9); one
+   step's loss and grads through K1 against the plain dense route (f32);
+6. output: the card's name and power limit from nvidia-smi, one JSON line
+   listing each kernel (K3f at the serving shape; K3f, K3k, K3q at the
+   training shape with their launches over the timed training run; K1 at
+   both MLP layer shapes with its launches over the timed fit_epochs run),
+   and as the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Parity phases run with TF32 off (torch.backends.cuda.matmul.allow_tf32 and
@@ -98,6 +115,22 @@ OPT_METRICS = {"loss", "task_loss", "aux_loss", "router_load", "grad_norm",
                "param_norm", "update_ratio", "moment_norm_m",
                "moment_norm_v", "nonfinite", "clipped", "guard_grad_norm"}
 
+# the MNIST MLP at the bench's width (bench.py:53-59, models/zoo.mnist_mlp)
+MLP_H1, MLP_H2, MLP_BATCH = 500, 300, 512
+MLP_WARMUP, MLP_STEPS, EPOCH_STEPS = 2, 50, 200
+HELD_OUT = 512
+# K1 parity: (M, K, N) with both MLP layers, a wider K, the head's shape and
+# ragged edges; error is max abs error over the reference's max abs value:
+# f32 sums in another order (~1e-6 expected), bf16 rounds once (2^-8)
+DENSE_SHAPES = ((512, 784, 500), (512, 500, 300), (512, 1024, 512),
+                (100, 300, 10), (5, 7, 3), (1, 1, 1))
+DENSE_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# K1 vs the plain dense route, one MLP step at f32: loss absolute; grads as
+# max abs error over the leaf's max. Looser than f32 rounding: at batch 512
+# a hidden unit within f32 noise of 0 can switch between the two runs (the
+# ReLU-kink finding of the LM training grads)
+MLP_LOSS_TOL, MLP_GRAD_TOL = 1e-5, 1e-3
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -121,6 +154,35 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+# cycles of torch.cuda._sleep ahead of each timed call in device_ms: about
+# 1 ms at the H100's clocks, longer than the host takes to enqueue the call
+SLEEP_CYCLES = 2_000_000
+
+
+def device_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+    """Median device time of one call of ``fn`` (CUDA events) with the
+    host's launch cost kept out: the card sleeps while the host enqueues
+    the start event and the call, so the interval holds only the call's
+    kernels. ``time_ms``'s interval also holds the host's enqueue time when
+    the card idles meanwhile, which matters for calls of tens of us."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -665,6 +727,275 @@ def optimizer_path() -> None:
                              f"{int(state['count'])}, metrics {values}")
 
 
+# ------------------------------------------------------------- phase 5 ----
+
+def _dense_inputs(m, k, n, dtype, seed):
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.rand((m, k), generator=gen, device=DEVICE)
+    w = torch.randn((k, n), generator=gen, device=DEVICE) / k ** 0.5
+    b = torch.randn((n,), generator=gen, device=DEVICE) * 0.1
+    return x.to(dtype), w.to(dtype), b.to(dtype)
+
+
+def dense_parity() -> None:
+    """K1 against ``fused_dense_reference`` on the card."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import pallas_kernels as pk
+
+    n = 0
+    for m, k, nn in DENSE_SHAPES:
+        for act in pk._FUSABLE:
+            for dtype in (torch.float32, torch.bfloat16):
+                x, w, b = _dense_inputs(m, k, nn, dtype, seed=m + k + nn)
+                got = pk.fused_dense_fwd(x, w, b, act)
+                want = pk.fused_dense_reference(x, w, b, act)
+                sync()
+                tol = DENSE_TOL[str(dtype).split(".")[1]]
+                err = _rel_err(got, want)
+                ok = (got.dtype == dtype and tuple(got.shape) == (m, nn)
+                      and err <= tol
+                      and torch.isfinite(got.float()).all().item())
+                log(f"[parity] fused_dense {m}x{k}x{nn} {act} {dtype}: rel "
+                    f"err {err:.3g} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(
+                        f"fused_dense kernel disagrees with its plain version "
+                        f"at {m}x{k}x{nn} {act} {dtype}: {err} (tol {tol})")
+                n += 1
+    log(f"[parity] fused_dense: {n} cases agree")
+
+
+def dense_measure() -> list:
+    """K1 at both hidden layers of the MLP (relu), f32 and bf16: its time,
+    its plain version's, torch.relu(torch.addmm(b, x, w)) (two calls, a
+    yardstick the port never calls), all by ``device_ms``, and the bound;
+    beside them K1 by ``time_ms`` (host launch included). Operands stay
+    resident in the 50 MB L2 between calls, as they are when the step has
+    just written them. Returns the f32 entries of the kernels line."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import pallas_kernels as pk
+
+    entries = []
+    for layer, (k, n) in enumerate(((784, MLP_H1), (MLP_H1, MLP_H2))):
+        m = MLP_BATCH
+        for dtype, peak in ((torch.float32, PEAK_F32_FLOPS),
+                            (torch.bfloat16, PEAK_BF16_FLOPS)):
+            x, w, b = _dense_inputs(m, k, n, dtype, seed=40 + layer)
+            got = pk.fused_dense_fwd(x, w, b, "relu")
+            want = pk.fused_dense_reference(x, w, b, "relu")
+            err = (got.float() - want.float()).abs().max().item()
+            ms = device_ms(lambda: pk.fused_dense_fwd(x, w, b, "relu"))
+            plain = device_ms(lambda: pk.fused_dense_reference(x, w, b,
+                                                               "relu"))
+            lib = device_ms(lambda: torch.relu(torch.addmm(b, x, w)))
+            host_ms = time_ms(lambda: pk.fused_dense_fwd(x, w, b, "relu"))
+            elt = x.element_size()
+            entry = _kernel_entry(
+                "fused_dense", "deeplearning4j_tpu/ops/pallas_kernels.py:79",
+                ms, plain, 2.0 * m * k * n, elt * (m * k + k * n + n + m * n),
+                peak, err, lib,
+                f"layer {layer}: ({m},{k})@({k},{n}) relu {str(dtype)[6:]}",
+                library_covers="torch.relu(torch.addmm(b, x, w)): two calls",
+                launches_cover="both MLP layers over the timed fit_epochs "
+                               "run", ms_with_launch=host_ms)
+            log(f"[measure] fused_dense {entry['shape']}: kernel "
+                f"{ms:.4f} ms ({host_ms:.4f} ms with the host's launch in "
+                f"the interval), plain {plain:.4f} ms, addmm+relu "
+                f"{lib:.4f} ms, "
+                f"bound {entry['bound_ms'] * 1e3:.3f} us ({entry['bound_by']}:"
+                f" {2.0 * m * k * n / 1e9:.3f} GFLOP, "
+                f"{elt * (m * k + k * n + n + m * n) / 1e6:.2f} MB); kernel "
+                f"at {2.0 * m * k * n / ms / 1e9:.2f} TFLOP/s; max abs err "
+                f"{err:.3g}")
+            if dtype == torch.float32:
+                entries.append(entry)
+    return entries
+
+
+def _mnist(n: int, seed: int):
+    """``n`` synthetic MNIST examples and one-hot labels (numpy)."""
+    from deeplearning4j_tpu_torch.datasets.fetchers import synthetic_mnist
+
+    x, y = synthetic_mnist(n, seed=seed)
+    return x, np.eye(10, dtype=np.float32)[y]
+
+
+def mlp_fit() -> dict:
+    """The facade's main path: MultiLayerNetwork(mnist_mlp()).fit_epochs
+    over a ListDataSetIterator at batch MLP_BATCH, MLP_WARMUP warm-up steps
+    then MLP_STEPS timed steps (K1 counted from 0 over exactly those), then
+    predict on HELD_OUT held-out examples (counted alone)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.models.zoo import mnist_mlp
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import _kernels
+
+    b, w = MLP_BATCH, MLP_WARMUP
+    x, y = _mnist(b * (w + MLP_STEPS), seed=7)
+    net = MultiLayerNetwork(mnist_mlp(MLP_H1, MLP_H2), device=DEVICE).init()
+    net.fit_epochs(ListDataSetIterator(DataSet(x[:w * b], y[:w * b]), b))
+    first = DataSet(x[w * b:(w + 1) * b], y[w * b:(w + 1) * b])
+    score0 = net.score(first)
+    timed = ListDataSetIterator(DataSet(x[w * b:], y[w * b:]), b)
+    sync()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    net.fit_epochs(timed)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = _kernels.LAUNCHES["fused_dense"]
+    score1 = net.score(first)
+    if launches != 2 * MLP_STEPS:
+        raise AssertionError(f"fused_dense launched {launches} times over "
+                             f"{MLP_STEPS} steps, expected 2 per step")
+    if not (np.isfinite([score0, score1]).all() and score1 < score0):
+        raise AssertionError(f"MLP score on the first timed batch "
+                             f"{score0} -> {score1}: not finite or not "
+                             "falling")
+    hx, hy = _mnist(HELD_OUT, seed=8)
+    _kernels.reset_launches()
+    pred = net.predict(hx)
+    predict_launches = _kernels.LAUNCHES["fused_dense"]
+    accuracy = float((pred == hy.argmax(-1)).mean())
+    if predict_launches != 2 or not accuracy > 0.9:
+        raise AssertionError(f"predict: {predict_launches} launches "
+                             f"(expected 2), accuracy {accuracy}")
+    ms = wall * 1e3 / MLP_STEPS
+    out = {"steps": MLP_STEPS, "batch": b, "wall_s": wall,
+           "ms_per_step": ms, "samples_per_s": b * 1e3 / ms,
+           "score_first_batch": [score0, score1], "launches": launches,
+           "predict_launches": predict_launches,
+           "held_out_accuracy": accuracy}
+    log(f"[mlp] fit_epochs {json.dumps(out)}")
+    return out
+
+
+def mlp_epoch(bf16: bool, profiled: bool = False) -> dict:
+    """make_train_epoch(conf, EPOCH_STEPS, donate=True) on one
+    (EPOCH_STEPS, MLP_BATCH, 784) chunk of synthetic_mnist, as
+    bench.measure("mlp") builds it: a warm-up chunk, then one timed chunk
+    with K1 counted from 0 over it. With ``profiled`` the timed chunk runs
+    under torch.profiler for the device busy share."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.models.zoo import mnist_mlp
+    from deeplearning4j_tpu_torch.nn import functional as F
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.ops.dtypes import BF16_COMPUTE
+
+    conf = mnist_mlp(MLP_H1, MLP_H2)
+    params = F.init_params(conf, 0, device=DEVICE)
+    states = F.init_train_state(conf, params)
+    epoch = F.make_train_epoch(conf, EPOCH_STEPS, donate=True,
+                               policy=BF16_COMPUTE if bf16 else None)
+    x, y = _mnist(MLP_BATCH * EPOCH_STEPS, seed=7)
+    xs = torch.from_numpy(x).to(DEVICE).reshape(EPOCH_STEPS, MLP_BATCH, -1)
+    ys = torch.from_numpy(y).to(DEVICE).reshape(EPOCH_STEPS, MLP_BATCH, -1)
+    params, states, warm = epoch(params, states, 0, xs, ys, 1)
+    warm = warm.tolist()
+    ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+           if profiled else contextlib.nullcontext())
+    _kernels.reset_launches()
+    with ctx as prof:
+        t0 = time.perf_counter()
+        params, states, scores = epoch(params, states, EPOCH_STEPS, xs, ys, 2)
+        sync()
+        wall = time.perf_counter() - t0
+    launches = _kernels.LAUNCHES["fused_dense"]
+    scores = scores.tolist()
+    if launches != 2 * EPOCH_STEPS:
+        raise AssertionError(f"fused_dense launched {launches} times over a "
+                             f"{EPOCH_STEPS}-step chunk, expected "
+                             f"{2 * EPOCH_STEPS}")
+    if not (np.isfinite(warm + scores).all() and warm[-1] < warm[0]):
+        raise AssertionError(f"epoch scores not finite or not falling: "
+                             f"{warm[0]} -> {warm[-1]}, {scores[-1]}")
+    ms = wall * 1e3 / EPOCH_STEPS
+    out = {"policy": "bf16" if bf16 else "f32", "profiled": profiled,
+           "steps": EPOCH_STEPS, "batch": MLP_BATCH, "wall_s": wall,
+           "ms_per_step": ms, "samples_per_s": MLP_BATCH * 1e3 / ms,
+           "launches": launches, "first_chunk_scores": [warm[0], warm[-1]],
+           "last_score": scores[-1]}
+    if profiled:
+        from torch.autograd import DeviceType
+
+        out.update(device_busy(prof, wall))
+        out["device_ops_per_step"] = sum(
+            e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA) / EPOCH_STEPS
+    log(f"[mlp] train_epoch {json.dumps(out)}")
+    return out
+
+
+def mlp_grad_parity() -> None:
+    """One MLP step's loss and grads (batch 512, f32, TF32 off) through K1
+    against the plain dense route (set_fused_dense(False): pre_output +
+    relu), from one set of params and one batch."""
+    import torch
+
+    from deeplearning4j_tpu_torch._device import tree_leaves, tree_unflatten
+    from deeplearning4j_tpu_torch.models.zoo import mnist_mlp
+    from deeplearning4j_tpu_torch.nn import functional as F
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.ops import pallas_kernels as pk
+
+    conf = mnist_mlp(MLP_H1, MLP_H2)
+    params = F.init_params(conf, 3, device=DEVICE)
+    x, y = (torch.from_numpy(a).to(DEVICE) for a in _mnist(MLP_BATCH, 9))
+
+    def loss_and_grads(fused):
+        pk.set_fused_dense(fused)
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        _kernels.reset_launches()
+        loss = F.network_loss(conf, tree_unflatten(params, leaves), x, y,
+                              train=True)
+        grads = torch.autograd.grad(loss, leaves)
+        return float(loss.detach()), grads, _kernels.LAUNCHES["fused_dense"]
+
+    try:
+        kl, kg, k_launches = loss_and_grads(True)
+        dl, dg, d_launches = loss_and_grads(False)
+    finally:
+        pk.set_fused_dense(None)
+    names = [f"{i}.{key}" for i in range(conf.n_layers) for key in ("W", "b")]
+    errs = {n: _rel_err(g, w) for n, g, w in zip(names, kg, dg)}
+    loss_err = abs(kl - dl)
+    log(f"[parity] MLP step K1 vs plain dense, f32, batch {MLP_BATCH}: loss "
+        f"{kl:.7f} vs {dl:.7f} (abs err {loss_err:.3g}), grad rel err per "
+        f"leaf {json.dumps(errs)}; launches {k_launches} vs {d_launches}")
+    if not (loss_err <= MLP_LOSS_TOL and max(errs.values()) <= MLP_GRAD_TOL
+            and k_launches == 2 and d_launches == 0
+            and all(torch.isfinite(g).all().item() for g in kg)):
+        raise AssertionError(f"MLP grads through K1 vs plain dense: loss err "
+                             f"{loss_err} (tol {MLP_LOSS_TOL}), grad errs "
+                             f"{errs} (tol {MLP_GRAD_TOL}), launches "
+                             f"{k_launches}/{d_launches}")
+
+
+def mlp() -> list:
+    """Phase 5; returns K1's entries of the kernels line."""
+    dense_parity()
+    entries = dense_measure()
+    main_run = mlp_fit()
+    for entry in entries:
+        entry["launches"] = main_run["launches"]
+    mlp_epoch(bf16=False)
+    mlp_epoch(bf16=True)
+    mlp_epoch(bf16=False, profiled=True)
+    mlp_grad_parity()
+    return entries
+
+
 # ---------------------------------------------------------------- main ----
 
 def main() -> int:
@@ -708,8 +1039,11 @@ def main() -> int:
     optimizer_path()
     train(profiled=True)
 
+    mlp_entries = mlp()
+
     print(smi)
-    print(json.dumps({"kernels": [serve_entry, *train_entries]}))
+    print(json.dumps({"kernels": [serve_entry, *train_entries,
+                                  *mlp_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

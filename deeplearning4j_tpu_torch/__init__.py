@@ -13,4 +13,9 @@ make_single_device_train_step`` with the ``optimize`` updaters and
 guardrails, its attention differentiated by ``ops.flash_attention.
 FlashAttention`` over that kernel and the backward pair in
 ``csrc/flash_attention_bwd_dkv.cu`` and ``csrc/flash_attention_bwd_dq.cu``.
+Slice 3 is MultiLayerNetwork training and inference of the MNIST MLP:
+``nn.multilayer.MultiLayerNetwork`` over ``nn.functional`` (confs, params,
+dense and output layers, the updater), its dense layers' forward on the
+hand-written fused-dense kernel in ``csrc/fused_dense.cu``
+(``ops.pallas_kernels.fused_dense``).
 """

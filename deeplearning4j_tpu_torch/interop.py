@@ -7,6 +7,11 @@ port's.
 tree: the same nested dict, the same keys, the same layouts ((L, ...)
 stacked blocks, weights stored (in, out)), as torch tensors. The two
 packages then compute the same function.
+
+``mln_params_from_numpy`` does the same for a ``MultiLayerNetwork``'s
+params (a tuple of per-layer ``{"W", "b"}`` dicts, weights (n_in, n_out)),
+and ``updater_state_from_numpy`` for its updater state (a tuple of
+``{"hist", "v"}`` trees).
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ _LM_KEYS = ("embed", "blocks", "dec_w", "dec_b")
 _BLOCK_KEYS = ("ln_g", "ln_b", "wq", "wk", "wv", "wo", "ln2_g", "ln2_b",
                "router", "experts")
 _EXPERT_KEYS = ("w1", "b1", "w2", "b2")
+_LAYER_KEYS = ("W", "b")
+_UPDATER_KEYS = ("hist", "v")
 
 
 def _check_keys(tree: dict, keys: tuple, where: str) -> None:
@@ -75,9 +82,45 @@ def opt_state_from_numpy(state: dict, device: DeviceLike = None) -> dict:
                                   dtype=torch.int32, device=dev)}
 
 
+def _check_layers(layers, what: str) -> None:
+    if not isinstance(layers, (tuple, list)):
+        raise ValueError(f"{what} must be a tuple of per-layer dicts, got "
+                         f"{type(layers).__name__}")
+
+
+def mln_params_from_numpy(params, device: DeviceLike = None,
+                          dtype: Optional[torch.dtype] = None) -> tuple:
+    """The JAX ``MultiLayerNetwork``'s params (a tuple of ``{"W", "b"}``
+    dicts with numpy leaves, ``W`` stored (n_in, n_out)) as the port's
+    tuple of dicts of tensors, same keys and layouts, on ``device`` (CUDA
+    unless ``device="cpu"``). ``dtype`` casts every leaf (None keeps the
+    stored dtype). Raises on a layer with another key set."""
+    dev = resolve_device(device)
+    _check_layers(params, "the network params")
+    for i, layer in enumerate(params):
+        _check_keys(layer, _LAYER_KEYS, f"params[{i}]")
+    return tuple(tree_map(lambda _, x: _to_tensor(x, dev, dtype), layer)
+                 for layer in params)
+
+
+def updater_state_from_numpy(states, device: DeviceLike = None) -> tuple:
+    """The JAX network's updater state (a tuple of ``{"hist": {"W", "b"},
+    "v": {"W", "b"}}`` with numpy leaves) as the port's, on ``device``
+    (CUDA unless ``device="cpu"``)."""
+    dev = resolve_device(device)
+    _check_layers(states, "the updater state")
+    for i, st in enumerate(states):
+        _check_keys(st, _UPDATER_KEYS, f"states[{i}]")
+        for k in _UPDATER_KEYS:
+            _check_keys(st[k], _LAYER_KEYS, f"states[{i}]['{k}']")
+    return tuple(tree_map(lambda _, x: _to_tensor(x, dev, None), st)
+                 for st in states)
+
+
 def tree_to_numpy(tree):
-    """A nested dict of tensors as a nested dict of numpy arrays (bf16
-    widened exactly to float32: numpy has no bfloat16 of its own)."""
+    """A tree (dicts, tuples, lists) of tensors as the same tree of numpy
+    arrays (bf16 widened exactly to float32: numpy has no bfloat16 of its
+    own)."""
     def one(_, x):
         x = x.detach().cpu()
         return (x.float() if x.dtype == torch.bfloat16 else x).numpy()

@@ -46,6 +46,7 @@ import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch._device import (
     DeviceLike,
+    commit,
     resolve_device,
     tree_leaves,
     tree_map,
@@ -314,18 +315,6 @@ def init_lm_opt_state(optimizer, params: dict, *,
     return init_opt_state(cfg, tree_map(lambda _, x: x.to(dev), params))
 
 
-def _commit(old: dict, new: dict, donate: bool) -> dict:
-    """``new`` as the step's result; with ``donate`` it is written into the
-    tensors of ``old`` in place, which the step then returns."""
-    if not donate:
-        return new
-    with torch.no_grad():
-        for o, n in zip(tree_leaves(old), tree_leaves(new)):
-            if o is not n:
-                o.copy_(n)
-    return old
-
-
 def _loss_and_grads(loss_fn, params, tokens, targets, dev,
                     with_metrics: bool) -> tuple:
     """(loss, metrics or None, grads) with the batch moved to ``dev``."""
@@ -356,7 +345,7 @@ def _make_sgd_step(loss_fn, lr: float, with_metrics: bool, dev,
                 block = {**metrics,
                          **train_step_metrics(params, grads, lr, loss=loss),
                          **(block or {})}
-        new_params = _commit(params, new_params, donate)
+        new_params = commit(params, new_params, donate)
         if block is None:
             return new_params, loss
         return new_params, loss, block
@@ -391,8 +380,8 @@ def _make_opt_step(loss_fn, lr: float, with_metrics: bool,
                 block = {**metrics,
                          **train_step_metrics(params, grads, lr, loss=loss),
                          **block}
-        new_params = _commit(params, new_params, donate)
-        new_state = _commit(opt_state, new_state, donate)
+        new_params = commit(params, new_params, donate)
+        new_state = commit(opt_state, new_state, donate)
         if block is None:
             return new_params, new_state, loss
         return new_params, new_state, loss, block

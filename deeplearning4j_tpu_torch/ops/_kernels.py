@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                             "flash_attention_bwd_dkv": 0,
-                            "flash_attention_bwd_dq": 0}
+                            "flash_attention_bwd_dq": 0,
+                            "fused_dense": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -55,6 +56,9 @@ _SIGNATURES = {
     "flash_attention_bwd_dq": {
         "dl4j_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
                                         _I, _I, _F, _I, _P],
+    },
+    "fused_dense": {
+        "dl4j_fused_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
 }
 
