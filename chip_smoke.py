@@ -53,11 +53,32 @@ Phases, each fatal on failure:
    chunk), a profiled chunk for the busy share;
    predict on 512 held-out examples (2 launches, accuracy above 0.9); one
    step's loss and grads through K1 against the plain dense route (f32);
-6. output: the card's name and power limit from nvidia-smi, one JSON line
+6. the char-LSTM (models/zoo.char_lstm at the bench's lstm_wide width:
+   vocab and hidden 512, batch 64, sequence 64, one-hot random tokens as
+   bench.py makes them): the LSTM-cell kernel K2 against its plain version
+   on the card over 6 shapes x f32/bf16/mixed inputs, then its time at
+   both bench shapes (64x512, 256x128) beside its plain version, ATen's
+   _thnn_fused_lstm_cell (a yardstick the port never calls) and the bound;
+   MultiLayerNetwork.fit_epochs, 2 warm-up and LSTM_STEPS timed steps at
+   lr 0.01 (K2 launches exactly 64 x steps; the score on the first timed
+   batch finite and lower after the run); make_train_epoch(conf, 8,
+   donate=True) chunks at f32, under BF16_COMPUTE, with
+   set_lstm_gates(False) (the bench's _nokernels twin) and profiled (busy
+   share, K2's share of device time); predict on a held-out batch (64
+   launches, (64, 64) tokens); one step's loss and grads through K2
+   against the plain cell (f32);
+7. the attention char-LM (models/zoo.char_attention_lm at the bench's
+   attn_long width: vocab 128, d_model 512, 4 heads, batch 4, T=2048):
+   fit_epochs, 2 warm-up and ATTN_STEPS timed steps with the auto core
+   (K3f, K3k and K3q each launch once a step), output on one batch (one
+   K3f launch), one step's loss and grads through the kernels against
+   dense attention (f32) with non-zero grads for wq, wk and wv;
+8. output: the card's name and power limit from nvidia-smi, one JSON line
    listing each kernel (K3f at the serving shape; K3f, K3k, K3q at the
    training shape with their launches over the timed training run; K1 at
-   both MLP layer shapes with its launches over the timed fit_epochs run),
-   and as the last line
+   both MLP layer shapes with its launches over the timed fit_epochs run;
+   K2 at both bench shapes with its launches over the timed char-LSTM
+   fit_epochs run), and as the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Parity phases run with TF32 off (torch.backends.cuda.matmul.allow_tf32 and
@@ -455,6 +476,12 @@ def _kernel_admissions(engine, reqs) -> int:
                in ("flash", "blockwise") for r in reqs)
 
 
+def _self_us(event) -> float:
+    """A profiler event's self time on the card, in us."""
+    return (getattr(event, "self_device_time_total", None)
+            or event.self_cuda_time_total)
+
+
 def device_busy(prof, wall_s: float) -> dict:
     """Device busy time (sum of kernel self times on the card) against the
     run's wall time, and the kernels that take most of it."""
@@ -462,13 +489,11 @@ def device_busy(prof, wall_s: float) -> dict:
 
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-    self_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
-                                None) or e.self_cuda_time_total
-    busy_ms = sum(self_us(e) for e in kernels) / 1e3
-    top = sorted(kernels, key=self_us, reverse=True)[:6]
+    busy_ms = sum(_self_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=_self_us, reverse=True)[:6]
     return {"device_busy_ms": busy_ms, "wall_ms": wall_s * 1e3,
             "busy_share": busy_ms / (wall_s * 1e3),
-            "top_kernels_ms": {e.key[:60]: self_us(e) / 1e3 for e in top}}
+            "top_kernels_ms": {e.key[:60]: _self_us(e) / 1e3 for e in top}}
 
 
 def serve(params, attn_impl, prompt_lens, seed, profiled=False) -> dict:
@@ -996,6 +1021,492 @@ def mlp() -> list:
     return entries
 
 
+# ------------------------------------------------------------- phase 6 ----
+
+# the bench's widest char-LSTM, lstm_wide (bench.py:93, :203-206, :232-235):
+# char_lstm(vocab=512), hidden 512, batch 64, sequence 64, chunk 8
+LSTM_VOCAB, LSTM_BATCH, LSTM_SEQ, LSTM_CHUNK = 512, 64, 64, 8
+LSTM_WARMUP, LSTM_STEPS = 2, 10
+# fit_epochs's learning check trains at lr 0.01. At the zoo's lr 0.1,
+# AdaGrad's near-sign first steps move every one of the 2.4M weights by
+# ~0.1 and throw the score on random tokens far above ln(512), in both
+# packages; the timed chunks keep the bench's conf (lr 0.1), whose speed
+# does not depend on the rate
+LSTM_FIT_LR = 0.01
+# K2 parity shapes (B, H): both bench shapes (lstm_wide, lstm: bench.py:86,
+# :203), the TPU gate's smallest, the widest H the TPU took, ragged ones
+LSTM_CELL_SHAPES = ((64, 512), (256, 128), (8, 128), (100, 2048), (3, 10),
+                    (1, 1))
+LSTM_BENCH_SHAPES = ((LSTM_BATCH, LSTM_VOCAB), (256, 128))
+# K2 against its plain version: at f32 within 1e-6 of max(1, |ref|) (both
+# compute the same f32 ops with expf/tanhf, no fused multiply-add); at bf16
+# within one bf16 step (2^-7 of the larger magnitude): both round one f32
+# value once, which may differ in its last f32 ulp
+CELL_F32_TOL, BF16_STEP = 1e-6, 2.0 ** -7
+# ~25 f32 operations an element (3 sigmoids, 2 tanh, 3 products, 1 sum; a
+# transcendental counted as 4): far below the bytes at any shape
+CELL_OPS_PER_ELT = 25
+# one LSTM step through K2 against set_lstm_gates(False), f32: loss
+# absolute, grads as max abs error over the leaf's max (the two cells
+# compute the same f32 ops; 64 timesteps of recurrence may carry an ulp)
+LSTM_LOSS_TOL, LSTM_GRAD_TOL = 1e-5, 1e-4
+
+
+def _one_hot_tokens(shape, vocab: int, seed: int):
+    """Next-token data as bench.py:268-274 makes it: random tokens of
+    ``shape + (seq + 1,)`` one-hot encoded; x the first seq, y the next
+    (numpy f32)."""
+    toks = np.random.RandomState(seed).randint(0, vocab, shape)
+    eye = np.eye(vocab, dtype=np.float32)
+    return eye[toks[..., :-1]], eye[toks[..., 1:]]
+
+
+def _cell_inputs(b, h, ifog_dtype, c_dtype, seed):
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    ifog = 2 * torch.randn((b, 4 * h), generator=gen, device=DEVICE)
+    c = torch.randn((b, h), generator=gen, device=DEVICE)
+    return ifog.to(ifog_dtype), c.to(c_dtype)
+
+
+def _cell_err(got, want) -> tuple:
+    """(max abs error, within tolerance) of one K2 output against the
+    plain version's, by the output's dtype."""
+    import torch
+
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    if got.dtype == torch.float32:
+        ok = bool((diff <= CELL_F32_TOL * w.abs().clamp_min(1.0)).all())
+    else:
+        ok = bool((diff <= BF16_STEP * torch.maximum(g.abs(), w.abs())).all())
+    return diff.max().item(), ok
+
+
+def lstm_cell_parity() -> None:
+    """K2 against ``lstm_gates_reference`` on the card at every shape of
+    LSTM_CELL_SHAPES, for f32, bf16 and both mixes of input types."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import pallas_kernels as pk
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    n = 0
+    for b, h in LSTM_CELL_SHAPES:
+        for ifog_dt, c_dt in ((f32, f32), (bf16, bf16), (bf16, f32),
+                              (f32, bf16)):
+            ifog, c = _cell_inputs(b, h, ifog_dt, c_dt, seed=b + h)
+            got = pk.lstm_gates_fwd(ifog, c)
+            want = pk.lstm_gates_reference(ifog, c)
+            sync()
+            checks = [_cell_err(g, w) for g, w in zip(got, want)]
+            ok = (all(c_ok for _, c_ok in checks)
+                  and all(g.dtype == c_dt and tuple(g.shape) == (b, h)
+                          and torch.isfinite(g.float()).all().item()
+                          for g in got))
+            log(f"[parity] lstm_gates B={b} H={h} ifog {str(ifog_dt)[6:]} "
+                f"c {str(c_dt)[6:]}: max abs err c_new {checks[0][0]:.3g} "
+                f"h_new {checks[1][0]:.3g} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(
+                    f"lstm_gates kernel disagrees with its plain version at "
+                    f"B={b} H={h} ifog {ifog_dt} c {c_dt}: {checks}")
+            n += 1
+    log(f"[parity] lstm_gates: {n} cases agree")
+
+
+def lstm_cell_measure() -> list:
+    """K2 at both bench shapes, f32 (the training path's type) and bf16:
+    its time, its plain version's and ATen's own CUDA LSTM cell's
+    (``_thnn_fused_lstm_cell`` on pre-permuted i,f,g,o inputs with zero
+    hidden gates, a yardstick the port never calls), all by ``device_ms``,
+    and the bound; beside them K2 by ``time_ms`` (host launch included).
+    Returns the f32 entries of the kernels line."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import pallas_kernels as pk
+
+    entries = []
+    for b, h in LSTM_BENCH_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            ifog, c = _cell_inputs(b, h, dtype, dtype, seed=50 + h)
+            got = pk.lstm_gates_fwd(ifog, c)
+            want = pk.lstm_gates_reference(ifog, c)
+            err = max(_cell_err(g, w)[0] for g, w in zip(got, want))
+            ms = device_ms(lambda: pk.lstm_gates_fwd(ifog, c))
+            plain = device_ms(lambda: pk.lstm_gates_reference(ifog, c))
+            host_ms = time_ms(lambda: pk.lstm_gates_fwd(ifog, c))
+            gates = torch.cat([ifog[:, :2 * h], ifog[:, 3 * h:],
+                               ifog[:, 2 * h:3 * h]], dim=1).contiguous()
+            zeros = torch.zeros_like(gates)
+            fused = getattr(torch.ops.aten, "_thnn_fused_lstm_cell", None)
+            lib, lib_note = None, ("this torch has no "
+                                   "aten._thnn_fused_lstm_cell")
+            if fused is not None:
+                lib = device_ms(lambda: fused(gates, zeros, c))
+                lib_note = ("aten._thnn_fused_lstm_cell(input_gates, "
+                            "hidden_gates=0, cx): gate order i,f,g,o, "
+                            "inputs pre-permuted; reads one more (B, 4H)")
+            elt = c.element_size()
+            entry = _kernel_entry(
+                "lstm_gates", "deeplearning4j_tpu/ops/pallas_kernels.py:176",
+                ms, plain, float(CELL_OPS_PER_ELT * b * h), 7 * b * h * elt,
+                PEAK_F32_FLOPS, err, lib,
+                f"B={b} H={h} {str(dtype)[6:]}", library_covers=lib_note,
+                launches_cover="64 timesteps x the timed fit_epochs steps",
+                ms_with_launch=host_ms)
+            log(f"[measure] lstm_gates {entry['shape']}: kernel {ms:.4f} ms "
+                f"({host_ms:.4f} ms with the host's launch in the interval),"
+                f" plain {plain:.4f} ms, library "
+                f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+                f"{entry['bound_ms'] * 1e3:.3f} us ({entry['bound_by']}: "
+                f"{7 * b * h * elt / 1e6:.3f} MB); max abs err {err:.3g}")
+            if dtype == torch.float32:
+                entries.append(entry)
+    return entries
+
+
+def _lstm_conf(lr: float = 0.1):  # the zoo's rate
+    from deeplearning4j_tpu_torch.models.zoo import char_lstm
+
+    return char_lstm(vocab=LSTM_VOCAB, lr=lr)
+
+
+def lstm_fit() -> dict:
+    """The facade's main path on the char-LSTM: MultiLayerNetwork
+    .fit_epochs over a ListDataSetIterator at batch 64, LSTM_WARMUP warm-up
+    steps then LSTM_STEPS timed steps (K2 counted from 0 over exactly
+    those: 64 a step), then predict on a held-out batch (counted alone)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import _kernels
+
+    b, w = LSTM_BATCH, LSTM_WARMUP
+    x, y = _one_hot_tokens((b * (w + LSTM_STEPS), LSTM_SEQ + 1), LSTM_VOCAB,
+                           seed=7)
+    net = MultiLayerNetwork(_lstm_conf(LSTM_FIT_LR), device=DEVICE).init()
+    net.fit_epochs(ListDataSetIterator(DataSet(x[:w * b], y[:w * b]), b))
+    first = DataSet(x[w * b:(w + 1) * b], y[w * b:(w + 1) * b])
+    score0 = net.score(first)
+    timed = ListDataSetIterator(DataSet(x[w * b:], y[w * b:]), b)
+    sync()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    net.fit_epochs(timed)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = _kernels.LAUNCHES["lstm_gates"]
+    score1 = net.score(first)
+    if launches != LSTM_SEQ * LSTM_STEPS:
+        raise AssertionError(f"lstm_gates launched {launches} times over "
+                             f"{LSTM_STEPS} steps, expected {LSTM_SEQ} per "
+                             "step")
+    if not (np.isfinite([score0, score1]).all() and score1 < score0):
+        raise AssertionError(f"LSTM score on the first timed batch "
+                             f"{score0} -> {score1}: not finite or not "
+                             "falling")
+    hx, _ = _one_hot_tokens((b, LSTM_SEQ + 1), LSTM_VOCAB, seed=8)
+    _kernels.reset_launches()
+    pred = net.predict(hx)
+    predict_launches = _kernels.LAUNCHES["lstm_gates"]
+    if predict_launches != LSTM_SEQ or pred.shape != (b, LSTM_SEQ):
+        raise AssertionError(f"predict: {predict_launches} launches "
+                             f"(expected {LSTM_SEQ}), shape {pred.shape}")
+    ms = wall * 1e3 / LSTM_STEPS
+    out = {"steps": LSTM_STEPS, "batch": [b, LSTM_SEQ], "lr": LSTM_FIT_LR,
+           "wall_s": wall, "ms_per_step": ms, "samples_per_s": b * 1e3 / ms,
+           "tokens_per_s": b * LSTM_SEQ * 1e3 / ms,
+           "score_first_batch": [score0, score1], "launches": launches,
+           "predict_launches": predict_launches,
+           "predict_shape": list(pred.shape)}
+    log(f"[lstm] fit_epochs {json.dumps(out)}")
+    return out
+
+
+def _kernel_share(prof, name: str) -> float:
+    """Device ms of the kernels whose name holds ``name``."""
+    from torch.autograd import DeviceType
+
+    return sum(_self_us(e) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and name in e.key) / 1e3
+
+
+def lstm_epoch(bf16: bool, kernels: bool = True,
+               profiled: bool = False) -> dict:
+    """make_train_epoch(conf, 8, donate=True) on one (8, 64, 64, 512) chunk
+    of one-hot tokens, as bench.measure("lstm_wide") builds it: a warm-up
+    chunk, then one timed chunk with K2 counted from 0 over it. With
+    ``kernels=False`` the chunk runs with set_lstm_gates(False), the
+    bench's ``_nokernels`` twin. With ``profiled`` the timed chunk runs
+    under torch.profiler for the busy share and K2's share."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.nn import functional as F
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.ops import pallas_kernels as pk
+    from deeplearning4j_tpu_torch.ops.dtypes import BF16_COMPUTE
+
+    conf = _lstm_conf()
+    params = F.init_params(conf, 0, device=DEVICE)
+    states = F.init_train_state(conf, params)
+    epoch = F.make_train_epoch(conf, LSTM_CHUNK, donate=True,
+                               policy=BF16_COMPUTE if bf16 else None)
+    x, y = _one_hot_tokens((LSTM_CHUNK, LSTM_BATCH, LSTM_SEQ + 1),
+                           LSTM_VOCAB, seed=2)
+    xs, ys = (torch.from_numpy(a).to(DEVICE) for a in (x, y))
+    ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+           if profiled else contextlib.nullcontext())
+    pk.set_lstm_gates(kernels)
+    try:
+        params, states, warm = epoch(params, states, 0, xs, ys, 1)
+        warm = warm.tolist()
+        _kernels.reset_launches()
+        with ctx as prof:
+            t0 = time.perf_counter()
+            params, states, scores = epoch(params, states, LSTM_CHUNK, xs,
+                                           ys, 2)
+            sync()
+            wall = time.perf_counter() - t0
+    finally:
+        pk.set_lstm_gates(None)
+    launches = _kernels.LAUNCHES["lstm_gates"]
+    scores = scores.tolist()
+    want = LSTM_SEQ * LSTM_CHUNK if kernels else 0
+    if launches != want:
+        raise AssertionError(f"lstm_gates launched {launches} times over a "
+                             f"{LSTM_CHUNK}-step chunk, expected {want}")
+    if not np.isfinite(warm + scores).all():
+        raise AssertionError(f"LSTM epoch scores not finite: {warm}, "
+                             f"{scores}")
+    ms = wall * 1e3 / LSTM_CHUNK
+    out = {"policy": "bf16" if bf16 else "f32", "kernels": kernels,
+           "profiled": profiled, "steps": LSTM_CHUNK,
+           "batch": [LSTM_BATCH, LSTM_SEQ], "wall_s": wall,
+           "ms_per_step": ms, "samples_per_s": LSTM_BATCH * 1e3 / ms,
+           "tokens_per_s": LSTM_BATCH * LSTM_SEQ * 1e3 / ms,
+           "launches": launches, "scores": warm + scores}
+    if profiled:
+        from torch.autograd import DeviceType
+
+        out.update(device_busy(prof, wall))
+        out["device_ops_per_step"] = sum(
+            e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA) / LSTM_CHUNK
+        out["lstm_gates_device_ms"] = _kernel_share(prof, "lstm_gates")
+        out["lstm_gates_share"] = (out["lstm_gates_device_ms"]
+                                   / max(out["device_busy_ms"], 1e-9))
+    log(f"[lstm] train_epoch {json.dumps(out)}")
+    return out
+
+
+def lstm_grad_parity() -> None:
+    """One char-LSTM step's loss and grads (batch 64, sequence 64, f32, TF32
+    off) through K2 against set_lstm_gates(False) (the plain per-op cell),
+    from one set of params and one batch."""
+    import torch
+
+    from deeplearning4j_tpu_torch._device import tree_leaves, tree_unflatten
+    from deeplearning4j_tpu_torch.nn import functional as F
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.ops import pallas_kernels as pk
+
+    conf = _lstm_conf()
+    params = F.init_params(conf, 3, device=DEVICE)
+    x, y = (torch.from_numpy(a).to(DEVICE) for a in _one_hot_tokens(
+        (LSTM_BATCH, LSTM_SEQ + 1), LSTM_VOCAB, seed=9))
+
+    def loss_and_grads(kernel):
+        pk.set_lstm_gates(kernel)
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        _kernels.reset_launches()
+        loss = F.network_loss(conf, tree_unflatten(params, leaves), x, y,
+                              train=True)
+        grads = torch.autograd.grad(loss, leaves)
+        return float(loss.detach()), grads, _kernels.LAUNCHES["lstm_gates"]
+
+    try:
+        kl, kg, k_launches = loss_and_grads(True)
+        dl, dg, d_launches = loss_and_grads(False)
+    finally:
+        pk.set_lstm_gates(None)
+    names = sorted(params[0])
+    errs = {n: _rel_err(g, w) for n, g, w in zip(names, kg, dg)}
+    loss_err = abs(kl - dl)
+    log(f"[parity] LSTM step K2 vs plain cell, f32, batch {LSTM_BATCH}x"
+        f"{LSTM_SEQ}: loss {kl:.7f} vs {dl:.7f} (abs err {loss_err:.3g}), "
+        f"grad rel err per leaf {json.dumps(errs)}; launches {k_launches} "
+        f"vs {d_launches}")
+    if not (loss_err <= LSTM_LOSS_TOL and max(errs.values()) <= LSTM_GRAD_TOL
+            and k_launches == LSTM_SEQ and d_launches == 0
+            and all(torch.isfinite(g).all().item() for g in kg)):
+        raise AssertionError(f"LSTM grads through K2 vs plain cell: loss err "
+                             f"{loss_err} (tol {LSTM_LOSS_TOL}), grad errs "
+                             f"{errs} (tol {LSTM_GRAD_TOL}), launches "
+                             f"{k_launches}/{d_launches}")
+
+
+def lstm() -> list:
+    """Phase 6; returns K2's entries of the kernels line."""
+    lstm_cell_parity()
+    entries = lstm_cell_measure()
+    main_run = lstm_fit()
+    for entry in entries:
+        entry["launches"] = main_run["launches"]
+    lstm_epoch(bf16=False)
+    lstm_epoch(bf16=True)
+    lstm_epoch(bf16=False, kernels=False)
+    lstm_epoch(bf16=False, profiled=True)
+    lstm_grad_parity()
+    return entries
+
+
+# ------------------------------------------------------------- phase 7 ----
+
+# the bench's long-context attention char-LM, attn_long (bench.py:97, :204,
+# :239-241): char_attention_lm(vocab=128, d_model=512, n_heads=4,
+# num_iterations=1), batch 4, T=2048
+ATTN_VOCAB, ATTN_D, ATTN_HEADS, ATTN_B, ATTN_T = 128, 512, 4, 4, 2048
+ATTN_WARMUP, ATTN_STEPS = 2, 5
+# kernels vs dense attention, one step at f32: loss absolute, grads as max
+# abs error over the leaf's max. No ReLU in this model (linear embedding),
+# so no kink flips: the difference is the summation order of the kernels
+# (their parity tolerance is 1e-4 of the max) carried through the block
+ATTN_LOSS_TOL, ATTN_GRAD_TOL = 1e-4, 1e-3
+
+
+def _attn_conf():
+    from deeplearning4j_tpu_torch.models.zoo import char_attention_lm
+
+    return char_attention_lm(vocab=ATTN_VOCAB, d_model=ATTN_D,
+                             n_heads=ATTN_HEADS, num_iterations=1)
+
+
+def attn_lm_fit() -> dict:
+    """MultiLayerNetwork.fit_epochs on the attention char-LM at batch 4,
+    T=2048 with the auto core: ATTN_WARMUP warm-up steps then ATTN_STEPS
+    timed steps, K3f, K3k and K3q each counted from 0 over exactly those
+    (once a step: one attention layer); then ``output`` on one batch (one
+    K3f launch)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.ops.flash_attention import (
+        resolve_attention_impl,
+    )
+
+    impl = resolve_attention_impl(ATTN_T)
+    if impl not in ("flash", "blockwise"):
+        raise AssertionError(f"auto core at T={ATTN_T} is {impl!r}")
+    b, w = ATTN_B, ATTN_WARMUP
+    x, y = _one_hot_tokens((b * (w + ATTN_STEPS), ATTN_T + 1), ATTN_VOCAB,
+                           seed=11)
+    net = MultiLayerNetwork(_attn_conf(), device=DEVICE).init()
+    net.fit_epochs(ListDataSetIterator(DataSet(x[:w * b], y[:w * b]), b))
+    timed = ListDataSetIterator(DataSet(x[w * b:], y[w * b:]), b)
+    sync()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    net.fit_epochs(timed)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    for name in TRAIN_KERNELS:
+        if launches[name] != ATTN_STEPS:
+            raise AssertionError(f"attention LM: {name} launched "
+                                 f"{launches[name]} times over {ATTN_STEPS} "
+                                 "steps, expected once a step")
+    score = net.score(DataSet(x[:b], y[:b]))
+    _kernels.reset_launches()
+    out_logits = net.output(x[:b])
+    sync()
+    out_launches = dict(_kernels.LAUNCHES)
+    if not (np.isfinite(score)
+            and tuple(out_logits.shape) == (b, ATTN_T, ATTN_VOCAB)
+            and bool(out_logits.isfinite().all())
+            and out_launches["flash_attention_fwd"] == 1
+            and out_launches["flash_attention_bwd_dkv"] == 0
+            and out_launches["flash_attention_bwd_dq"] == 0):
+        raise AssertionError(f"attention LM output: score {score}, shape "
+                             f"{tuple(out_logits.shape)}, launches "
+                             f"{out_launches}")
+    ms = wall * 1e3 / ATTN_STEPS
+    out = {"attn_impl": impl, "steps": ATTN_STEPS, "batch": [b, ATTN_T],
+           "wall_s": wall, "ms_per_step": ms, "samples_per_s": b * 1e3 / ms,
+           "tokens_per_s": b * ATTN_T * 1e3 / ms, "score": score,
+           "launches": {k: launches[k] for k in TRAIN_KERNELS},
+           "output_launches": {k: out_launches[k] for k in TRAIN_KERNELS}}
+    log(f"[attn] fit_epochs {json.dumps(out)}")
+    return out
+
+
+def attn_lm_grad_parity() -> None:
+    """One attention-LM step's loss and grads (batch 4, T=2048, f32, TF32
+    off) through the kernels (the auto core) against
+    set_attention_impl("dense"), with non-zero grads for wq, wk and wv."""
+    import torch
+
+    from deeplearning4j_tpu_torch._device import tree_leaves, tree_unflatten
+    from deeplearning4j_tpu_torch.nn import functional as F
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+    conf = _attn_conf()
+    params = F.init_params(conf, 3, device=DEVICE)
+    x, y = (torch.from_numpy(a).to(DEVICE) for a in _one_hot_tokens(
+        (ATTN_B, ATTN_T + 1), ATTN_VOCAB, seed=12))
+
+    def loss_and_grads(impl):
+        fa.set_attention_impl(impl)
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        _kernels.reset_launches()
+        loss = F.network_loss(conf, tree_unflatten(params, leaves), x, y,
+                              train=True)
+        grads = torch.autograd.grad(loss, leaves)
+        return (float(loss.detach()), grads,
+                sum(_kernels.LAUNCHES[k] for k in TRAIN_KERNELS))
+
+    try:
+        kl, kg, k_launches = loss_and_grads(None)
+        dl, dg, d_launches = loss_and_grads("dense")
+    finally:
+        fa.set_attention_impl(None)
+    names = [f"{i}.{key}" for i in range(conf.n_layers)
+             for key in sorted(params[i])]
+    errs = {n: _rel_err(g, w) for n, g, w in zip(names, kg, dg)}
+    zero = [n for n, g in zip(names, kg)
+            if n.split(".")[1] in ("wq", "wk", "wv")
+            and not bool(g.abs().max() > 0)]
+    loss_err = abs(kl - dl)
+    log(f"[parity] attention LM step kernels vs dense, f32, B={ATTN_B} "
+        f"T={ATTN_T}: loss {kl:.7f} vs {dl:.7f} (abs err {loss_err:.3g}), "
+        f"grad rel err per leaf {json.dumps(errs)}; launches {k_launches} "
+        f"vs {d_launches}; zero-grad attention leaves {zero}")
+    if not (loss_err <= ATTN_LOSS_TOL and max(errs.values()) <= ATTN_GRAD_TOL
+            and not zero and k_launches == 3 and d_launches == 0
+            and all(torch.isfinite(g).all().item() for g in kg)):
+        raise AssertionError(f"attention LM grads, kernels vs dense: loss "
+                             f"err {loss_err} (tol {ATTN_LOSS_TOL}), grad "
+                             f"errs {errs} (tol {ATTN_GRAD_TOL}), zero "
+                             f"{zero}, launches {k_launches}/{d_launches}")
+
+
+def attn_lm() -> dict:
+    """Phase 7."""
+    out = attn_lm_fit()
+    attn_lm_grad_parity()
+    return out
+
+
 # ---------------------------------------------------------------- main ----
 
 def main() -> int:
@@ -1040,10 +1551,12 @@ def main() -> int:
     train(profiled=True)
 
     mlp_entries = mlp()
+    lstm_entries = lstm()
+    attn_lm()
 
     print(smi)
     print(json.dumps({"kernels": [serve_entry, *train_entries,
-                                  *mlp_entries]}))
+                                  *mlp_entries, *lstm_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

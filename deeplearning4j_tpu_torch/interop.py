@@ -9,9 +9,12 @@ stacked blocks, weights stored (in, out)), as torch tensors. The two
 packages then compute the same function.
 
 ``mln_params_from_numpy`` does the same for a ``MultiLayerNetwork``'s
-params (a tuple of per-layer ``{"W", "b"}`` dicts, weights (n_in, n_out)),
-and ``updater_state_from_numpy`` for its updater state (a tuple of
-``{"hist", "v"}`` trees).
+params (a tuple of per-layer dicts with the key set of a ported layer
+type: DENSE/OUTPUT ``{"W", "b"}``, LSTM ``{"recurrentweights",
+"decoderweights", "decoderbias"}``, ATTENTION ``{"ln_g", "ln_b", "wq",
+"wk", "wv", "wo", "decoderweights", "decoderbias"}``; weights (n_in,
+n_out)), and ``updater_state_from_numpy`` for its updater state (a tuple
+of ``{"hist", "v"}`` trees over the same keys).
 """
 
 from __future__ import annotations
@@ -28,7 +31,13 @@ _LM_KEYS = ("embed", "blocks", "dec_w", "dec_b")
 _BLOCK_KEYS = ("ln_g", "ln_b", "wq", "wk", "wv", "wo", "ln2_g", "ln2_b",
                "router", "experts")
 _EXPERT_KEYS = ("w1", "b1", "w2", "b2")
-_LAYER_KEYS = ("W", "b")
+# the parameter keys of each ported layer type (nn/params.py)
+_LAYER_KEY_SETS = (
+    ("W", "b"),
+    ("recurrentweights", "decoderweights", "decoderbias"),
+    ("ln_g", "ln_b", "wq", "wk", "wv", "wo", "decoderweights",
+     "decoderbias"),
+)
 _UPDATER_KEYS = ("hist", "v")
 
 
@@ -88,31 +97,45 @@ def _check_layers(layers, what: str) -> None:
                          f"{type(layers).__name__}")
 
 
+def _check_layer_keys(layer, where: str) -> None:
+    """``layer`` holds exactly the keys of one ported layer type."""
+    if isinstance(layer, dict):
+        for keys in _LAYER_KEY_SETS:
+            if sorted(layer) == sorted(keys):
+                return
+    got = sorted(layer) if isinstance(layer, dict) else type(layer).__name__
+    raise ValueError(f"{where} must hold exactly the keys of one ported "
+                     f"layer type, one of "
+                     f"{[sorted(k) for k in _LAYER_KEY_SETS]}, got {got}")
+
+
 def mln_params_from_numpy(params, device: DeviceLike = None,
                           dtype: Optional[torch.dtype] = None) -> tuple:
-    """The JAX ``MultiLayerNetwork``'s params (a tuple of ``{"W", "b"}``
-    dicts with numpy leaves, ``W`` stored (n_in, n_out)) as the port's
-    tuple of dicts of tensors, same keys and layouts, on ``device`` (CUDA
-    unless ``device="cpu"``). ``dtype`` casts every leaf (None keeps the
-    stored dtype). Raises on a layer with another key set."""
+    """The JAX ``MultiLayerNetwork``'s params (a tuple of per-layer dicts
+    with numpy leaves, weights stored (n_in, n_out)) as the port's tuple
+    of dicts of tensors, same keys and layouts, on ``device`` (CUDA unless
+    ``device="cpu"``). ``dtype`` casts every leaf (None keeps the stored
+    dtype). Raises on a layer whose key set is not a ported layer
+    type's."""
     dev = resolve_device(device)
     _check_layers(params, "the network params")
     for i, layer in enumerate(params):
-        _check_keys(layer, _LAYER_KEYS, f"params[{i}]")
+        _check_layer_keys(layer, f"params[{i}]")
     return tuple(tree_map(lambda _, x: _to_tensor(x, dev, dtype), layer)
                  for layer in params)
 
 
 def updater_state_from_numpy(states, device: DeviceLike = None) -> tuple:
-    """The JAX network's updater state (a tuple of ``{"hist": {"W", "b"},
-    "v": {"W", "b"}}`` with numpy leaves) as the port's, on ``device``
-    (CUDA unless ``device="cpu"``)."""
+    """The JAX network's updater state (a tuple of ``{"hist": layer,
+    "v": layer}`` with numpy leaves, ``layer`` over the keys of the
+    layer's params) as the port's, on ``device`` (CUDA unless
+    ``device="cpu"``)."""
     dev = resolve_device(device)
     _check_layers(states, "the updater state")
     for i, st in enumerate(states):
         _check_keys(st, _UPDATER_KEYS, f"states[{i}]")
-        for k in _UPDATER_KEYS:
-            _check_keys(st[k], _LAYER_KEYS, f"states[{i}]['{k}']")
+        _check_layer_keys(st["hist"], f"states[{i}]['hist']")
+        _check_keys(st["v"], tuple(st["hist"]), f"states[{i}]['v']")
     return tuple(tree_map(lambda _, x: _to_tensor(x, dev, None), st)
                  for st in states)
 

@@ -22,13 +22,18 @@ from deeplearning4j_tpu_torch.nn.api import LayerType
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers import output as output_layer
 from deeplearning4j_tpu_torch.nn.layers.preprocessor import preprocessor
-from deeplearning4j_tpu_torch.nn.params import init_layer_params, unported
-from deeplearning4j_tpu_torch.ops.losses import finalize_loss
+from deeplearning4j_tpu_torch.nn.params import init_layer_params
+from deeplearning4j_tpu_torch.ops.losses import LossFunction, finalize_loss, \
+    per_example_loss, per_example_loss_from_logits
 from deeplearning4j_tpu_torch.ops.rng import fold_in, split
 from deeplearning4j_tpu_torch.optimize.updater import apply_updater, \
     init_updater_state
 
 NetParams = Tuple[dict, ...]
+
+# losses a sequence head scores from its logits (softmax or sigmoid fused)
+_CE_FAMILY = (LossFunction.MCXENT, LossFunction.NEGATIVELOGLIKELIHOOD,
+              LossFunction.XENT, LossFunction.RECONSTRUCTION_CROSSENTROPY)
 
 
 def init_params(conf: MultiLayerConfiguration, key: int,
@@ -111,9 +116,13 @@ def network_per_example_loss(conf: MultiLayerConfiguration,
     """Per-example pre-reduction losses, shape (batch,); ``network_loss``
     is ``finalize_loss(head.loss_function, mean(per_example))``.
 
-    The OUTPUT head is ported (3-D labels (batch, time, classes) are scored
-    per timestep and averaged over time). The LSTM and ATTENTION sequence
-    heads come with their slices."""
+    Head layers:
+    - OUTPUT: fused-logits classifier head. 3-D labels (batch, time,
+      classes) are scored per timestep and averaged over time.
+    - LSTM, ATTENTION: the layer's own decoder projection provides
+      per-timestep logits (ref: nn/layers/recurrent/LSTM.java:54-160 trains
+      through its decoder with per-timestep softmax); labels are (batch,
+      time, vocab). Logits and labels are scored in f32."""
     n = conf.n_layers
     keys = _layer_keys(key, n)
     for i in range(n - 1):
@@ -127,7 +136,15 @@ def network_per_example_loss(conf: MultiLayerConfiguration,
             head, params[n - 1], x, labels, train=train, key=keys[n - 1],
             drop_connect=conf.use_drop_connect)
     elif head.layer_type in (LayerType.LSTM, LayerType.ATTENTION):
-        raise unported(head.layer_type, "the sequence-head loss")
+        # sequence heads own a decoder producing per-timestep logits
+        logits = layer_ops.forward(head, params[n - 1], x, train=train,
+                                   key=keys[n - 1]).float()
+        labels = labels.float()
+        if LossFunction.coerce(head.loss_function) in _CE_FAMILY:
+            per = per_example_loss_from_logits(head.loss_function, labels,
+                                               logits)
+        else:
+            per = per_example_loss(head.loss_function, labels, logits)
     else:
         raise ValueError("network_per_example_loss requires an OUTPUT, "
                          "LSTM, or ATTENTION head layer")

@@ -2,9 +2,9 @@
 pure functions over (conf, params, input), dispatched by ``LayerType``.
 
 ``forward`` is the single activate entry point; training differentiates the
-composed forwards with autograd. DENSE and OUTPUT are ported; the other
-layer types come with their slices and raise ``NotImplementedError``
-naming it. ``attention`` holds the transformer LM's shared helpers.
+composed forwards with autograd. DENSE, OUTPUT, LSTM and ATTENTION are
+ported; the other layer types come with their slices and raise
+``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -15,12 +15,15 @@ import torch
 
 from deeplearning4j_tpu_torch.nn.api import LayerType
 from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
-from deeplearning4j_tpu_torch.nn.layers import dense, output
+from deeplearning4j_tpu_torch.nn.layers import attention, dense, lstm, \
+    output
 from deeplearning4j_tpu_torch.nn.params import UNPORTED_LAYERS, unported
 
 _FORWARD = {
     LayerType.DENSE: dense.forward,
     LayerType.OUTPUT: output.forward,
+    LayerType.LSTM: lstm.forward,
+    LayerType.ATTENTION: attention.forward,
 }
 
 

@@ -3,8 +3,9 @@ initialization per layer type, with the same parameter keys (ref:
 nn/params/*.java), so flat parameter vectors and checkpoints line up
 between the two packages.
 
-DENSE and OUTPUT are ported; the other layer types come with their
-slices (ROADMAP Queue 1) and raise ``NotImplementedError`` naming it.
+DENSE, OUTPUT, LSTM and ATTENTION are ported; the other layer types come
+with their slices (ROADMAP Queue 1) and raise ``NotImplementedError``
+naming it.
 """
 
 from __future__ import annotations
@@ -36,8 +37,6 @@ UNPORTED_LAYERS = {
     LayerType.RECURSIVE_AUTOENCODER: "slice 5, item 13 (pretraining)",
     LayerType.CONVOLUTION: "slice 5, item 12 (LeNet)",
     LayerType.SUBSAMPLING: "slice 5, item 12 (LeNet)",
-    LayerType.LSTM: "slice 5, item 15 (LSTM, kernel K2)",
-    LayerType.ATTENTION: "slice 5, item 16 (attention layer)",
 }
 
 
@@ -57,6 +56,53 @@ def _dense_params(key: int, conf: NeuralNetConfiguration,
     }
 
 
+def _lstm_params(key: int, conf: NeuralNetConfiguration,
+                 dev: torch.device) -> Dict[str, torch.Tensor]:
+    # Karpathy-style fused-gate LSTM (ref: nn/layers/recurrent/LSTM.java:54-160,
+    # nn/params/LSTMParamInitializer.java:39-41): one recurrent matrix maps
+    # [1, x_t, h_{t-1}] -> 4*hidden (i,f,o,g fused), plus a decoder to n_out.
+    hidden = conf.n_out
+    in_dim = 1 + conf.n_in + hidden
+    k1, k2, _ = split(key, 3)
+    return {
+        RECURRENT_WEIGHT_KEY: init_weights(k1, (in_dim, 4 * hidden),
+                                           conf.weight_init, conf.dist,
+                                           device=dev),
+        DECODER_WEIGHT_KEY: init_weights(k2, (hidden, conf.n_out),
+                                         conf.weight_init, conf.dist,
+                                         device=dev),
+        DECODER_BIAS_KEY: torch.zeros((conf.n_out,), device=dev),
+    }
+
+
+def _attention_params(key: int, conf: NeuralNetConfiguration,
+                      dev: torch.device) -> Dict[str, torch.Tensor]:
+    # Pre-LN multi-head self-attention block + decoder (the head contract
+    # mirrors the LSTM's decoder, nn/params/LSTMParamInitializer.java:39-41).
+    d = conf.n_in
+    if conf.n_heads < 1 or d % conf.n_heads != 0:
+        raise ValueError(
+            f"attention n_in ({d}) must be divisible by n_heads "
+            f"({conf.n_heads}); n_heads must be >= 1"
+        )
+    kq, kk, kv, ko, kd = split(key, 5)
+    dd = (d, d)
+
+    def w(k, shape):
+        return init_weights(k, shape, conf.weight_init, conf.dist, device=dev)
+
+    return {
+        "ln_g": torch.ones((d,), device=dev),
+        "ln_b": torch.zeros((d,), device=dev),
+        "wq": w(kq, dd),
+        "wk": w(kk, dd),
+        "wv": w(kv, dd),
+        "wo": w(ko, dd),
+        DECODER_WEIGHT_KEY: w(kd, (d, conf.n_out)),
+        DECODER_BIAS_KEY: torch.zeros((conf.n_out,), device=dev),
+    }
+
+
 def init_layer_params(key: int, conf: NeuralNetConfiguration,
                       device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """conf → named params on ``device`` (CUDA unless ``device="cpu"``);
@@ -64,6 +110,10 @@ def init_layer_params(key: int, conf: NeuralNetConfiguration,
     t = conf.layer_type
     if t in (LayerType.DENSE, LayerType.OUTPUT):
         return _dense_params(key, conf, resolve_device(device))
+    if t == LayerType.LSTM:
+        return _lstm_params(key, conf, resolve_device(device))
+    if t == LayerType.ATTENTION:
+        return _attention_params(key, conf, resolve_device(device))
     if t in UNPORTED_LAYERS:
         raise unported(t, "param init")
     raise ValueError(f"No param initializer for layer type {t}")

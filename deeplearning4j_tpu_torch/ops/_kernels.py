@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                             "flash_attention_bwd_dkv": 0,
                             "flash_attention_bwd_dq": 0,
-                            "fused_dense": 0}
+                            "fused_dense": 0,
+                            "lstm_gates": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -43,6 +44,7 @@ build_logs: Dict[str, str] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of every exported entry point: {symbol: argtypes}
 _SIGNATURES = {
     "flash_attention_fwd": {
@@ -59,6 +61,9 @@ _SIGNATURES = {
     },
     "fused_dense": {
         "dl4j_fused_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
+    "lstm_gates": {
+        "dl4j_lstm_gates": [_P, _P, _P, _P, _L, _L, _I, _I, _P],
     },
 }
 

@@ -17,7 +17,19 @@ CUDA tensor it launches K1 or raises. The TPU kernel's shape gate
 layout rule and has no counterpart here: K1 masks its edges and tiles K,
 so it takes every shape, those of the MNIST MLP included.
 
-``lstm_gates`` (K2) comes with the LSTM slice.
+- ``lstm_gates``: the LSTM cell's nonlinearity, ``csrc/lstm_gates.cu``
+  (K2): from the (B, 4H) preactivations in gate order i, f, o, g and
+  c_prev (B, H), ``c_new = σ(f)·c_prev + σ(i)·tanh(g)`` and
+  ``h_new = σ(o)·tanh(c_new)`` in f32, each rounded once to c_prev's
+  dtype. Differentiable through ``LSTMGates``, whose backward is the JAX
+  package's lax backward (``_lstm_gates_bwd``) in plain torch.
+
+``lstm_gates_reference`` is K2's plain version, computed as the TPU
+kernel computes it (f32, one rounding; not the JAX package's
+``_lstm_gates_ref``, which rounds at every op at bf16). It is also the
+route ``set_lstm_gates(False)`` takes, on either device. The TPU kernel's
+shape gate (h % 128, B % 8, h <= 2048) is a TPU layout rule: K2 takes
+every shape.
 """
 
 from __future__ import annotations
@@ -164,3 +176,137 @@ def fused_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     differentiable in x, w and b."""
     return FusedDense.apply(x.contiguous(), w.contiguous(), b.contiguous(),
                             activation)
+
+
+# ------------------------------------------------------------- lstm gates ----
+
+# The A/B switch for K2: None = the default (on). The JAX default is "on
+# where the shape passes the TPU gate"; K2 takes every shape, so the port's
+# default is the JAX default minus the gate. ``set_lstm_gates(False)`` sends
+# the cell through the plain gate math (``lstm_gates_reference``), as the
+# JAX bench's ``lstm_wide_bf16_nokernels`` stage does.
+_lstm_gates_override: Optional[bool] = None
+
+
+def set_lstm_gates(enabled: Optional[bool]) -> None:
+    global _lstm_gates_override
+    _lstm_gates_override = enabled
+
+
+def use_lstm_gates() -> bool:
+    if _lstm_gates_override is not None:
+        return _lstm_gates_override
+    return True
+
+
+def _gates(ifog: torch.Tensor, h: int):
+    """σ(i), σ(f), σ(o), tanh(g) of the (B, 4H) preactivations, in their
+    dtype."""
+    return (torch.sigmoid(ifog[:, 0 * h:1 * h]),
+            torch.sigmoid(ifog[:, 1 * h:2 * h]),
+            torch.sigmoid(ifog[:, 2 * h:3 * h]),
+            torch.tanh(ifog[:, 3 * h:4 * h]))
+
+
+def lstm_gates_reference(ifog: torch.Tensor, c_prev: torch.Tensor):
+    """Plain torch version of K2: (c_new, h_new), computed in f32 (f64 for
+    f64 inputs) from ifog and c_prev upcast, both rounded once to c_prev's
+    dtype, as the TPU kernel computes them."""
+    acc = torch.promote_types(torch.promote_types(ifog.dtype, c_prev.dtype),
+                              torch.float32)
+    i, f, o, gg = _gates(ifog.to(acc), c_prev.shape[-1])
+    c_new = f * c_prev.to(acc) + i * gg
+    h_new = o * torch.tanh(c_new)
+    return c_new.to(c_prev.dtype), h_new.to(c_prev.dtype)
+
+
+def _check_lstm_inputs(ifog: torch.Tensor, c_prev: torch.Tensor) -> None:
+    """What K2 takes: ifog (B, 4H) and c_prev (B, H), each float32 or
+    bfloat16, on one CUDA device, contiguous."""
+    if ifog.dim() != 2 or c_prev.dim() != 2:
+        raise ValueError(f"lstm_gates takes ifog (B, 4H) and c_prev (B, H); "
+                         f"got {tuple(ifog.shape)}, {tuple(c_prev.shape)}")
+    b, h = c_prev.shape
+    if tuple(ifog.shape) != (b, 4 * h):
+        raise ValueError(f"lstm_gates shapes disagree: ifog "
+                         f"{tuple(ifog.shape)}, c_prev {tuple(c_prev.shape)}"
+                         f" (ifog must be (B, 4H))")
+    for name, t in (("ifog", ifog), ("c_prev", c_prev)):
+        if t.dtype not in _KERNEL_DTYPES:
+            raise ValueError(f"lstm_gates kernel takes float32 or bfloat16, "
+                             f"got {name} {t.dtype}")
+    for name, t in (("ifog", ifog), ("c_prev", c_prev)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous; pass .contiguous()")
+    for name, t in (("ifog", ifog), ("c_prev", c_prev)):
+        if not t.is_cuda:
+            raise ValueError(f"{name} is on {t.device}; the kernel takes "
+                             "CUDA tensors")
+    if ifog.device != c_prev.device:
+        raise ValueError(f"ifog and c_prev must share a device; got "
+                         f"{ifog.device} and {c_prev.device}")
+
+
+def lstm_gates_fwd(ifog: torch.Tensor, c_prev: torch.Tensor):
+    """(c_new, h_new) in c_prev's dtype, no graph.
+
+    On a CUDA tensor: launches ``csrc/lstm_gates.cu`` on the current
+    stream (or raises). On a CPU tensor: ``lstm_gates_reference``."""
+    if ifog.device.type == "cpu":
+        return lstm_gates_reference(ifog, c_prev)
+    _check_lstm_inputs(ifog, c_prev)
+    b, h = c_prev.shape
+    c_new = torch.empty_like(c_prev)
+    h_new = torch.empty_like(c_prev)
+    if c_new.numel() == 0:
+        return c_new, h_new
+    lib = _kernels.load("lstm_gates")
+    stream = torch.cuda.current_stream(ifog.device).cuda_stream
+    rc = lib.dl4j_lstm_gates(ifog.data_ptr(), c_prev.data_ptr(),
+                             c_new.data_ptr(), h_new.data_ptr(), b, h,
+                             int(ifog.dtype == torch.bfloat16),
+                             int(c_prev.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"lstm_gates launch failed: CUDA error {rc} at "
+                           f"ifog {tuple(ifog.shape)} {ifog.dtype}, c_prev "
+                           f"{c_prev.dtype}")
+    _kernels.count_launch("lstm_gates")
+    return c_new, h_new
+
+
+class LSTMGates(torch.autograd.Function):
+    """The LSTM cell, forward through ``lstm_gates_fwd`` (K2 on the card)
+    or, with ``set_lstm_gates(False)``, ``lstm_gates_reference``; backward the
+    JAX package's ``_lstm_gates_bwd`` in plain torch on both devices. The
+    residuals are recomputed as ``_lstm_gates_fwd`` recomputes them: the
+    gates from ifog at ifog's dtype, ``tanh(c_new)`` at c_new's."""
+
+    @staticmethod
+    def forward(ctx, ifog, c_prev):
+        fwd = lstm_gates_fwd if use_lstm_gates() else lstm_gates_reference
+        c_new, h_new = fwd(ifog, c_prev)
+        ctx.save_for_backward(ifog, c_prev, c_new)
+        return c_new, h_new
+
+    @staticmethod
+    def backward(ctx, dc_new, dh):
+        ifog, c_prev, c_new = ctx.saved_tensors
+        i, f, o, gg = _gates(ifog, c_prev.shape[-1])
+        tanh_c = torch.tanh(c_new)
+        do = dh * tanh_c
+        dc = dc_new + dh * o * (1.0 - tanh_c * tanh_c)
+        di = dc * gg
+        df = dc * c_prev
+        dgg = dc * i
+        dc_prev = dc * f
+        d_ifog = torch.cat([di * i * (1.0 - i),
+                            df * f * (1.0 - f),
+                            do * o * (1.0 - o),
+                            dgg * (1.0 - gg * gg)], dim=-1)
+        return d_ifog.to(ifog.dtype), dc_prev.to(c_prev.dtype)
+
+
+def lstm_gates(ifog: torch.Tensor, c_prev: torch.Tensor):
+    """Fused LSTM cell nonlinearity: (c_new, h_new) from (B, 4H) + (B, H);
+    differentiable in both."""
+    return LSTMGates.apply(ifog.contiguous(), c_prev.contiguous())

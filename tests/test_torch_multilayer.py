@@ -359,10 +359,23 @@ def test_unported_paths_raise_and_name_their_slice():
         with pytest.raises(NotImplementedError, match="slice 5"):
             call()
     mlp.set_listeners([])
-    lstm = MultiLayerNetwork(jzoo.char_lstm(8).to_json(), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        TF.network_loss(lstm.conf, ({},), torch.ones(2, 3, 8),
-                        torch.ones(2, 3, 8))
+
+
+@pytest.mark.parametrize("model", ["char_lstm", "char_attention_lm"])
+def test_sequence_heads_now_score_and_train(model):
+    """The LSTM and ATTENTION heads, which raised before their slice, take
+    a JAX-written conf through MultiLayerNetwork: a finite score, a train
+    step, and per-timestep predictions."""
+    net = MultiLayerNetwork(getattr(jzoo, model)(8).to_json(),
+                            device="cpu").init()
+    toks = np.random.RandomState(0).randint(0, 8, (2, 4))
+    x = np.eye(8, dtype=np.float32)[toks]
+    score = TF.network_loss(net.conf, net.params_tree, torch.from_numpy(x),
+                            torch.from_numpy(x))
+    assert score.shape == () and torch.isfinite(score)
+    net.fit_epochs(DataSet(x, x))
+    assert net._iteration == 1
+    assert net.predict(x).shape == (2, 4)
 
 
 def test_entry_points_raise_without_cuda(jax_params):

@@ -11,6 +11,7 @@ two libraries' transcendentals differ in the last ulp), updater outputs
 
 import json
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ import torch
 from deeplearning4j_tpu.models import zoo as jzoo
 from deeplearning4j_tpu.nn import conf as jconf
 from deeplearning4j_tpu.nn import gradient as jgrad
+from deeplearning4j_tpu.nn import params as jparams
 from deeplearning4j_tpu.ops import activations as jact
 from deeplearning4j_tpu.ops import dtypes as jdt
 from deeplearning4j_tpu.ops import losses as jloss
@@ -397,8 +399,7 @@ def test_drop_connect_masks_weights_at_half_and_scales_by_two():
 
 @pytest.mark.parametrize("layer_type", ["RBM", "AUTOENCODER",
                                         "RECURSIVE_AUTOENCODER",
-                                        "CONVOLUTION", "SUBSAMPLING", "LSTM",
-                                        "ATTENTION"])
+                                        "CONVOLUTION", "SUBSAMPLING"])
 def test_unported_layer_types_name_their_slice(layer_type):
     conf = tconf.NeuralNetConfiguration(layer_type=layer_type, n_in=4,
                                         n_out=4)
@@ -406,3 +407,33 @@ def test_unported_layer_types_name_their_slice(layer_type):
         tparams.init_layer_params(0, conf, device="cpu")
     with pytest.raises(NotImplementedError, match="slice 5"):
         tlayers.forward(conf, {}, torch.ones(2, 4))
+
+
+@pytest.mark.parametrize("layer_type", ["LSTM", "ATTENTION"])
+def test_sequence_layer_types_init_with_jax_keys_and_shapes(layer_type):
+    """The LSTM and ATTENTION layers (ported with K2 and the attention
+    layer) init with the JAX package's keys, shapes and dtypes, and their
+    weights are drawn from the conf's scheme: SIZE's U(-s, s), s =
+    sqrt(6 / (fan_in + fan_out)); the gains ones, the biases zeros."""
+    kw = {"n_heads": 2} if layer_type == "ATTENTION" else {}
+    tc = tconf.NeuralNetConfiguration(layer_type=layer_type, n_in=8,
+                                      n_out=6, weight_init="SIZE", **kw)
+    jc = jconf.NeuralNetConfiguration(layer_type=layer_type, n_in=8,
+                                      n_out=6, weight_init="SIZE", **kw)
+    got = tparams.init_layer_params(0, tc, device="cpu")
+    want = jparams.init_layer_params(jax.random.PRNGKey(0), jc)
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        assert tuple(got[k].shape) == w.shape, k
+        assert got[k].dtype == torch.float32 and w.dtype == jnp.float32, k
+        if k in ("ln_g",):
+            assert torch.equal(got[k], torch.ones_like(got[k]))
+        elif k in ("ln_b", "decoderbias"):
+            assert torch.equal(got[k], torch.zeros_like(got[k]))
+        else:
+            fan_in, fan_out = w.shape
+            s = np.sqrt(6.0 / (fan_in + fan_out))
+            assert float(got[k].abs().max()) <= s, k
+            assert float(got[k].std()) > 0, k
+    out = tlayers.forward(tc, got, torch.ones(2, 3, 8))
+    assert tuple(out.shape) == (2, 3, 6)
