@@ -6,18 +6,23 @@
 Phases, each fatal on failure:
 
 1. build: compile every kernel from csrc/ with nvcc for sm_90a (one nvcc
-   per source, started together) and print the build time and the ptxas
-   report;
-2. kernel parity: each kernel against its plain PyTorch version on the card
-   over T in {8, 100, 512, 1024, 2048}, Dh in {16, 128}, causal and not,
-   f32 and bf16: the forward (K3f) as (o, lse), the backward pair (K3k:
-   dK, dV; K3q: dQ) from K3f's o and lse; then K3f's time at the serving
-   shape (B=1, H=4, T=2048, Dh=128, causal, bf16) and all three at the
-   training shape (B=4, H=4, T=2048, Dh=128, causal; f32, the training
-   path's type, and bf16), each beside its plain version's time, torch's
-   scaled_dot_product_attention (forward for K3f, fwd+bwd minus fwd for
-   the K3k+K3q pair: a yardstick the port never calls) and the card's bound
-   (CUDA events, median of 30 after warm-up);
+   per source, started together; a library is named by a digest of its
+   source and the csrc headers it includes) and print the build time, the
+   ptxas report and each library's count of tensor-core (HMMA)
+   instructions from cuobjdump -sass, or that cuobjdump is absent;
+2. kernel parity: each kernel against its plain PyTorch version on the card:
+   the forward (K3f) as (o, lse) over T in {8, 65, 100, 512, 1000, 1024,
+   2048} (65 and 1000 ragged), Dh in {16, 24, 64, 128} (each head-dim
+   bucket), causal and not, f32 and bf16, and on element-offset views at
+   T=100; the backward pair (K3k: dK, dV; K3q: dQ) from K3f's o and lse
+   over T in {8, 100, 512, 1024, 2048}, Dh in {16, 128}; then K3f's time at
+   the serving shape (B=1, H=4, T=2048, Dh=128, causal, bf16) and all three
+   at the training shape (B=4, H=4, T=2048, Dh=128, causal; f32, the
+   training path's type, and bf16), each beside its plain version's time,
+   torch's scaled_dot_product_attention (forward for K3f; fwd+bwd minus fwd
+   for the K3k+K3q pair: a yardstick the port never calls) and the card's
+   bound (CUDA events, median of 30 after warm-up; K3f and SDPA's forward
+   by device_ms, with K3f's time_ms beside it);
 3. serving at the flagship's full width (vocab 2048, d_model 512, 4 heads of
    128, 4 experts, d_ff 1024, 2 layers; random weights from a seed):
    DecodeEngine(n_slots=8, max_len=2048, serve_dtype="bf16") answers 10
@@ -40,11 +45,13 @@ Phases, each fatal on failure:
 5. the MNIST MLP (models/zoo.mnist_mlp at the bench's full width:
    784-500-300-10, relu, softmax/MCXENT, SGD lr 0.1 momentum 0.9, batch 512,
    data from synthetic_mnist): the fused-dense kernel K1 against its plain
-   version on the card over 6 shapes x 4 activations x f32/bf16, then its
-   time at both hidden layers' shapes (f32 and bf16) beside its plain
-   version, torch.relu(torch.addmm(b, x, w)) (two calls, a yardstick the
-   port never calls) and the card's bound, timed with the card held busy
-   while the host enqueues each call (device_ms);
+   version on the card over 7 shapes (both MLP layers, ragged edges, 2-byte
+   bf16 pitches) and both MLP layers from element-offset views x 4
+   activations x f32/bf16, then its time at both hidden layers' shapes (f32
+   and bf16) beside its plain version, torch.relu(torch.addmm(b, x, w))
+   (two calls, a yardstick the port never calls) and the card's bound,
+   timed with the card held busy while the host enqueues each call
+   (device_ms);
    MultiLayerNetwork.fit_epochs over a ListDataSetIterator, 2 warm-up and
    MLP_STEPS timed steps (K1 launches exactly 2 x steps; the score on the
    first timed batch finite and lower after the run);
@@ -75,11 +82,15 @@ Phases, each fatal on failure:
    dense attention (f32) with non-zero grads for wq, wk and wv;
 8. output: the card's name and power limit from nvidia-smi, one JSON line
    listing each kernel (K3f at the serving shape; K3f, K3k, K3q at the
-   training shape with their launches over the timed training run; K1 at
-   both MLP layer shapes with its launches over the timed fit_epochs run;
-   K2 at both bench shapes with its launches over the timed char-LSTM
-   fit_epochs run), and as the last line
-   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+   training shape in f32 and bf16 with their launches over the timed f32
+   training run; K1 at both MLP layer shapes in f32 and bf16 with its
+   launches over the timed fit_epochs run; K2 at both bench shapes with
+   its launches over the timed char-LSTM fit_epochs run), and as the last
+   line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
+   ...}}. An f32 row's bound is that of f32-accurate products: the least
+   of the CUDA cores' 67 TFLOP/s and three TF32 products at 495 (the
+   kernels' 3xTF32 split), named in bound_by, with the CUDA cores' bound
+   kept beside it.
 
 Parity phases run with TF32 off (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 False), so f32 products are full f32.
@@ -102,7 +113,12 @@ import numpy as np
 # CUDA cores' rate, outside the tensor cores
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+# the peak of an f32 row whose work is products: the least time the card
+# has for f32-accurate products is min(FLOP on the CUDA cores, 3 FLOP of
+# TF32 through the 3xTF32 split), which K1 and K3f take
+F32_PRODUCTS = "f32 products"
 DEVICE = "cuda"
 
 # the flagship LM's serving width (bench.py's composed-flagship dims)
@@ -140,11 +156,16 @@ OPT_METRICS = {"loss", "task_loss", "aux_loss", "router_load", "grad_norm",
 MLP_H1, MLP_H2, MLP_BATCH = 500, 300, 512
 MLP_WARMUP, MLP_STEPS, EPOCH_STEPS = 2, 50, 200
 HELD_OUT = 512
-# K1 parity: (M, K, N) with both MLP layers, a wider K, the head's shape and
-# ragged edges; error is max abs error over the reference's max abs value:
-# f32 sums in another order (~1e-6 expected), bf16 rounds once (2^-8)
+# K1 parity: (M, K, N) with both MLP layers (bf16 rows of 500 and 300
+# elements are 8-byte aligned only), a wider K, the head's shape, ragged
+# edges on every side (257 x 100 x 129: K not a multiple of the 32-deep
+# chunk, M and N past a tile) and 2-byte bf16 pitches (5x7x3, 1x1x1); then
+# both MLP layers from element-offset views. Error is max abs error over
+# the reference's max abs value: f32 sums in another order (~1e-6
+# expected), bf16 rounds once (2^-8)
 DENSE_SHAPES = ((512, 784, 500), (512, 500, 300), (512, 1024, 512),
-                (100, 300, 10), (5, 7, 3), (1, 1, 1))
+                (100, 300, 10), (257, 100, 129), (5, 7, 3), (1, 1, 1))
+DENSE_OFFSET_SHAPES = ((512, 784, 500), (512, 500, 300))
 DENSE_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # K1 vs the plain dense route, one MLP step at f32: loss absolute; grads as
 # max abs error over the leaf's max. Looser than f32 rounding: at batch 512
@@ -228,16 +249,52 @@ def build_kernels() -> None:
                     log(f"[build]   {line.strip()}")
     log(f"[build] {len(names)} kernel(s) built in "
         f"{time.perf_counter() - t0:.2f} s")
+    cuobjdump = _cuda_tool("cuobjdump")
+    if cuobjdump is None:
+        log("[build] cuobjdump not found: tensor-core instruction counts "
+            "not taken")
+        return
+    for name in names:
+        sass = subprocess.run([cuobjdump, "-sass",
+                               str(_kernels._library_path(name))],
+                              capture_output=True, text=True).stdout
+        log(f"[build] {name}: {sum('HMMA' in ln for ln in sass.splitlines())}"
+            f" tensor-core (HMMA) instructions in its SASS")
+
+
+def _cuda_tool(name: str):
+    """The CUDA toolkit's ``name`` (on PATH or under CUDA_HOME), or None."""
+    import os
+    import shutil
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which(name)
+    if found or not CUDA_HOME:
+        return found
+    path = os.path.join(CUDA_HOME, "bin", name)
+    return path if os.path.exists(path) else None
 
 
 # ------------------------------------------------------------- phase 2 ----
 
-def _qkv(shape, dtype, seed):
+def _qkv(shape, dtype, seed, offset=0):
+    """Three random (B, H, T, Dh) tensors; with ``offset`` each is a view
+    ``offset`` elements into its storage, so its base is only element-
+    aligned (the kernels then stage with narrower copies)."""
     import torch
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    return [torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
-            for _ in range(3)]
+    n = int(np.prod(shape))
+    return [torch.randn(n + offset, generator=gen, device=DEVICE).to(dtype)[
+        offset:].view(shape) for _ in range(3)]
+
+
+# K3f parity: T across the 64-row tiles' edges (65 and 1000 are ragged),
+# Dh in each head-dim bucket (16, 24: 32; 64; 128), then element-offset
+# views at T=100
+FLASH_TS = (8, 65, 100, 512, 1000, 1024, 2048)
+FLASH_DHS = (16, 24, 64, 128)
 
 
 def flash_parity() -> None:
@@ -245,38 +302,42 @@ def flash_parity() -> None:
 
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
 
+    cases = [(t, dh, 0) for t in FLASH_TS for dh in FLASH_DHS]
+    cases += [(100, dh, 1) for dh in FLASH_DHS]
     n = 0
-    for t in (8, 100, 512, 1024, 2048):
-        for dh in (16, 128):
-            for causal in (True, False):
-                for dtype in (torch.float32, torch.bfloat16):
-                    q, k, v = _qkv((2, 2, t, dh), dtype, seed=t + dh)
-                    o, lse = fa.flash_attention_fwd(q, k, v, causal)
-                    ro, rlse = fa.flash_attention_reference(q, k, v, causal)
-                    torch.cuda.synchronize()
-                    tol = TOL[str(dtype).split(".")[1]]
-                    eo = (o.float() - ro.float()).abs().max().item()
-                    el = (lse - rlse).abs().max().item()
-                    ok = (o.dtype == dtype and lse.dtype == torch.float32
-                          and eo <= tol["o"] and el <= tol["lse"]
-                          and torch.isfinite(o.float()).all().item())
-                    log(f"[parity] flash T={t} Dh={dh} causal={causal} "
-                        f"{dtype}: o err {eo:.3g} lse err {el:.3g} "
-                        f"{'ok' if ok else 'FAIL'}")
-                    if not ok:
-                        raise AssertionError(
-                            f"flash kernel disagrees with its plain version "
-                            f"at T={t} Dh={dh} causal={causal} {dtype}: "
-                            f"o {eo} (tol {tol['o']}), lse {el} "
-                            f"(tol {tol['lse']})")
-                    n += 1
+    for t, dh, offset in cases:
+        for causal in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = _qkv((2, 2, t, dh), dtype, seed=t + dh,
+                               offset=offset)
+                o, lse = fa.flash_attention_fwd(q, k, v, causal)
+                ro, rlse = fa.flash_attention_reference(q, k, v, causal)
+                torch.cuda.synchronize()
+                tol = TOL[str(dtype).split(".")[1]]
+                eo = (o.float() - ro.float()).abs().max().item()
+                el = (lse - rlse).abs().max().item()
+                ok = (o.dtype == dtype and lse.dtype == torch.float32
+                      and eo <= tol["o"] and el <= tol["lse"]
+                      and torch.isfinite(o.float()).all().item())
+                log(f"[parity] flash T={t} Dh={dh} causal={causal} {dtype}"
+                    f"{f' offset {offset}' if offset else ''}: o err "
+                    f"{eo:.3g} lse err {el:.3g} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(
+                        f"flash kernel disagrees with its plain version at "
+                        f"T={t} Dh={dh} causal={causal} {dtype} offset "
+                        f"{offset}: o {eo} (tol {tol['o']}), lse {el} "
+                        f"(tol {tol['lse']})")
+                n += 1
     log(f"[parity] flash_attention_fwd: {n} cases agree")
 
 
 def flash_measure() -> dict:
-    """The kernel at the serving shape: time, plain version, library call,
-    bound. Inputs stay resident in the 50 MB L2 between calls, as q/k/v do
-    when prefill's projections have just written them."""
+    """The kernel at the serving shape: its device time (``device_ms``),
+    beside it with the host's launch in the interval (``time_ms``), the
+    plain version, the library call (SDPA, ``device_ms``) and the bound.
+    Inputs stay resident in the 50 MB L2 between calls, as q/k/v do when
+    prefill's projections have just written them."""
     import torch
     import torch.nn.functional as F
 
@@ -287,30 +348,37 @@ def flash_measure() -> dict:
     o, _ = fa.flash_attention_fwd(q, k, v, True)
     ro, _ = fa.flash_attention_reference(q, k, v, True)
     err = (o.float() - ro.float()).abs().max().item()
-    kernel_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, True))
-    plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v, True),
-                       reps=20)
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+    kernel_ms = device_ms(lambda: fa.flash_attention_fwd(q, k, v, True))
+    host_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, True))
+    plain_ms = device_ms(lambda: fa.flash_attention_reference(q, k, v, True),
+                         reps=20)
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True), reps=20)
     flops = 4.0 * b * h * t * t * dh / 2          # causal half of QK^T + PV
     nbytes = 4 * b * h * t * dh * 2 + b * h * t * 4  # q,k,v read, o written
     #                                                 (bf16), lse (f32)
-    op_ms = flops / PEAK_BF16_FLOPS * 1e3
-    byte_ms = nbytes / PEAK_BYTES * 1e3
-    log(f"[measure] flash_attention_fwd B={b} H={h} T={t} Dh={dh} causal "
-        f"bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {library_ms:.4f} ms; bound {max(op_ms, byte_ms) * 1e3:.2f} us "
-        f"({flops / 1e9:.2f} GFLOP -> {op_ms * 1e3:.2f} us at 989 TFLOP/s; "
-        f"{nbytes / 1e6:.2f} MB -> {byte_ms * 1e3:.2f} us at 3.35 TB/s); "
-        f"kernel at {flops / kernel_ms / 1e9:.2f} TFLOP/s; max abs err "
-        f"{err:.3g}")
-    return {"name": "flash_attention_fwd", "route": "cuda",
-            "source": "deeplearning4j_tpu_torch/csrc/flash_attention_fwd.cu",
-            "replaces": "deeplearning4j_tpu/ops/flash_attention.py:405",
-            "launches": None, "max_abs_err": err, "ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": max(op_ms, byte_ms),
-            "bound_by": "operations" if op_ms >= byte_ms else "bytes",
-            "library_ms": library_ms}
+    entry = _kernel_entry(
+        "flash_attention_fwd", "deeplearning4j_tpu/ops/flash_attention.py:405",
+        kernel_ms, plain_ms, flops, nbytes, PEAK_BF16_FLOPS, err, library_ms,
+        f"B={b} H={h} T={t} Dh={dh} causal bfloat16 (serving)",
+        ms_with_launch=host_ms)
+    log(f"[measure] flash_attention_fwd {entry['shape']}: kernel "
+        f"{kernel_ms:.4f} ms ({host_ms:.4f} ms with the host's launch in the "
+        f"interval), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms; "
+        f"bound {entry['bound_ms'] * 1e3:.2f} us ({entry['bound_by']}: "
+        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); kernel at "
+        f"{flops / kernel_ms / 1e9:.2f} TFLOP/s; max abs err {err:.3g}")
+    # B*H = 4 gives 128 blocks of 64 q rows; if one block's walk over the
+    # keys bounds the time, it stays flat with one head and without the mask
+    for heads, causal in ((1, True), (h, False)):
+        q, k, v = _qkv((b, heads, t, dh), torch.bfloat16, seed=8)
+        ms = device_ms(lambda: fa.flash_attention_fwd(q, k, v, causal))
+        lib = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal), reps=20)
+        log(f"[measure] flash_attention_fwd B={b} H={heads} T={t} Dh={dh} "
+            f"{'causal' if causal else 'not causal'} bfloat16: kernel "
+            f"{ms:.4f} ms, sdpa {lib:.4f} ms")
+    return entry
 
 
 def bwd_parity() -> None:
@@ -365,13 +433,26 @@ def _rel_err(got, want) -> float:
 
 def _kernel_entry(name, replaces, ms, plain_ms, flops, nbytes, peak, err,
                   library_ms, shape, **extra) -> dict:
-    op_ms = flops / peak * 1e3
+    """One row of the kernels line. ``peak`` is a FLOP/s rate, or
+    F32_PRODUCTS for f32 products: then the operations' time is the least
+    of the CUDA cores' (67 TFLOP/s) and three TF32 products' (3 FLOP at
+    495), and the CUDA cores' bound is kept beside it."""
+    ops = ""
+    if peak == F32_PRODUCTS:
+        cores_ms = flops / PEAK_F32_FLOPS * 1e3
+        tf32_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3
+        op_ms = min(cores_ms, tf32_ms)
+        ops = " (3xTF32)" if tf32_ms <= cores_ms else " (CUDA cores)"
+        extra["bound_ms_cuda_cores"] = max(cores_ms,
+                                           nbytes / PEAK_BYTES * 1e3)
+    else:
+        op_ms = flops / peak * 1e3
     byte_ms = nbytes / PEAK_BYTES * 1e3
     return {"name": name, "route": "cuda",
             "source": f"deeplearning4j_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(op_ms, byte_ms),
-            "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+            "bound_by": "operations" + ops if op_ms >= byte_ms else "bytes",
             "library_ms": library_ms, "shape": shape, **extra}
 
 
@@ -380,7 +461,10 @@ def train_shape_measure() -> list:
     causal) in f32, the training path's type, and bf16: each kernel's time
     beside its plain version's, its bound, and torch's SDPA (forward for
     K3f; fwd+bwd minus fwd for the K3k+K3q pair), a yardstick the port
-    never calls. Returns the f32 entries of the kernels line."""
+    never calls. K3f and SDPA's forward are timed by ``device_ms`` (K3f by
+    ``time_ms`` beside it), the backward pair and its yardstick by
+    ``time_ms`` (milliseconds each, where the host's enqueue hides).
+    Returns the entries of the kernels line, f32 then bf16."""
     import torch
     import torch.nn.functional as F
 
@@ -389,7 +473,7 @@ def train_shape_measure() -> list:
     b, h, t, dh = TRAIN_B, N_HEADS, TRAIN_T, D_MODEL // N_HEADS
     pairs = b * h * t * t / 2 * dh * 2        # FLOPs of one causal product
     entries = []
-    for dtype, peak in ((torch.float32, PEAK_F32_FLOPS),
+    for dtype, peak in ((torch.float32, F32_PRODUCTS),
                         (torch.bfloat16, PEAK_BF16_FLOPS)):
         q, k, v = _qkv((b, h, t, dh), dtype, seed=21)
         do = _qkv((b, h, t, dh), dtype, seed=22)[0]
@@ -408,7 +492,8 @@ def train_shape_measure() -> list:
                       (dv.float() - rdv.float()).abs().max().item())
         err_dq = (dq.float() - rdq.float()).abs().max().item()
 
-        fwd_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, True))
+        fwd_ms = device_ms(lambda: fa.flash_attention_fwd(q, k, v, True))
+        fwd_host = time_ms(lambda: fa.flash_attention_fwd(q, k, v, True))
         dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv(
             q, k, v, lse, do, delta, True))
         dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq(
@@ -419,6 +504,8 @@ def train_shape_measure() -> list:
             q, k, v, lse, do, delta, True), reps=10)
         dq_plain = time_ms(lambda: fa._bwd_dq_plain(
             q, k, v, lse, do, delta, True), reps=10)
+        sdpa_fwd_dev = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), reps=20)
         sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True), reps=20)
         qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
@@ -433,7 +520,8 @@ def train_shape_measure() -> list:
             _kernel_entry("flash_attention_fwd",
                           "deeplearning4j_tpu/ops/flash_attention.py:405",
                           fwd_ms, fwd_plain, 2 * pairs, 4 * tile + row, peak,
-                          err_fwd, sdpa_fwd, shape),
+                          err_fwd, sdpa_fwd_dev, shape,
+                          ms_with_launch=fwd_host),
             _kernel_entry("flash_attention_bwd_dkv",
                           "jax/experimental/pallas/ops/tpu/"
                           "flash_attention.py:1121 (_flash_attention_bwd_dkv,"
@@ -451,10 +539,13 @@ def train_shape_measure() -> list:
         for e in group:
             log(f"[measure] {e['name']} {shape}: kernel {e['ms']:.4f} ms, "
                 f"plain {e['plain_ms']:.4f} ms, sdpa {e['library_ms']:.4f} "
-                f"ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']}); "
-                f"max abs err {e['max_abs_err']:.3g}")
-        if dtype == torch.float32:
-            entries = group
+                f"ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']}"
+                + (f"; CUDA cores {e['bound_ms_cuda_cores']:.4f} ms"
+                   if "bound_ms_cuda_cores" in e else "")
+                + f"); max abs err {e['max_abs_err']:.3g}")
+        log(f"[measure] flash_attention_fwd {shape}: {fwd_host:.4f} ms with "
+            f"the host's launch in the interval")
+        entries += group
         del q, k, v, do, o, lse, delta, dk, dv, dq, ro, rdq, rdk, rdv
         torch.cuda.empty_cache()
     return entries
@@ -754,14 +845,17 @@ def optimizer_path() -> None:
 
 # ------------------------------------------------------------- phase 5 ----
 
-def _dense_inputs(m, k, n, dtype, seed):
+def _dense_inputs(m, k, n, dtype, seed, offset=0):
+    """x, W, b as the MLP's layers see them; with ``offset`` x and W are
+    views ``offset`` elements into their storage."""
     import torch
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    x = torch.rand((m, k), generator=gen, device=DEVICE)
-    w = torch.randn((k, n), generator=gen, device=DEVICE) / k ** 0.5
+    x = torch.rand((m * k + offset,), generator=gen, device=DEVICE)
+    w = torch.randn((k * n + offset,), generator=gen, device=DEVICE) / k ** 0.5
     b = torch.randn((n,), generator=gen, device=DEVICE) * 0.1
-    return x.to(dtype), w.to(dtype), b.to(dtype)
+    return (x.to(dtype)[offset:].view(m, k), w.to(dtype)[offset:].view(k, n),
+            b.to(dtype))
 
 
 def dense_parity() -> None:
@@ -770,11 +864,14 @@ def dense_parity() -> None:
 
     from deeplearning4j_tpu_torch.ops import pallas_kernels as pk
 
+    cases = [(shape, 0) for shape in DENSE_SHAPES]
+    cases += [(shape, 1) for shape in DENSE_OFFSET_SHAPES]
     n = 0
-    for m, k, nn in DENSE_SHAPES:
+    for (m, k, nn), offset in cases:
         for act in pk._FUSABLE:
             for dtype in (torch.float32, torch.bfloat16):
-                x, w, b = _dense_inputs(m, k, nn, dtype, seed=m + k + nn)
+                x, w, b = _dense_inputs(m, k, nn, dtype, seed=m + k + nn,
+                                        offset=offset)
                 got = pk.fused_dense_fwd(x, w, b, act)
                 want = pk.fused_dense_reference(x, w, b, act)
                 sync()
@@ -783,12 +880,14 @@ def dense_parity() -> None:
                 ok = (got.dtype == dtype and tuple(got.shape) == (m, nn)
                       and err <= tol
                       and torch.isfinite(got.float()).all().item())
-                log(f"[parity] fused_dense {m}x{k}x{nn} {act} {dtype}: rel "
-                    f"err {err:.3g} {'ok' if ok else 'FAIL'}")
+                log(f"[parity] fused_dense {m}x{k}x{nn} {act} {dtype}"
+                    f"{f' offset {offset}' if offset else ''}: rel err "
+                    f"{err:.3g} {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(
                         f"fused_dense kernel disagrees with its plain version "
-                        f"at {m}x{k}x{nn} {act} {dtype}: {err} (tol {tol})")
+                        f"at {m}x{k}x{nn} {act} {dtype} offset {offset}: "
+                        f"{err} (tol {tol})")
                 n += 1
     log(f"[parity] fused_dense: {n} cases agree")
 
@@ -799,7 +898,7 @@ def dense_measure() -> list:
     yardstick the port never calls), all by ``device_ms``, and the bound;
     beside them K1 by ``time_ms`` (host launch included). Operands stay
     resident in the 50 MB L2 between calls, as they are when the step has
-    just written them. Returns the f32 entries of the kernels line."""
+    just written them. Returns the entries of the kernels line."""
     import torch
 
     from deeplearning4j_tpu_torch.ops import pallas_kernels as pk
@@ -807,7 +906,7 @@ def dense_measure() -> list:
     entries = []
     for layer, (k, n) in enumerate(((784, MLP_H1), (MLP_H1, MLP_H2))):
         m = MLP_BATCH
-        for dtype, peak in ((torch.float32, PEAK_F32_FLOPS),
+        for dtype, peak in ((torch.float32, F32_PRODUCTS),
                             (torch.bfloat16, PEAK_BF16_FLOPS)):
             x, w, b = _dense_inputs(m, k, n, dtype, seed=40 + layer)
             got = pk.fused_dense_fwd(x, w, b, "relu")
@@ -836,8 +935,7 @@ def dense_measure() -> list:
                 f"{elt * (m * k + k * n + n + m * n) / 1e6:.2f} MB); kernel "
                 f"at {2.0 * m * k * n / ms / 1e9:.2f} TFLOP/s; max abs err "
                 f"{err:.3g}")
-            if dtype == torch.float32:
-                entries.append(entry)
+            entries.append(entry)
     return entries
 
 
@@ -1014,6 +1112,8 @@ def mlp() -> list:
     main_run = mlp_fit()
     for entry in entries:
         entry["launches"] = main_run["launches"]
+        if "bfloat16" in entry["shape"]:
+            entry["launches_cover"] += " (f32, the path's type)"
     mlp_epoch(bf16=False)
     mlp_epoch(bf16=True)
     mlp_epoch(bf16=False, profiled=True)
@@ -1546,6 +1646,8 @@ def main() -> int:
     train_main = train()
     for entry in train_entries:
         entry["launches"] = train_main["launches"][entry["name"]]
+        entry["launches_cover"] = ("the timed f32 training run (the "
+                                   "training path's type)")
     grad_parity()
     optimizer_path()
     train(profiled=True)

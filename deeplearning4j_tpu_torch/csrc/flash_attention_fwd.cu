@@ -1,4 +1,5 @@
-// Causal / non-causal flash-attention forward for Hopper (sm_90a).
+// Causal / non-causal flash-attention forward for Hopper (sm_90a), on the
+// tensor cores.
 //
 // Replaces: the Pallas TPU flash kernel behind
 //   deeplearning4j_tpu/ops/flash_attention.py::_flash_attention_tpu
@@ -12,221 +13,607 @@
 //   lse = logsumexp of the scaled, masked scores           (f32, (B, H, T))
 // with the reference's numerics: scores, running max, running sum and the
 // output accumulator are f32; P is rounded to V's dtype before the PV
-// product (the einsum on p.astype(v.dtype)); masked scores are -1e30 and the
-// row sum is guarded by max(l, 1e-30).
+// product, as the reference's p.astype(v.dtype) does (the row sum keeps
+// the f32 p); masked scores are -1e30 and the row sum is guarded by
+// max(l, 1e-30). lse = m + log(max(l, 1e-30)) is what the backward
+// kernels read.
 //
-// Bound on an H100 SXM: for the serving shape (B=1, H=4, T=2048, Dh=128,
-// causal, bf16) the work is 4*B*H*T^2*Dh/2 = 4.29 GFLOP, 4.34 us at the
-// 989 TFLOP/s bf16 dense tensor-core rate, against 8.4 MB of q/k/v/o, 2.5 us
-// at 3.35 TB/s: the kernel is bound by operations. This first version does
-// its arithmetic with f32 FMA on the CUDA cores (67 TFLOP/s peak), not on
-// the tensor cores, so it cannot come near that bound; wgmma and TMA are
-// the next step.
+// Bounds on an H100 SXM (989 TFLOP/s bf16 and 495 TF32 dense tensor-core
+// rates, 3.35 TB/s), causal, Dh=128:
+// - serving, B=1 H=4 T=2048 bf16: 4.29 GFLOP in 4.34 us against 8.4 MB in
+//   2.5 us: bound by operations;
+// - training, B=4 H=4 T=2048: 17.2 GFLOP. bf16: 17.4 us of operations
+//   against 33.7 MB, 10.0 us. f32 (three TF32 products each): 104 us of
+//   operations against 67.2 MB, 20.1 us; on the CUDA cores' 67 TFLOP/s it
+//   would be 256 us. Bound by operations at both types.
 //
-// Design (simple and right first):
-// - one thread block of 256 threads per (b*h, 64-row q tile);
-// - the q tile is staged once in shared memory as f32, the k/v tiles of 64
-//   rows each in turn; rows past T are zero-filled (ragged edges masked);
-// - the k/v loop stops at the causal diagonal, so masked tiles cost nothing;
-// - each thread owns 4 rows (ty + 16 i) x 4 score columns (tx + 16 j) of the
-//   64x64 score tile and the same 4 rows x up to 8 columns (tx + 16 j) of
-//   the output accumulator; the online-softmax state of a row lives in the
-//   registers of the 16 threads that share it, reduced with xor shuffles;
-// - q and k rows are padded to Dh+1 floats so the column reads of the score
-//   product are free of bank conflicts.
-// Shared memory is 115,456 bytes at Dh=128, above the 48 KB default, so the
-// launch first raises the kernel's dynamic shared-memory limit.
+// Design (FlashAttention-2's online softmax on mma.sync; wgmma and TMA are
+// a later step):
+// - one block per (b*h, 64-row q tile), 4 warps along the tile, 16 rows
+//   each; under causal the q tiles launch heaviest first (the block index
+//   is reversed), so the short tiles near the start fill the tail;
+// - key split: at f32, and at bf16 when the grid cannot give every SM two
+//   blocks (serving's B*H = 4: 128 blocks), the block has 8 warps, and the
+//   two warps of each 16 rows take the two halves of every K/V tile, each
+//   with its own online softmax; they merge (m, l, acc) once at the end
+//   through shared memory. That halves the sequential walk over the keys,
+//   which is what bounds the serving shape (its time is flat in H and in
+//   causal). Else two 4-warp blocks share an SM;
+// - Q is staged once; K and V tiles are double-buffered by cp.async, tile
+//   j+1 in flight during the products of tile j, one barrier a tile.
+//   Shared tiles are XOR-swizzled (hopper_mma.cuh) instead of padded, so
+//   ldmatrix and the f32 fragment loads are free of bank conflicts. Rows
+//   past T and columns past dh are zero-filled by the copy (src-size 0);
+// - bf16: Q is held as m16n8k16 A fragments in registers, S = Q K^T comes
+//   from ldmatrix'ed K fragments (those of step kk+1 loaded before the
+//   products of step kk), P is packed to bf16 in registers (the
+//   accumulator pairs are the next product's A fragment) and multiplied by
+//   V through ldmatrix.trans, with no trip through shared memory;
+// - the online softmax runs on the f32 accumulator layout: each thread
+//   holds 2 rows, the row max is reduced over the quad with shuffles, and
+//   exp(scale s - m) is 2^(c s - c m) with c = scale log2(e): one
+//   multiply-add and one ex2 an element. The causal/T mask is one compare
+//   and select an element, on the tiles that need it only;
+// - f32: the same tiles on m16n8k8 TF32 with the 3xTF32 split (a*b ~
+//   a_hi b_hi + a_hi b_lo + a_lo b_hi), f32-accurate; a single TF32 pass
+//   would keep three decimal digits and is not used. The fragments come
+//   from swizzled 4-byte shared loads (ldmatrix is 16-bit). Each 32-wide
+//   slice of Dh and each tile's PV is summed in fresh accumulators (the
+//   correction terms apart) and added to the running sum on the CUDA cores
+//   (round to nearest), so no long sum stays in the tensor core's adder.
+//   P's columns are taken in the order 2q, 2q+1 (the accumulator's) for
+//   the A fragment's q, q+4, and V's rows in the same order;
+// - templated on a head-dim bucket (32, 64, 128): every dh % 8 == 0 up to
+//   128 runs, the columns past dh zero;
+// - shared memory at Dh=128: 16 KB of bf16 Q and two stages of K and V,
+//   64 rows each (80 KB; 144 KB with the key split), or 32 KB of f32 Q
+//   and two stages of 64-row f32 K and V (160 KB). The limit is raised
+//   once per kernel and device;
+// - the copy width (16, 8, 4 or 2 bytes) follows the inputs' alignment,
+//   so a view at any element offset runs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstddef>
+#include <cstdint>
+#include <type_traits>
+
+#include "hopper_mma.cuh"
+
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;
+using namespace hopper;
+
+constexpr int kRowWarps = 4;  // warps along the q tile, 16 rows each
 constexpr int kMaxDh = 128;
-constexpr int kColGroups = kMaxDh / 16;  // output columns per thread
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+constexpr int kBlockQ = kRowWarps * 16;
+constexpr int kKVStages = 2;  // the cp.async ring of K/V tiles
 
 template <typename T>
-__device__ __forceinline__ T from_f32(float x);
+struct Cfg;
 template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
+struct Cfg<__nv_bfloat16> {
+  static constexpr int kBlockK = 64;  // keys of a tile a warp takes
+};
 template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
+struct Cfg<float> {
+  static constexpr int kBlockK = 32;
+};
+
+// rows of DH elements of T; <1, 3, 0> for the 4-chunk rows of bf16 Dh 32
+template <typename T, int DH>
+using RowTile =
+    typename std::conditional<DH * sizeof(T) / 16 >= 8,
+                              SwizzledTile<DH * sizeof(T), 0, 7, 0>,
+                              SwizzledTile<DH * sizeof(T), 1, 3, 0>>::type;
+
+template <typename T, int DH, int kSplit>
+constexpr int smem_bytes() {
+  return (kBlockQ + 2 * kKVStages * kSplit * Cfg<T>::kBlockK) * DH *
+         (int)sizeof(T);
 }
 
-size_t smem_bytes(int dh) {
-  const int ld = dh + 1;
-  return sizeof(float) * (size_t)(kBlockQ * ld + kBlockK * ld + kBlockK * dh +
-                                  kBlockQ * (kBlockK + 1));
+// Stage rows [row0, row0 + ROWS) of a (t, dh) array into a shared tile of
+// DH-wide rows: rows past t and columns past dh read zero. Each thread
+// copies one chunk column of every kThreads / kChunks-th row, so its
+// shared offsets and source step are fixed; kVec16 (every source 16-byte
+// aligned) takes cp.async.cg directly.
+template <typename T, int DH, int ROWS, bool kVec16, int kThreads>
+__device__ __forceinline__ void stage_rows(unsigned char* tile,
+                                           const T* __restrict__ src,
+                                           int row0, int t, int dh,
+                                           int width) {
+  using Tile = RowTile<T, DH>;
+  constexpr int kChunks = DH * sizeof(T) / 16;
+  constexpr int kRowsPerPass = kThreads / kChunks;
+  static_assert(ROWS % kRowsPerPass == 0, "whole passes");
+  const int c = threadIdx.x % kChunks;
+  const int r0 = threadIdx.x / kChunks;
+  const size_t pitch = (size_t)dh * sizeof(T);
+  const bool col_ok = c < dh * (int)sizeof(T) / 16;
+  const char* base = reinterpret_cast<const char*>(src);
+  const char* from = base + (size_t)(row0 + r0) * pitch + c * 16;
+#pragma unroll
+  for (int n = 0; n < ROWS / kRowsPerPass; ++n) {
+    const int r = r0 + n * kRowsPerPass;
+    const bool ok = col_ok && row0 + r < t;
+    const char* at = ok ? from + n * kRowsPerPass * pitch : base;
+    if constexpr (kVec16)
+      cp_async_cg16(tile + Tile::offset(r, c), at, ok ? 16 : 0);
+    else
+      copy_chunk(tile + Tile::offset(r, c), at, ok ? 16 : 0, width);
+  }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// ----------------------------------------------------------- bf16 path ----
+
+// s (this warp's 16 rows x BK keys) = Q K^T for one K tile, Q's A
+// fragments in registers; the K fragments of step kk+1 are loaded before
+// the products of step kk, so ldmatrix's latency hides under them
+template <int DH, int BK>
+__device__ __forceinline__ void scores_bf16(float (&s)[BK / 8][4],
+                                            const uint32_t (&qf)[DH / 16][4],
+                                            const unsigned char* kt,
+                                            int lane) {
+  using Tile = RowTile<__nv_bfloat16, DH>;
+  const int key = (lane & 7) + ((lane >> 4) << 3);
+  const int half = (lane >> 3) & 1;
+  uint32_t kf[2][BK / 16][4];
+#pragma unroll
+  for (int np = 0; np < BK / 16; ++np)
+    ldmatrix_x4(kf[0][np], kt + Tile::offset(16 * np + key, half));
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    if (kk + 1 < DH / 16) {
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np)
+        ldmatrix_x4(kf[(kk + 1) & 1][np],
+                    kt + Tile::offset(16 * np + key, 2 * (kk + 1) + half));
+    }
+#pragma unroll
+    for (int np = 0; np < BK / 16; ++np) {
+      mma_bf16_16816(s[2 * np], qf[kk], kf[kk & 1][np][0], kf[kk & 1][np][1]);
+      mma_bf16_16816(s[2 * np + 1], qf[kk], kf[kk & 1][np][2],
+                     kf[kk & 1][np][3]);
+    }
+  }
+}
+
+// acc (16 rows x DH) += P V for one V tile, P from the score accumulators
+// packed to bf16; each V fragment is loaded one product pair ahead
+template <int DH, int BK>
+__device__ __forceinline__ void pv_bf16(float (&acc)[DH / 8][4],
+                                        const float (&s)[BK / 8][4],
+                                        const unsigned char* vt, int lane) {
+  using Tile = RowTile<__nv_bfloat16, DH>;
+  constexpr int kSteps = BK / 16 * (DH / 16);
+  const int key = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int half = lane >> 4;
+  uint32_t pf[BK / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    pf[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+    pf[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+    pf[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    pf[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+  }
+  uint32_t vf[2][4];
+  ldmatrix_x4_trans(vf[0], vt + Tile::offset(key, half));
+#pragma unroll
+  for (int i = 0; i < kSteps; ++i) {
+    const int kk = i / (DH / 16), dp = i % (DH / 16);
+    if (i + 1 < kSteps) {
+      const int kn = (i + 1) / (DH / 16), dn = (i + 1) % (DH / 16);
+      ldmatrix_x4_trans(vf[(i + 1) & 1],
+                        vt + Tile::offset(16 * kn + key, 2 * dn + half));
+    }
+    mma_bf16_16816(acc[2 * dp], pf[kk], vf[i & 1][0], vf[i & 1][1]);
+    mma_bf16_16816(acc[2 * dp + 1], pf[kk], vf[i & 1][2], vf[i & 1][3]);
+  }
+}
+
+// ------------------------------------------------------------ f32 path ----
+
+__device__ __forceinline__ float lds_f32(const unsigned char* p) {
+  return *reinterpret_cast<const float*>(p);
+}
+
+// s = Q K^T for one K tile through 3xTF32; each 32-wide slice of Dh is
+// summed in fresh accumulators (big and correction terms apart) and added
+// to s on the CUDA cores
+template <int DH, int BK>
+__device__ __forceinline__ void scores_f32(float (&s)[BK / 8][4],
+                                           const unsigned char* qs,
+                                           const unsigned char* kt, int row,
+                                           int g, int q) {
+  using Tile = RowTile<float, DH>;
+  constexpr int kSlice = DH < 32 ? DH : 32;
+#pragma unroll
+  for (int d0 = 0; d0 < DH; d0 += kSlice) {
+    float big[BK / 8][4] = {}, small[BK / 8][4] = {};
+#pragma unroll
+    for (int kk = d0 / 8; kk < (d0 + kSlice) / 8; ++kk) {
+      uint32_t ah[4], al[4];
+      split_tf32(lds_f32(qs + Tile::template element<4>(row, 8 * kk + q)),
+                 ah[0], al[0]);
+      split_tf32(lds_f32(qs + Tile::template element<4>(row + 8, 8 * kk + q)),
+                 ah[1], al[1]);
+      split_tf32(lds_f32(qs + Tile::template element<4>(row, 8 * kk + q + 4)),
+                 ah[2], al[2]);
+      split_tf32(
+          lds_f32(qs + Tile::template element<4>(row + 8, 8 * kk + q + 4)),
+          ah[3], al[3]);
+#pragma unroll
+      for (int nb = 0; nb < BK / 8; ++nb) {
+        uint32_t b0h, b0l, b1h, b1l;
+        split_tf32(lds_f32(kt + Tile::template element<4>(8 * nb + g,
+                                                          8 * kk + q)),
+                   b0h, b0l);
+        split_tf32(lds_f32(kt + Tile::template element<4>(8 * nb + g,
+                                                          8 * kk + q + 4)),
+                   b1h, b1l);
+        mma_3xtf32(big[nb], small[nb], ah, al, b0h, b1h, b0l, b1l);
+      }
+    }
+#pragma unroll
+    for (int nb = 0; nb < BK / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] += big[nb][e] + small[nb][e];
+  }
+}
+
+// part (16 x DH) = P V for one V tile through 3xTF32. A's column q is the
+// key 2q of an 8-key block and column q+4 the key 2q+1, so the score
+// accumulators are the A fragment as they lie; V's rows follow suit.
+template <int DH, int BK>
+__device__ __forceinline__ void pv_f32(float (&part)[DH / 8][4],
+                                       const float (&s)[BK / 8][4],
+                                       const unsigned char* vt, int g,
+                                       int q) {
+  using Tile = RowTile<float, DH>;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    uint32_t ah[4], al[4];
+    split_tf32(s[j][0], ah[0], al[0]);
+    split_tf32(s[j][2], ah[1], al[1]);
+    split_tf32(s[j][1], ah[2], al[2]);
+    split_tf32(s[j][3], ah[3], al[3]);
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) {
+      uint32_t b0h, b0l, b1h, b1l;
+      split_tf32(lds_f32(vt + Tile::template element<4>(8 * j + 2 * q,
+                                                        8 * n + g)),
+                 b0h, b0l);
+      split_tf32(lds_f32(vt + Tile::template element<4>(8 * j + 2 * q + 1,
+                                                        8 * n + g)),
+                 b1h, b1l);
+      mma_3xtf32(part[n], part[n], ah, al, b0h, b1h, b0l, b1l);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- kernel --
+
+// Scores of keys past ``lim`` (the row's last visible key) set to -1e30:
+// one compare and one select an element, on edge tiles only.
+template <int BK>
+__device__ __forceinline__ void mask_scores(float (&s)[BK / 8][4], int k0,
+                                            const int (&lim)[2], int qd) {
+#pragma unroll
+  for (int nb = 0; nb < BK / 8; ++nb)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (k0 + 8 * nb + 2 * qd + e > lim[h]) s[nb][2 * h + e] = kNegInf;
+}
+
+// Merge the key halves of a 16-row group: the warp of kw = 1 hands its
+// (m, l, acc) to the warp of kw = 0 through shared memory ``xchg`` (the
+// K/V tiles, free by now), laid out value-major so that a warp's stores
+// and loads are free of bank conflicts. A half that saw no visible key
+// has m = -1e30 and weight 0. Every thread of the block calls it; it
+// returns true for the threads that hold the merged result.
+template <int DH>
+__device__ __forceinline__ bool merge_key_halves(float* xchg, int slot,
+                                                 int kw, float c2,
+                                                 float (&m)[2], float (&l)[2],
+                                                 float (&acc)[DH / 8][4]) {
+  constexpr int kSlots = kRowWarps * 32;
+  float* x_m = xchg + (DH / 2) * kSlots;
+  float* x_l = x_m + 2 * kSlots;
+  if (kw == 1) {
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xchg[(4 * n + e) * kSlots + slot] = acc[n][e];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      x_m[h * kSlots + slot] = m[h];
+      x_l[h * kSlots + slot] = l[h];
+    }
+  }
+  __syncthreads();
+  if (kw == 1) return false;
+  float a1[2], a2[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m2 = x_m[h * kSlots + slot];
+    const float m_new = fmaxf(m[h], m2);
+    a1[h] = fast_exp2((m[h] - m_new) * c2);
+    a2[h] = fast_exp2((m2 - m_new) * c2);
+    m[h] = m_new;
+    l[h] = l[h] * a1[h] + x_l[h * kSlots + slot] * a2[h];
+  }
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[n][e] = acc[n][e] * a1[e >> 1] +
+                  xchg[(4 * n + e) * kSlots + slot] * a2[e >> 1];
+  return true;
+}
+
+template <typename T, int DH, bool kVec16, int kSplit>
+__global__ void __launch_bounds__(kRowWarps * kSplit * 32)
     flash_attention_fwd_kernel(const T* __restrict__ q,
                                const T* __restrict__ k,
                                const T* __restrict__ v, T* __restrict__ o,
                                float* __restrict__ lse, int t, int dh,
-                               int causal, float scale) {
-  extern __shared__ float smem[];
-  const int ld = dh + 1;
-  float* qs = smem;                  // kBlockQ x ld
-  float* ks = qs + kBlockQ * ld;     // kBlockK x ld
-  float* vs = ks + kBlockK * ld;     // kBlockK x dh
-  float* ps = vs + kBlockK * dh;     // kBlockQ x (kBlockK + 1)
-  const int pld = kBlockK + 1;
+                               int causal, float scale, int width) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int kThreads = kRowWarps * kSplit * 32;
+  constexpr int BK = Cfg<T>::kBlockK;  // keys a warp takes of a tile
+  constexpr int kTileK = kSplit * BK;
+  constexpr int kRowBytes = DH * sizeof(T);
+  constexpr int kStageBytes = kTileK * kRowBytes;
+  using Tile = RowTile<T, DH>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* qs = smem;                      // kBlockQ rows
+  unsigned char* ks = qs + kBlockQ * kRowBytes;  // kKVStages K tiles
+  unsigned char* vs = ks + kKVStages * kStageBytes;  // the same for V
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rw = warp % kRowWarps;  // which 16 q rows
+  const int kw = warp / kRowWarps;  // which BK keys of each tile
+  const int g = lane >> 2, qd = lane & 3;
   const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBlockQ;
+  const int n_qt = gridDim.y;
+  const int q0 = (causal ? n_qt - 1 - (int)blockIdx.y : (int)blockIdx.y) *
+                 kBlockQ;
   const size_t base = (size_t)bh * t * dh;
   const T* qb = q + base;
   const T* kb = k + base;
   const T* vb = v + base;
 
-  for (int i = tid; i < kBlockQ * dh; i += kThreads) {
-    const int r = i / dh, c = i - r * dh;
-    const int gr = q0 + r;
-    qs[r * ld + c] = gr < t ? to_f32(qb[(size_t)gr * dh + c]) : 0.f;
-  }
-
-  float m[4], l[4], acc[4][kColGroups];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kColGroups; ++j) acc[i][j] = 0.f;
-  }
-
-  const int n_tiles = (t + kBlockK - 1) / kBlockK;
+  const int n_tiles = (t + kTileK - 1) / kTileK;
   const int last_q = min(q0 + kBlockQ, t) - 1;
-  const int n_kt = causal ? min(n_tiles, last_q / kBlockK + 1) : n_tiles;
+  const int n_kt = causal ? min(n_tiles, last_q / kTileK + 1) : n_tiles;
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // the previous tile's readers are done with ks/vs/ps
-    for (int i = tid; i < kBlockK * dh; i += kThreads) {
-      const int r = i / dh, c = i - r * dh;
-      const int gr = k0 + r;
-      const bool ok = gr < t;
-      ks[r * ld + c] = ok ? to_f32(kb[(size_t)gr * dh + c]) : 0.f;
-      vs[r * dh + c] = ok ? to_f32(vb[(size_t)gr * dh + c]) : 0.f;
+  // Q and the first kKVStages - 1 K/V tiles, one commit group each
+  stage_rows<T, DH, kBlockQ, kVec16, kThreads>(qs, qb, q0, t, dh, width);
+#pragma unroll
+  for (int st = 0; st < kKVStages - 1; ++st) {
+    if (st < n_kt) {
+      stage_rows<T, DH, kTileK, kVec16, kThreads>(
+          ks + st * kStageBytes, kb, st * kTileK, t, dh, width);
+      stage_rows<T, DH, kTileK, kVec16, kThreads>(
+          vs + st * kStageBytes, vb, st * kTileK, t, dh, width);
     }
+    cp_async_commit();
+  }
+
+  // The softmax runs on raw scores s = q.k: with c = scale * log2(e),
+  // exp(scale s - max(scale s)) = 2^(c s - c max(s)), one multiply-add and
+  // one ex2 an element; max(scale s) = scale max(s) (scale > 0).
+  const float c2 = scale * 1.4426950408889634f;
+  const int row = rw * 16 + g;  // this thread's rows: row, row + 8
+  int lim[2];                   // the last key each row sees
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    lim[h] = causal ? min(q0 + row + 8 * h, t - 1) : t - 1;
+  // a warp's keys need the mask if they reach past T or, under causal,
+  // past the warp's first row
+  const int warp_lim = causal ? min(q0 + rw * 16, t - 1) : t - 1;
+  float m[2] = {kNegInf, kNegInf};  // running max of the raw scores
+  float l[2] = {0.f, 0.f};          // this thread's share of the row sums
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  uint32_t qf[kF32 ? 1 : DH / 16][4];
+  if constexpr (!kF32) {
+    cp_async_wait<kKVStages - 2>();  // Q is in the oldest group
     __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      ldmatrix_x4(qf[kk], qs + Tile::offset(rw * 16 + (lane & 15),
+                                            2 * kk + (lane >> 4)));
+  }
 
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < dh; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * ld + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * ld + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+  for (int j = 0; j < n_kt; ++j) {
+    cp_async_wait<kKVStages - 2>();
+    __syncthreads();  // tile j landed; every warp is done with tile j-1
+    const int next = j + kKVStages - 1;
+    if (next < n_kt) {
+      const int slot = next % kKVStages;
+      stage_rows<T, DH, kTileK, kVec16, kThreads>(
+          ks + slot * kStageBytes, kb, next * kTileK, t, dh, width);
+      stage_rows<T, DH, kTileK, kVec16, kThreads>(
+          vs + slot * kStageBytes, vb, next * kTileK, t, dh, width);
     }
+    cp_async_commit();
+    const int cur = (j % kKVStages) * kStageBytes + kw * BK * kRowBytes;
+    const unsigned char* kt = ks + cur;
+    const unsigned char* vt = vs + cur;
 
+    float s[BK / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const int qr = q0 + r;
+    for (int nb = 0; nb < BK / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+    if constexpr (kF32)
+      scores_f32<DH, BK>(s, qs, kt, row, g, qd);
+    else
+      scores_bf16<DH, BK>(s, qf, kt, lane);
+
+    const int k0 = j * kTileK + kw * BK;
+    if (k0 + BK - 1 > warp_lim) mask_scores<BK>(s, k0, lim, qd);
+
+    // online softmax on the accumulator layout
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kc = k0 + tx + 16 * j;
-        const bool ok = kc < t && (!causal || kc <= qr);
-        s[i][j] = ok ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
+      for (int nb = 0; nb < BK / 8; ++nb)
+        mx = fmaxf(mx, fmaxf(s[nb][2 * h], s[nb][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
+      const float alpha = fast_exp2((m[h] - m_new) * c2);
+      // a row with no visible key yet keeps m = -1e30 and p = 0 (2^(c s)
+      // with s = -1e30), never the rounding error of m * c
+      const float mc = m_new == kNegInf ? 0.f : m_new * c2;
+      m[h] = m_new;
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        // P in V's dtype for the PV product; the row sum keeps f32 p
-        ps[r * pld + tx + 16 * j] = to_f32(from_f32<T>(p));
-      }
+      for (int nb = 0; nb < BK / 8; ++nb)
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kColGroups; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-    const int kn = min(kBlockK, t - k0);
-    for (int c = 0; c < kn; ++c) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * pld + c];
-#pragma unroll
-      for (int j = 0; j < kColGroups; ++j) {
-        const int dc = tx + 16 * j;
-        if (dc < dh) {
-          const float vv = vs[c * dh + dc];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
+        for (int e = 0; e < 2; ++e) {
+          const float p = fast_exp2(fmaf(s[nb][2 * h + e], c2, -mc));
+          s[nb][2 * h + e] = p;
+          rs += p;
         }
+      l[h] = l[h] * alpha + rs;
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n) {
+        acc[n][2 * h] *= alpha;
+        acc[n][2 * h + 1] *= alpha;
       }
     }
+
+    if constexpr (kF32) {
+      float part[DH / 8][4] = {};
+      pv_f32<DH, BK>(part, s, vt, g, qd);
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+    } else {
+      pv_bf16<DH, BK>(acc, s, vt, lane);
+    }
+  }
+  cp_async_wait<0>();
+
+  if constexpr (kSplit == 2) {
+    static_assert(
+        (DH / 2 + 4) * kRowWarps * 32 * 4 <= 2 * kKVStages * kStageBytes,
+        "the merge fits in the K/V tiles");
+    __syncthreads();  // every warp is done with the last K/V tile
+    if (!merge_key_halves<DH>(reinterpret_cast<float*>(ks), rw * 32 + lane,
+                              kw, c2, m, l, acc))
+      return;
   }
 
   T* ob = o + base;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gr = q0 + ty + 16 * i;
+  for (int h = 0; h < 2; ++h) {
+    float lh = l[h];
+    lh += __shfl_xor_sync(0xffffffffu, lh, 1);
+    lh += __shfl_xor_sync(0xffffffffu, lh, 2);
+    const int gr = q0 + row + 8 * h;
     if (gr >= t) continue;
-    const float li = fmaxf(l[i], 1e-30f);
+    const float li = fmaxf(lh, 1e-30f);
 #pragma unroll
-    for (int j = 0; j < kColGroups; ++j) {
-      const int dc = tx + 16 * j;
-      if (dc < dh) ob[(size_t)gr * dh + dc] = from_f32<T>(acc[i][j] / li);
+    for (int n = 0; n < DH / 8; ++n) {
+      const int dc = 8 * n + 2 * qd;
+      if (dc >= dh) break;
+      const float o0 = acc[n][2 * h] / li, o1 = acc[n][2 * h + 1] / li;
+      T* dst = ob + (size_t)gr * dh + dc;
+      if constexpr (kF32)
+        *reinterpret_cast<float2*>(dst) = make_float2(o0, o1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(o0, o1);
     }
-    if (tx == 0) lse[(size_t)bh * t + gr] = m[i] + logf(li);
+    if (qd == 0) lse[(size_t)bh * t + gr] = m[h] * scale + logf(li);
   }
 }
 
-template <typename T>
+template <typename T, int DH, bool kVec16, int kSplit>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int bh, int t, int dh, int causal, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes(dh);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_fwd_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                   int width, cudaStream_t stream) {
+  static bool smem_set[kMaxDevices] = {};
+  constexpr int smem = smem_bytes<T, DH, kSplit>();
+  const auto kernel = flash_attention_fwd_kernel<T, DH, kVec16, kSplit>;
+  cudaError_t err = set_smem_limit_once(kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (t + kBlockQ - 1) / kBlockQ);
-  flash_attention_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kRowWarps * kSplit * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      t, dh, causal, scale);
+      t, dh, causal, scale, width);
   return cudaGetLastError();
+}
+
+template <typename T, bool kVec16, int kSplit>
+cudaError_t launch_dh(const void* q, const void* k, const void* v, void* o,
+                      void* lse, int bh, int t, int dh, int causal,
+                      float scale, int width, cudaStream_t stream) {
+  if (dh <= 32)
+    return launch<T, 32, kVec16, kSplit>(q, k, v, o, lse, bh, t, dh, causal,
+                                         scale, width, stream);
+  if (dh <= 64)
+    return launch<T, 64, kVec16, kSplit>(q, k, v, o, lse, bh, t, dh, causal,
+                                         scale, width, stream);
+  return launch<T, 128, kVec16, kSplit>(q, k, v, o, lse, bh, t, dh, causal,
+                                        scale, width, stream);
+}
+
+// The SMs of the current device, read once per device.
+int sm_count() {
+  static int count[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices) return 132;
+  if (count[dev] == 0 &&
+      cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    return 132;
+  return count[dev];
+}
+
+template <typename T>
+cudaError_t launch_width(const void* q, const void* k, const void* v,
+                         void* o, void* lse, int bh, int t, int dh,
+                         int causal, float scale, int width,
+                         cudaStream_t stream) {
+  // Split each K/V tile's keys over two warp groups at f32, whose products
+  // keep more warps busy, and at bf16 when the grid cannot give every SM
+  // two blocks (serving's B*H = 4); else two 4-warp blocks share an SM.
+  if constexpr (sizeof(T) == 4) {
+    return width == 16 ? launch_dh<T, true, 2>(q, k, v, o, lse, bh, t, dh,
+                                               causal, scale, width, stream)
+                       : launch_dh<T, false, 2>(q, k, v, o, lse, bh, t, dh,
+                                                causal, scale, width, stream);
+  } else {
+    const long long blocks = (long long)bh * ((t + kBlockQ - 1) / kBlockQ);
+    if (blocks < 2LL * sm_count())
+      return width == 16
+                 ? launch_dh<T, true, 2>(q, k, v, o, lse, bh, t, dh, causal,
+                                         scale, width, stream)
+                 : launch_dh<T, false, 2>(q, k, v, o, lse, bh, t, dh, causal,
+                                          scale, width, stream);
+    return width == 16 ? launch_dh<T, true, 1>(q, k, v, o, lse, bh, t, dh,
+                                               causal, scale, width, stream)
+                       : launch_dh<T, false, 1>(q, k, v, o, lse, bh, t, dh,
+                                                causal, scale, width, stream);
+  }
 }
 
 }  // namespace
@@ -243,9 +630,15 @@ extern "C" int dl4j_flash_attention_fwd(const void* q, const void* k,
       (t + kBlockQ - 1) / kBlockQ > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // rows are dh * elt bytes, a multiple of 16: the bases set the width
+  const long long align = reinterpret_cast<long long>(q) |
+                          reinterpret_cast<long long>(k) |
+                          reinterpret_cast<long long>(v);
+  const int width = copy_width(reinterpret_cast<const void*>(align), 16);
   const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(q, k, v, o, lse, bh, t, dh, causal,
-                                      scale, s)
-              : launch<float>(q, k, v, o, lse, bh, t, dh, causal, scale, s);
+      is_bf16 ? launch_width<__nv_bfloat16>(q, k, v, o, lse, bh, t, dh,
+                                            causal, scale, width, s)
+              : launch_width<float>(q, k, v, o, lse, bh, t, dh, causal,
+                                    scale, width, s);
   return (int)err;
 }

@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` source is compiled at first use by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface under
 ``deeplearning4j_tpu_torch/_build/`` and bound with ``ctypes``. The library
-name carries a hash of its source, so an edited source is rebuilt and a
+name carries a hash of its source and of every ``csrc`` header it pulls in
+with a quoted ``#include``, so an edited source or header is rebuilt and a
 built one is reused. Nothing here runs at import: the CPU tests import every
 module of the package on a host without ``nvcc``.
 
@@ -17,11 +18,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -89,10 +91,29 @@ def _nvcc() -> str:
                        "with the CUDA toolkit")
 
 
+_QUOTED_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and the ``csrc`` files it includes with quoted
+    ``#include``s, transitively, each once, in the order first reached."""
+    seen: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _QUOTED_INCLUDE.findall(path.read_bytes()):
+            todo.append(path.parent / inc.decode())
+    return seen
+
+
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    digest = hashlib.sha256()
+    for path in source_files(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> Path:
