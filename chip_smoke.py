@@ -9,20 +9,23 @@ Phases, each fatal on failure:
    per source, started together; a library is named by a digest of its
    source and the csrc headers it includes) and print the build time, the
    ptxas report and each library's count of tensor-core (HMMA)
-   instructions from cuobjdump -sass, or that cuobjdump is absent;
+   instructions and of local-memory spill instructions (STL, LDL) from
+   cuobjdump -sass, or that cuobjdump is absent; a tensor-core kernel (K3f,
+   K3k, K3q, K1) with no HMMA fails;
 2. kernel parity: each kernel against its plain PyTorch version on the card:
    the forward (K3f) as (o, lse) over T in {8, 65, 100, 512, 1000, 1024,
    2048} (65 and 1000 ragged), Dh in {16, 24, 64, 128} (each head-dim
    bucket), causal and not, f32 and bf16, and on element-offset views at
    T=100; the backward pair (K3k: dK, dV; K3q: dQ) from K3f's o and lse
-   over T in {8, 100, 512, 1024, 2048}, Dh in {16, 128}; then K3f's time at
-   the serving shape (B=1, H=4, T=2048, Dh=128, causal, bf16) and all three
-   at the training shape (B=4, H=4, T=2048, Dh=128, causal; f32, the
-   training path's type, and bf16), each beside its plain version's time,
-   torch's scaled_dot_product_attention (forward for K3f; fwd+bwd minus fwd
-   for the K3k+K3q pair: a yardstick the port never calls) and the card's
-   bound (CUDA events, median of 30 after warm-up; K3f and SDPA's forward
-   by device_ms, with K3f's time_ms beside it);
+   over T in {1, 65, 100, 512, 2048}, Dh in {8, 40, 64, 96, 128} (each
+   head-dim bucket), causal and not, f32 and bf16; then K3f's time at the
+   serving shape (B=1, H=4, T=2048, Dh=128, causal, bf16) and all three at
+   the training shape (B=4, H=4, T=2048, Dh=128, causal; f32, the training
+   path's type, and bf16), each beside its plain version's time, torch's
+   scaled_dot_product_attention (forward for K3f; fwd+bwd minus fwd for the
+   K3k+K3q pair: a yardstick the port never calls) and the card's bound
+   (CUDA events, median of 30 after warm-up, by device_ms, each kernel's
+   time_ms beside it);
 3. serving at the flagship's full width (vocab 2048, d_model 512, 4 heads of
    128, 4 experts, d_ff 1024, 2 layers; random weights from a seed):
    DecodeEngine(n_slots=8, max_len=2048, serve_dtype="bf16") answers 10
@@ -39,9 +42,13 @@ Phases, each fatal on failure:
    on one (B=4, T=2048) batch; every loss is finite, the last below the
    first, and each of K3f, K3k and K3q launches exactly n_layers x 10
    times. One step's loss and grads through the kernels agree with dense
-   attention's (f32), with non-zero grads for wq, wk and wv; two steps of
-   the Adam step with guard= and with_metrics= run through the kernels;
-   the timed steps run once more under torch.profiler for the busy share;
+   attention's (f32), with non-zero grads for wq, wk and wv, and both
+   routes' grads are held against a float64 dense step on the same inputs,
+   per leaf (logged); two steps of the Adam step with guard= and
+   with_metrics= run through the kernels; the timed steps run once more
+   under torch.profiler for the busy share; one step at d_model / n_heads
+   = 256 (2 heads), T=1024, with the auto core runs dense attention (the
+   kernels take Dh up to 128): finite, no flash launch;
 5. the MNIST MLP (models/zoo.mnist_mlp at the bench's full width:
    784-500-300-10, relu, softmax/MCXENT, SGD lr 0.1 momentum 0.9, batch 512,
    data from synthetic_mnist): the fused-dense kernel K1 against its plain
@@ -101,6 +108,7 @@ before printing any result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -235,6 +243,12 @@ def device_ms(fn, reps: int = 30, warmup: int = 3) -> float:
 
 # ------------------------------------------------------------- phase 1 ----
 
+# the kernels built on csrc/hopper_mma.cuh's mma.sync: their SASS must hold
+# tensor-core instructions
+TENSOR_CORE_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                       "flash_attention_bwd_dq", "fused_dense")
+
+
 def build_kernels() -> None:
     from deeplearning4j_tpu_torch.ops import _kernels
 
@@ -258,8 +272,13 @@ def build_kernels() -> None:
         sass = subprocess.run([cuobjdump, "-sass",
                                str(_kernels._library_path(name))],
                               capture_output=True, text=True).stdout
-        log(f"[build] {name}: {sum('HMMA' in ln for ln in sass.splitlines())}"
-            f" tensor-core (HMMA) instructions in its SASS")
+        counts = {op: len(re.findall(rf"\b{op}\b", sass))
+                  for op in ("HMMA", "STL", "LDL")}
+        log(f"[build] {name}: {counts['HMMA']} tensor-core (HMMA) "
+            f"instructions in its SASS; local-memory spills: "
+            f"{counts['STL']} STL, {counts['LDL']} LDL")
+        if name in TENSOR_CORE_KERNELS and counts["HMMA"] == 0:
+            raise AssertionError(f"{name} has no tensor-core instruction")
 
 
 def _cuda_tool(name: str):
@@ -381,17 +400,26 @@ def flash_measure() -> dict:
     return entry
 
 
+# K3k/K3q parity: T from one row through ragged edges (65, 100) to the
+# training length; Dh in every head-dim bucket (8: 32; 40, 64: 64; 96, 128:
+# 128), columns past dh zero-filled in all but 64 and 128
+BWD_TS = (1, 65, 100, 512, 2048)
+BWD_DHS = (8, 40, 64, 96, 128)
+
+
 def bwd_parity() -> None:
     """K3k and K3q against ``flash_attention_bwd_reference`` on the card,
     with o and lse from K3f. Error: max abs error over the reference's max
-    abs value, per output."""
+    abs value, per output. At T=1 a softmax over one key has no gradient
+    in its score, so dq = dk = 0 and both sides hold only rounding noise
+    (dP against delta): there the two are held to dv's max instead."""
     import torch
 
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
 
     n = 0
-    for t in (8, 100, 512, 1024, 2048):
-        for dh in (16, 128):
+    for t in BWD_TS:
+        for dh in BWD_DHS:
             for causal in (True, False):
                 for dtype in (torch.float32, torch.bfloat16):
                     q, k, v = _qkv((2, 2, t, dh), dtype, seed=3 * t + dh)
@@ -406,8 +434,9 @@ def bwd_parity() -> None:
                                                             do, causal)
                     sync()
                     tol = BWD_TOL[str(dtype).split(".")[1]]
-                    errs = [_rel_err(g, w) for g, w in zip((dq, dk, dv),
-                                                           want)]
+                    scale = want[2] if t == 1 else None
+                    errs = [_rel_err(g, w, scale) for g, w in
+                            zip((dq, dk, dv), want)]
                     ok = (all(e <= tol for e in errs)
                           and all(g.dtype == dtype
                                   and torch.isfinite(g.float()).all().item()
@@ -425,10 +454,12 @@ def bwd_parity() -> None:
         f"cases agree")
 
 
-def _rel_err(got, want) -> float:
+def _rel_err(got, want, scale=None) -> float:
+    """max |got - want| over max |want| (or over max |scale|)."""
     want = want.float()
+    scale = want if scale is None else scale.float()
     return ((got.float() - want).abs().max()
-            / want.abs().max().clamp_min(1e-30)).item()
+            / scale.abs().max().clamp_min(1e-30)).item()
 
 
 def _kernel_entry(name, replaces, ms, plain_ms, flops, nbytes, peak, err,
@@ -461,10 +492,10 @@ def train_shape_measure() -> list:
     causal) in f32, the training path's type, and bf16: each kernel's time
     beside its plain version's, its bound, and torch's SDPA (forward for
     K3f; fwd+bwd minus fwd for the K3k+K3q pair), a yardstick the port
-    never calls. K3f and SDPA's forward are timed by ``device_ms`` (K3f by
-    ``time_ms`` beside it), the backward pair and its yardstick by
-    ``time_ms`` (milliseconds each, where the host's enqueue hides).
-    Returns the entries of the kernels line, f32 then bf16."""
+    never calls. The kernels and SDPA are timed by ``device_ms`` (each
+    kernel by ``time_ms`` beside it, as ``ms_with_launch``); SDPA's
+    backward is the ``device_ms`` of fwd+bwd minus that of fwd. Returns the
+    entries of the kernels line, f32 then bf16."""
     import torch
     import torch.nn.functional as F
 
@@ -492,12 +523,16 @@ def train_shape_measure() -> list:
                       (dv.float() - rdv.float()).abs().max().item())
         err_dq = (dq.float() - rdq.float()).abs().max().item()
 
+        def dkv():
+            return fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta, True)
+
+        def dq_():
+            return fa.flash_attention_bwd_dq(q, k, v, lse, do, delta, True)
+
         fwd_ms = device_ms(lambda: fa.flash_attention_fwd(q, k, v, True))
         fwd_host = time_ms(lambda: fa.flash_attention_fwd(q, k, v, True))
-        dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv(
-            q, k, v, lse, do, delta, True))
-        dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq(
-            q, k, v, lse, do, delta, True))
+        dkv_ms, dkv_host = device_ms(dkv), time_ms(dkv)
+        dq_ms, dq_host = device_ms(dq_), time_ms(dq_)
         fwd_plain = time_ms(lambda: fa.flash_attention_reference(
             q, k, v, True), reps=10)
         dkv_plain = time_ms(lambda: fa._bwd_dkv_plain(
@@ -506,13 +541,11 @@ def train_shape_measure() -> list:
             q, k, v, lse, do, delta, True), reps=10)
         sdpa_fwd_dev = device_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True), reps=20)
-        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), reps=20)
         qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
-        sdpa_fwd_bwd = time_ms(lambda: torch.autograd.grad(
+        sdpa_fwd_bwd = device_ms(lambda: torch.autograd.grad(
             F.scaled_dot_product_attention(qg, kg, vg, is_causal=True),
             (qg, kg, vg), do), reps=20)
-        sdpa_bwd = sdpa_fwd_bwd - sdpa_fwd
+        sdpa_bwd = sdpa_fwd_bwd - sdpa_fwd_dev
         shape = f"B={b} H={h} T={t} Dh={dh} causal {str(dtype)[6:]}"
         pair_note = ("SDPA backward for the K3k+K3q pair (dq, dk, dv): "
                      "fwd+bwd minus fwd")
@@ -528,23 +561,26 @@ def train_shape_measure() -> list:
                           " via deeplearning4j_tpu/ops/flash_attention.py:405)",
                           dkv_ms, dkv_plain, 4 * pairs, 6 * tile + 2 * row,
                           peak, err_dkv, sdpa_bwd, shape,
-                          library_covers=pair_note),
+                          library_covers=pair_note, ms_with_launch=dkv_host),
             _kernel_entry("flash_attention_bwd_dq",
                           "jax/experimental/pallas/ops/tpu/"
                           "flash_attention.py:1456 (_flash_attention_bwd_dq,"
                           " via deeplearning4j_tpu/ops/flash_attention.py:405)",
                           dq_ms, dq_plain, 3 * pairs, 5 * tile + 2 * row,
                           peak, err_dq, sdpa_bwd, shape,
-                          library_covers=pair_note)]
+                          library_covers=pair_note, ms_with_launch=dq_host)]
         for e in group:
-            log(f"[measure] {e['name']} {shape}: kernel {e['ms']:.4f} ms, "
-                f"plain {e['plain_ms']:.4f} ms, sdpa {e['library_ms']:.4f} "
+            log(f"[measure] {e['name']} {shape}: kernel {e['ms']:.4f} ms "
+                f"({e['ms_with_launch']:.4f} ms with the host's launch in "
+                f"the interval), plain {e['plain_ms']:.4f} ms, sdpa {e['library_ms']:.4f} "
                 f"ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']}"
                 + (f"; CUDA cores {e['bound_ms_cuda_cores']:.4f} ms"
                    if "bound_ms_cuda_cores" in e else "")
                 + f"); max abs err {e['max_abs_err']:.3g}")
-        log(f"[measure] flash_attention_fwd {shape}: {fwd_host:.4f} ms with "
-            f"the host's launch in the interval")
+        log(f"[measure] K3k+K3q {shape}: {dkv_ms + dq_ms:.4f} ms against "
+            f"SDPA's backward {sdpa_bwd:.4f} ms (fwd+bwd {sdpa_fwd_bwd:.4f} "
+            f"minus fwd {sdpa_fwd_dev:.4f}); bound "
+            f"{group[1]['bound_ms'] + group[2]['bound_ms']:.4f} ms")
         entries += group
         del q, k, v, do, o, lse, delta, dk, dv, dq, ro, rdq, rdk, rdv
         torch.cuda.empty_cache()
@@ -730,7 +766,7 @@ def train(profiled: bool = False) -> dict:
     )
     from deeplearning4j_tpu_torch.ops import _kernels
 
-    impl = selected_attn_impl(TRAIN_T)
+    impl = selected_attn_impl(TRAIN_T, head_dim=D_MODEL // N_HEADS)
     if impl not in ("flash", "blockwise"):
         raise AssertionError(f"auto core at T={TRAIN_T} is {impl!r}")
     params, tokens, targets = _train_setup()
@@ -774,7 +810,13 @@ def grad_parity() -> None:
     """One step's loss and grads through the flash kernels
     (attn_impl="blockwise") against dense attention, f32 with TF32 off. The
     grads of wq, wk and wv must be non-zero in every layer: the first
-    slice's flash output carried no graph, and those leaves got none."""
+    slice's flash output carried no graph, and those leaves got none.
+
+    Both routes are also held against a float64 dense run on the same
+    params and tokens, leaf by leaf, to attribute their gap (logged, not
+    gated): if it comes from ReLU units of the expert FFNs at their kink,
+    both f32 routes sit about equally far from float64 on the leaves fed
+    by those units; if from the kernels, the kernel route sits farther."""
     import torch
 
     from deeplearning4j_tpu_torch._device import tree_leaves, tree_map
@@ -795,6 +837,7 @@ def grad_parity() -> None:
         ".".join(path), _rel_err(g, _leaf(dg, path))), kg)
     grad_err = max(errs.values())
     log(f"[parity] grad rel err per leaf: {json.dumps(errs)}")
+    f64_attribution(params, tokens, targets, kl, kg, dl, dg, errs)
     zero = [key for key in ("wq", "wk", "wv")
             if not bool((kg["blocks"][key].abs().amax((1, 2)) > 0).all())]
     finite = all(torch.isfinite(g).all().item() for g in tree_leaves(kg))
@@ -808,6 +851,100 @@ def grad_parity() -> None:
             f"kernel vs dense training step: loss err {loss_err} (tol "
             f"{LOSS_TOL}), grad rel err {grad_err} (tol {GRAD_TOL}), zero "
             f"grads {zero}, finite {finite}")
+
+
+def f64_attribution(params, tokens, targets, kl, kg, dl, dg,
+                    errs) -> None:
+    """Each f32 route's loss and per-leaf grad error against one float64
+    dense step on the same params and tokens (max abs error over the f64
+    leaf's max); logged at the leaf where the two routes differ most
+    (``errs``: kernels vs dense per leaf) and at each route's worst."""
+    import torch
+
+    from deeplearning4j_tpu_torch._device import tree_map
+    from deeplearning4j_tpu_torch.models.transformer_lm import (
+        _get as _leaf,
+        dense_loss_fn,
+        lm_value_and_grad,
+    )
+
+    p64 = tree_map(lambda _, x: x.double(), params)
+    rl, rg = lm_value_and_grad(dense_loss_fn(N_HEADS, attn_impl="dense"),
+                               p64, tokens, targets)
+    del p64
+
+    def err(g, path):
+        want = _leaf(rg, path)
+        return ((g.double() - want).abs().max()
+                / want.abs().max().clamp_min(1e-300)).item()
+
+    out = {"loss_f64": float(rl),
+           "loss_err": {"kernels": abs(float(kl) - float(rl)),
+                        "dense_f32": abs(float(dl) - float(rl))},
+           "kernels": {}, "dense_f32": {}}
+    tree_map(lambda path, g: out["kernels"].__setitem__(
+        ".".join(map(str, path)), err(g, path)), kg)
+    tree_map(lambda path, g: out["dense_f32"].__setitem__(
+        ".".join(map(str, path)), err(g, path)), dg)
+    worst = {route: max(out[route], key=out[route].get)
+             for route in ("kernels", "dense_f32")}
+    worst["kernels vs dense"] = max(errs, key=errs.get)
+    log(f"[parity] f64 attribution, B={TRAIN_B} T={TRAIN_T}: "
+        f"{json.dumps(out)}")
+    for route, leaf in worst.items():
+        log(f"[parity] f64 attribution: worst leaf of {route} is "
+            f"{leaf}: kernels {out['kernels'][leaf]:.3g}, dense f32 "
+            f"{out['dense_f32'][leaf]:.3g} of the f64 leaf's max")
+    del rg
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
+# a head dim the kernels refuse: the flagship's width in 2 heads of 256
+WIDE_HEADS, WIDE_T = 2, 1024
+
+
+def wide_head_step() -> None:
+    """One training step of the LM at d_model / n_heads = 256, T=1024, with
+    the auto core: T alone would pick the kernels, which take Dh up to 128,
+    so auto must run dense attention, launch no flash kernel and give a
+    finite loss and grads."""
+    import torch
+
+    from deeplearning4j_tpu_torch._device import tree_leaves
+    from deeplearning4j_tpu_torch.models.transformer_lm import (
+        init_lm_params,
+        make_single_device_train_step,
+        selected_attn_impl,
+    )
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.ops.flash_attention import (
+        resolve_attention_impl,
+    )
+
+    head_dim = D_MODEL // WIDE_HEADS
+    by_t = resolve_attention_impl(WIDE_T)
+    impl = selected_attn_impl(WIDE_T, head_dim=head_dim)
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    params = init_lm_params(gen, VOCAB, D_MODEL, WIDE_HEADS, N_EXPERTS, D_FF,
+                            n_layers=N_LAYERS, device=DEVICE)
+    toks = torch.as_tensor(np.random.RandomState(6).randint(
+        0, VOCAB, (TRAIN_B, WIDE_T + 1)), device=DEVICE)
+    step = make_single_device_train_step(WIDE_HEADS, device=DEVICE)
+    _kernels.reset_launches()
+    params, loss = step(params, toks[:, :-1], toks[:, 1:])
+    sync()
+    launches = {k: _kernels.LAUNCHES[k] for k in TRAIN_KERNELS}
+    finite = (np.isfinite(float(loss))
+              and all(torch.isfinite(p).all().item()
+                      for p in tree_leaves(params)))
+    out = {"head_dim": head_dim, "t": WIDE_T, "impl_by_t_alone": by_t,
+           "impl": impl, "loss": float(loss), "launches": launches}
+    log(f"[train] wide heads under auto: {json.dumps(out)}")
+    if not (by_t == "blockwise" and impl == "dense" and finite
+            and not any(launches.values())):
+        raise AssertionError(f"Dh={head_dim} step under auto: {out}, "
+                             f"finite {finite}")
 
 
 def optimizer_path() -> None:
@@ -1651,6 +1788,7 @@ def main() -> int:
     grad_parity()
     optimizer_path()
     train(profiled=True)
+    wide_head_step()
 
     mlp_entries = mlp()
     lstm_entries = lstm()

@@ -1,4 +1,5 @@
-// Flash-attention backward, dK and dV, for Hopper (sm_90a).
+// Flash-attention backward, dK and dV, for Hopper (sm_90a), on the tensor
+// cores.
 //
 // Replaces: the Pallas TPU kernel _flash_attention_bwd_dkv of
 //   jax.experimental.pallas.ops.tpu.flash_attention (pallas_call at :1121),
@@ -10,80 +11,71 @@
 //   P  = exp(q k^T * scale [+ causal mask] - lse)            (f32)
 //   dv = P^T do                                        (dtype of v)
 //   dk = (P * (do v^T - delta))^T q * scale            (dtype of k)
-// Every product accumulates in f32 on inputs upcast to f32, as the JAX VJP
-// does. Masked scores contribute exactly zero (exp(-1e30 - lse) = 0).
+// Every sum is f32. bf16 inputs multiply as bf16 on the tensor cores, with
+// P and dS rounded to bf16 for the two products that take them (as
+// FlashAttention-2's backward does); f32 inputs go through the 3xTF32
+// split and keep f32's accuracy. A masked element of P is selected to 0.
 //
-// Bound on an H100 SXM: at the training shape (B=4, H=4, T=2048, Dh=128,
-// causal, f32) the kernel does four products over the causal half
-// (q k^T, do v^T, P^T do, dS^T q): 4 * 2 * B*H*T^2/2 * Dh = 34.4 GFLOP,
-// 0.513 ms at the 67 TFLOP/s f32 rate of the CUDA cores, against 101 MB of
-// q, k, v, do, lse, delta, dk and dv, 0.030 ms at 3.35 TB/s: bound by
-// operations. This first version does f32 FMA on the CUDA cores;
-// mma.sync/wgmma and TMA are the next step.
+// Bound on an H100 SXM at the training shape (B=4, H=4, T=2048, Dh=128,
+// causal): four products over the causal half (k q^T, v do^T, P^T do,
+// dS^T q), 4 * 2 * B*H*T^2/2 * Dh = 34.4 GFLOP, against 101 MB (f32) of
+// q, k, v, do, lse, delta, dk and dv (0.030 ms at 3.35 TB/s). f32: three
+// TF32 products each, 0.208 ms at 495 TFLOP/s; bf16: 0.035 ms at 989.
+// Bound by operations at both types.
 //
-// Design (simple and right first; deterministic, no atomics):
-// - one thread block of 256 threads per (b*h, 64-row k/v tile); the k and v
-//   tiles are staged once in shared memory as f32, then the block loops over
-//   the 64-row q/do tiles that see its keys: under causal it starts at the
-//   diagonal tile (the JAX VJP's start = (j*bk)//bq);
-// - each thread owns 4 key rows (ty + 16 i) x 4 query columns (tx + 16 j)
-//   of the transposed 64x64 score and dP tiles, computed in one pass over
-//   Dh; P and dS go through shared memory for the two products over q rows;
-// - the dk and dv accumulators (4 key rows x up to 8 head columns each, 64
-//   floats a thread) stay in registers for the whole loop and are written
-//   once: a 64x128 f32 pair would not fit in shared memory beside the tiles;
-// - q, do, k, v rows are padded to Dh+1 floats so the column reads of the
-//   score products are free of bank conflicts; rows past T are zero-filled
-//   and masked.
-// Shared memory is 165,888 bytes at Dh=128, above the 48 KB default, so the
-// launch first raises the kernel's dynamic shared-memory limit.
+// Design (flash_tiles.cuh has the block shape and the products):
+// - one block per (b*h, 64-key tile) owns K and V in shared memory and
+//   walks the 64-row q tiles that see its keys, from the causal diagonal
+//   (the JAX VJP's start = (j*bk)//bq); the early key tiles, which walk
+//   the most q tiles, have the lowest block index and launch first;
+// - q, do and their lse, delta rows are double-buffered by cp.async, tile
+//   i+1 in flight during the products of tile i, one barrier a tile;
+// - each warp computes the transposed tiles S^T = K q^T and dP^T = V do^T
+//   for its 16 keys and 32 of the tile's queries, keys as rows: K and V are
+//   the A operand, q and do rows the B operand (ldmatrix at bf16). lse and
+//   delta are indexed by the accumulator's columns. P^T and dS^T then stay
+//   in registers as the A operand of dV += P^T do and dK += dS^T q, with do
+//   and q as the B operand through ldmatrix.trans (bf16);
+// - exp(scale s - lse) is 2^(c s - log2(e) lse) with c = scale log2(e):
+//   one multiply-add and one ex2 an element; the causal / T mask is one
+//   compare and select an element, on the tiles that cross the diagonal or
+//   T only, and a warp whose keys all lie past its queries skips the tile;
+// - the two warps of each 16 keys take the two 32-query halves of every q
+//   tile and add their dK, dV once at the end through shared memory (one
+//   writes dK, the other dV), so a warp holds 2 x 16 x Dh f32 accumulators
+//   (128 registers a thread at Dh=128) and the block 8 warps. At f32 and
+//   Dh=128 ptxas still spills a little (chip_smoke.py phase 1 prints it).
+//   Two layouts tried on the card were slower and spilled as much or more:
+//   dK and dV split by head-dim columns across the pair (P and dS through
+//   shared memory, FlashAttention-2's layout), and the 32 queries taken in
+//   two passes of 16;
+// - templated on a head-dim bucket (32, 64, 128): every dh % 8 == 0 up to
+//   128 runs, the columns past dh zero;
+// - shared memory at Dh=128: K, V and two stages of q and do, 64 rows each,
+//   bf16 96 KB, f32 192 KB, plus 1 KB of lse and delta; one block an SM;
+// - the copy width (16, 8, 4 or 2 bytes) follows the inputs' alignment.
+// Deterministic: no atomics, one writer for each output element.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstddef>
+#include <cstdint>
+
+#include "flash_tiles.cuh"
+#include "hopper_mma.cuh"
+
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;
-constexpr int kMaxDh = 128;
-constexpr int kColGroups = kMaxDh / 16;  // head columns per thread
-static_assert(kBlockQ == kBlockK, "stage_rows stages tiles of one height");
+using namespace flash;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+template <typename T, int DH>
+constexpr int smem_bytes() {
+  return 6 * tile_bytes<T, DH>() + 4 * kBlock * (int)sizeof(float);
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-size_t smem_bytes(int dh) {
-  const int ld = dh + 1;
-  return sizeof(float) * (size_t)(2 * kBlockK * ld + 2 * kBlockQ * ld +
-                                  2 * kBlockK * (kBlockQ + 1) + 2 * kBlockQ);
-}
-
-template <typename T>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src, int row0,
-                                           int t, int dh, int ld) {
-  for (int i = threadIdx.x; i < kBlockQ * dh; i += kThreads) {
-    const int r = i / dh, c = i - r * dh;
-    const int gr = row0 + r;
-    dst[r * ld + c] = gr < t ? to_f32(src[(size_t)gr * dh + c]) : 0.f;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int DH, bool kVec16>
+__global__ void __launch_bounds__(kThreads, 1)
     flash_attention_bwd_dkv_kernel(const T* __restrict__ q,
                                    const T* __restrict__ k,
                                    const T* __restrict__ v,
@@ -91,150 +83,200 @@ __global__ void __launch_bounds__(kThreads)
                                    const T* __restrict__ dout,
                                    const float* __restrict__ delta,
                                    T* __restrict__ dk, T* __restrict__ dv,
-                                   int t, int dh, int causal, float scale) {
-  extern __shared__ float smem[];
-  const int ld = dh + 1;
-  const int pld = kBlockQ + 1;
-  float* ks = smem;                  // kBlockK x ld
-  float* vs = ks + kBlockK * ld;     // kBlockK x ld
-  float* qs = vs + kBlockK * ld;     // kBlockQ x ld
-  float* dos = qs + kBlockQ * ld;    // kBlockQ x ld
-  float* ps = dos + kBlockQ * ld;    // kBlockK x pld: P^T
-  float* dss = ps + kBlockK * pld;   // kBlockK x pld: dS^T
-  float* lses = dss + kBlockK * pld;  // kBlockQ
-  float* deltas = lses + kBlockQ;     // kBlockQ
+                                   int t, int dh, int causal, float scale,
+                                   int width) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int kRowBytes = DH * sizeof(T);
+  constexpr int kTile = tile_bytes<T, DH>();
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ks = smem;              // the block's 64 keys
+  unsigned char* vs = ks + kTile;        // and values
+  unsigned char* qs = vs + kTile;        // two stages of a q tile
+  unsigned char* dos = qs + 2 * kTile;   // and of do
+  float* ls = reinterpret_cast<float*>(dos + 2 * kTile);  // 2 x lse rows
+  float* ds = ls + 2 * kBlock;                             // 2 x delta rows
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rw = warp % kRowWarps;  // which 16 keys
+  const int kw = warp / kRowWarps;  // which 32 queries of each q tile
+  const int g = lane >> 2, qd = lane & 3;
   const int bh = blockIdx.x;
-  const int kt = blockIdx.y;
-  const int k0 = kt * kBlockK;
+  const int k0 = blockIdx.y * kBlock;
   const size_t base = (size_t)bh * t * dh;
+  const T* qb = q + base;
+  const T* dob = dout + base;
+  const float* lb = lse + (size_t)bh * t;
+  const float* db = delta + (size_t)bh * t;
 
-  stage_rows(ks, k + base, k0, t, dh, ld);
-  stage_rows(vs, v + base, k0, t, dh, ld);
+  const int n_tiles = (t + kBlock - 1) / kBlock;
+  const int first = causal ? (int)blockIdx.y : 0;
 
-  float acc_k[4][kColGroups], acc_v[4][kColGroups];
+  stage_rows<T, DH, kBlock, kVec16, kThreads>(ks, k + base, k0, t, dh, width);
+  stage_rows<T, DH, kBlock, kVec16, kThreads>(vs, v + base, k0, t, dh, width);
+  stage_rows<T, DH, kBlock, kVec16, kThreads>(
+      qs, qb, first * kBlock, t, dh, width);
+  stage_rows<T, DH, kBlock, kVec16, kThreads>(
+      dos, dob, first * kBlock, t, dh, width);
+  stage_vec(ls, lb, first * kBlock, t, 0);
+  stage_vec(ds, db, first * kBlock, t, kBlock);
+  cp_async_commit();
+
+  float acc_k[DH / 8][4], acc_v[DH / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < DH / 8; ++n)
 #pragma unroll
-    for (int j = 0; j < kColGroups; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
 
-  const int n_tiles = (t + kBlockQ - 1) / kBlockQ;
-  for (int qt = causal ? kt : 0; qt < n_tiles; ++qt) {
-    const int q0 = qt * kBlockQ;
-    __syncthreads();  // the previous tile's readers are done with q/do/P/dS
-    stage_rows(qs, q + base, q0, t, dh, ld);
-    stage_rows(dos, dout + base, q0, t, dh, ld);
-    if (tid < kBlockQ) {
-      const int gr = q0 + tid;
-      lses[tid] = gr < t ? lse[(size_t)bh * t + gr] : 0.f;
-      deltas[tid] = gr < t ? delta[(size_t)bh * t + gr] : 0.f;
+  const float c2 = scale * kLog2e;
+  const int key0 = k0 + rw * 16;  // the warp's first key
+  const int key = key0 + g;       // this thread's keys: key, key + 8
+  const F32Lanes<DH> ln(g, qd);  // f32 fragment addressing
+  const auto k_frag = [&](int kk, uint32_t (&r)[4]) {
+    lda_bf16<DH>(r, ks, rw * 16, kk, lane);
+  };
+  const auto v_frag = [&](int kk, uint32_t (&r)[4]) {
+    lda_bf16<DH>(r, vs, rw * 16, kk, lane);
+  };
+
+  for (int i = first; i < n_tiles; ++i) {
+    const int slot = (i - first) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile i landed; every warp is done with tile i-1
+    if (i + 1 < n_tiles) {
+      const int nx = slot ^ 1, r0 = (i + 1) * kBlock;
+      stage_rows<T, DH, kBlock, kVec16, kThreads>(
+          qs + nx * kTile, qb, r0, t, dh, width);
+      stage_rows<T, DH, kBlock, kVec16, kThreads>(
+          dos + nx * kTile, dob, r0, t, dh, width);
+      stage_vec(ls + nx * kBlock, lb, r0, t, 0);
+      stage_vec(ds + nx * kBlock, db, r0, t, kBlock);
     }
-    __syncthreads();
+    cp_async_commit();
 
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < dh; ++d) {
-      float kv[4], vv[4], qv[4], dov[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = ks[(ty + 16 * i) * ld + d];
-        vv[i] = vs[(ty + 16 * i) * ld + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = qs[(tx + 16 * j) * ld + d];
-        dov[j] = dos[(tx + 16 * j) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-          dp[i][j] = fmaf(vv[i], dov[j], dp[i][j]);
-        }
-    }
+    const int qw0 = i * kBlock + kw * kHalf;  // the warp's first query
+    if (qw0 >= t || (causal && key0 > qw0 + kHalf - 1)) continue;
+    const int off = slot * kTile + kw * kHalf * kRowBytes;
+    const unsigned char* qt = qs + off;
+    const unsigned char* dot = dos + off;
+    const float* lt = ls + slot * kBlock + kw * kHalf;
+    const float* dt = ds + slot * kBlock + kw * kHalf;
+    const bool edge = (causal && key0 + 15 > qw0) || qw0 + kHalf > t;
 
+    // P^T: rows are keys, columns queries
+    float s[kHalf / 8][4] = {};
+    if constexpr (kF32)
+      scores_f32<DH, kHalf>(s, ks, rw * 16, qt, ln);
+    else
+      scores_bf16<DH, kHalf>(s, k_frag, qt, lane);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const int kr = k0 + r;
+    for (int nb = 0; nb < kHalf / 8; ++nb) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lt + 8 * nb + 2 * qd);
+      const float lc[2] = {l2.x * kLog2e, l2.y * kLog2e};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int qc = q0 + c;
-        const bool ok = kr < t && qc < t && (!causal || kr <= qc);
-        const float p = ok ? expf(s[i][j] * scale - lses[c]) : 0.f;
-        ps[r * pld + c] = p;
-        dss[r * pld + c] = p * (dp[i][j] - deltas[c]);
-      }
-    }
-    __syncthreads();
-
-    const int qn = min(kBlockQ, t - q0);
-    for (int c = 0; c < qn; ++c) {
-      float pv[4], dsv[4];
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = ps[(ty + 16 * i) * pld + c];
-        dsv[i] = dss[(ty + 16 * i) * pld + c];
-      }
-#pragma unroll
-      for (int j = 0; j < kColGroups; ++j) {
-        const int dc = tx + 16 * j;
-        if (dc < dh) {
-          const float qq = qs[c * ld + dc];
-          const float dd = dos[c * ld + dc];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc_v[i][j] = fmaf(pv[i], dd, acc_v[i][j]);
-            acc_k[i][j] = fmaf(dsv[i], qq, acc_k[i][j]);
+        for (int e = 0; e < 2; ++e) {
+          float p = fast_exp2(fmaf(s[nb][2 * h + e], c2, -lc[e]));
+          if (edge) {
+            const int col = qw0 + 8 * nb + 2 * qd + e;
+            if (col >= t || (causal && key + 8 * h > col)) p = 0.f;
           }
+          s[nb][2 * h + e] = p;
         }
-      }
     }
-  }
+    if constexpr (kF32)
+      pv_f32<DH, kHalf>(acc_v, s, dot, ln);
+    else
+      pv_bf16<DH, kHalf>(acc_v, s, dot, lane);
 
-  T* dkb = dk + base;
-  T* dvb = dv + base;
+    // dS^T = P^T * (dP^T - delta), delta by column
+    float dp[kHalf / 8][4] = {};
+    if constexpr (kF32)
+      scores_f32<DH, kHalf>(dp, vs, rw * 16, dot, ln);
+    else
+      scores_bf16<DH, kHalf>(dp, v_frag, dot, lane);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gr = k0 + ty + 16 * i;
-    if (gr >= t) continue;
+    for (int nb = 0; nb < kHalf / 8; ++nb) {
+      const float2 d2 = *reinterpret_cast<const float2*>(dt + 8 * nb + 2 * qd);
 #pragma unroll
-    for (int j = 0; j < kColGroups; ++j) {
-      const int dc = tx + 16 * j;
-      if (dc < dh) {
-        dkb[(size_t)gr * dh + dc] = from_f32<T>(acc_k[i][j] * scale);
-        dvb[(size_t)gr * dh + dc] = from_f32<T>(acc_v[i][j]);
+      for (int h = 0; h < 2; ++h) {
+        s[nb][2 * h] *= dp[nb][2 * h] - d2.x;
+        s[nb][2 * h + 1] *= dp[nb][2 * h + 1] - d2.y;
       }
     }
+    if constexpr (kF32)
+      pv_f32<DH, kHalf>(acc_k, s, qt, ln);
+    else
+      pv_bf16<DH, kHalf>(acc_k, s, qt, lane);
+  }
+  cp_async_wait<0>();
+
+  // the two halves of each 16 keys: kw = 1 hands over its dK and writes
+  // dV, kw = 0 hands over its dV and writes dK
+  static_assert(DH * kSlots * 4 <= 6 * kTile, "the exchange fits");
+  __syncthreads();  // every warp is done with the tiles
+  float* x = reinterpret_cast<float*>(smem);
+  const int xslot = rw * 32 + lane;
+  if (kw == 0)
+    put_acc<DH>(x, xslot, acc_v);
+  else
+    put_acc<DH>(x + (DH / 2) * kSlots, xslot, acc_k);
+  __syncthreads();
+  if (kw == 0) {
+    add_acc<DH>(x + (DH / 2) * kSlots, xslot, acc_k);
+    store_rows<T, DH>(dk + base, acc_k, key, t, dh, scale, qd);
+  } else {
+    add_acc<DH>(x, xslot, acc_v);
+    store_rows<T, DH>(dv + base, acc_v, key, t, dh, 1.f, qd);
   }
 }
 
-template <typename T>
+template <typename T, int DH, bool kVec16>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* lse, const void* dout, const void* delta,
                    void* dk, void* dv, int bh, int t, int dh, int causal,
-                   float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(dh);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_bwd_dkv_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                   float scale, int width, cudaStream_t stream) {
+  static bool smem_set[kMaxDevices] = {};
+  constexpr int smem = smem_bytes<T, DH>();
+  const auto kernel = flash_attention_bwd_dkv_kernel<T, DH, kVec16>;
+  cudaError_t err = set_smem_limit_once(kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (t + kBlockK - 1) / kBlockK);
-  flash_attention_bwd_dkv_kernel<T><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(bh, (t + kBlock - 1) / kBlock);
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(lse),
       static_cast<const T*>(dout), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), t, dh, causal, scale);
+      static_cast<T*>(dk), static_cast<T*>(dv), t, dh, causal, scale, width);
   return cudaGetLastError();
+}
+
+template <typename T, bool kVec16>
+cudaError_t launch_dh(const void* q, const void* k, const void* v,
+                      const void* lse, const void* dout, const void* delta,
+                      void* dk, void* dv, int bh, int t, int dh, int causal,
+                      float scale, int width, cudaStream_t stream) {
+  if (dh <= 32)
+    return launch<T, 32, kVec16>(q, k, v, lse, dout, delta, dk, dv, bh, t,
+                                 dh, causal, scale, width, stream);
+  if (dh <= 64)
+    return launch<T, 64, kVec16>(q, k, v, lse, dout, delta, dk, dv, bh, t,
+                                 dh, causal, scale, width, stream);
+  return launch<T, 128, kVec16>(q, k, v, lse, dout, delta, dk, dv, bh, t, dh,
+                                causal, scale, width, stream);
+}
+
+template <typename T>
+cudaError_t launch_width(const void* q, const void* k, const void* v,
+                         const void* lse, const void* dout, const void* delta,
+                         void* dk, void* dv, int bh, int t, int dh,
+                         int causal, float scale, cudaStream_t stream) {
+  const int width = bwd_copy_width(q, k, v, dout);
+  return width == 16
+             ? launch_dh<T, true>(q, k, v, lse, dout, delta, dk, dv, bh, t,
+                                  dh, causal, scale, width, stream)
+             : launch_dh<T, false>(q, k, v, lse, dout, delta, dk, dv, bh, t,
+                                   dh, causal, scale, width, stream);
 }
 
 }  // namespace
@@ -251,13 +293,13 @@ extern "C" int dl4j_flash_attention_bwd_dkv(const void* q, const void* k,
                                             int causal, float scale,
                                             int is_bf16, void* stream) {
   if (bh < 1 || t < 1 || dh < 8 || dh > kMaxDh || dh % 8 != 0 ||
-      (t + kBlockK - 1) / kBlockK > 65535)
+      (t + kBlock - 1) / kBlock > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(q, k, v, lse, dout, delta, dk, dv, bh,
-                                      t, dh, causal, scale, s)
-              : launch<float>(q, k, v, lse, dout, delta, dk, dv, bh, t, dh,
-                              causal, scale, s);
+      is_bf16 ? launch_width<__nv_bfloat16>(q, k, v, lse, dout, delta, dk, dv,
+                                            bh, t, dh, causal, scale, s)
+              : launch_width<float>(q, k, v, lse, dout, delta, dk, dv, bh, t,
+                                    dh, causal, scale, s);
   return (int)err;
 }

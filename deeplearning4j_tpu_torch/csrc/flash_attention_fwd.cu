@@ -28,7 +28,8 @@
 //   would be 256 us. Bound by operations at both types.
 //
 // Design (FlashAttention-2's online softmax on mma.sync; wgmma and TMA are
-// a later step):
+// a later step; the staging and the tile products are flash_tiles.cuh's,
+// shared with the backward pair):
 // - one block per (b*h, 64-row q tile), 4 warps along the tile, 16 rows
 //   each; under causal the q tiles launch heaviest first (the block index
 //   is reversed), so the short tiles near the start fill the tail;
@@ -77,13 +78,19 @@
 
 #include <cstddef>
 #include <cstdint>
-#include <type_traits>
 
+#include "flash_tiles.cuh"
 #include "hopper_mma.cuh"
 
 namespace {
 
 using namespace hopper;
+using flash::F32Lanes;
+using flash::pv_bf16;
+using flash::pv_f32;
+using flash::scores_bf16;
+using flash::scores_f32;
+using flash::stage_rows;
 
 constexpr int kRowWarps = 4;  // warps along the q tile, 16 rows each
 constexpr int kMaxDh = 128;
@@ -103,196 +110,10 @@ struct Cfg<float> {
   static constexpr int kBlockK = 32;
 };
 
-// rows of DH elements of T; <1, 3, 0> for the 4-chunk rows of bf16 Dh 32
-template <typename T, int DH>
-using RowTile =
-    typename std::conditional<DH * sizeof(T) / 16 >= 8,
-                              SwizzledTile<DH * sizeof(T), 0, 7, 0>,
-                              SwizzledTile<DH * sizeof(T), 1, 3, 0>>::type;
-
 template <typename T, int DH, int kSplit>
 constexpr int smem_bytes() {
   return (kBlockQ + 2 * kKVStages * kSplit * Cfg<T>::kBlockK) * DH *
          (int)sizeof(T);
-}
-
-// Stage rows [row0, row0 + ROWS) of a (t, dh) array into a shared tile of
-// DH-wide rows: rows past t and columns past dh read zero. Each thread
-// copies one chunk column of every kThreads / kChunks-th row, so its
-// shared offsets and source step are fixed; kVec16 (every source 16-byte
-// aligned) takes cp.async.cg directly.
-template <typename T, int DH, int ROWS, bool kVec16, int kThreads>
-__device__ __forceinline__ void stage_rows(unsigned char* tile,
-                                           const T* __restrict__ src,
-                                           int row0, int t, int dh,
-                                           int width) {
-  using Tile = RowTile<T, DH>;
-  constexpr int kChunks = DH * sizeof(T) / 16;
-  constexpr int kRowsPerPass = kThreads / kChunks;
-  static_assert(ROWS % kRowsPerPass == 0, "whole passes");
-  const int c = threadIdx.x % kChunks;
-  const int r0 = threadIdx.x / kChunks;
-  const size_t pitch = (size_t)dh * sizeof(T);
-  const bool col_ok = c < dh * (int)sizeof(T) / 16;
-  const char* base = reinterpret_cast<const char*>(src);
-  const char* from = base + (size_t)(row0 + r0) * pitch + c * 16;
-#pragma unroll
-  for (int n = 0; n < ROWS / kRowsPerPass; ++n) {
-    const int r = r0 + n * kRowsPerPass;
-    const bool ok = col_ok && row0 + r < t;
-    const char* at = ok ? from + n * kRowsPerPass * pitch : base;
-    if constexpr (kVec16)
-      cp_async_cg16(tile + Tile::offset(r, c), at, ok ? 16 : 0);
-    else
-      copy_chunk(tile + Tile::offset(r, c), at, ok ? 16 : 0, width);
-  }
-}
-
-// ----------------------------------------------------------- bf16 path ----
-
-// s (this warp's 16 rows x BK keys) = Q K^T for one K tile, Q's A
-// fragments in registers; the K fragments of step kk+1 are loaded before
-// the products of step kk, so ldmatrix's latency hides under them
-template <int DH, int BK>
-__device__ __forceinline__ void scores_bf16(float (&s)[BK / 8][4],
-                                            const uint32_t (&qf)[DH / 16][4],
-                                            const unsigned char* kt,
-                                            int lane) {
-  using Tile = RowTile<__nv_bfloat16, DH>;
-  const int key = (lane & 7) + ((lane >> 4) << 3);
-  const int half = (lane >> 3) & 1;
-  uint32_t kf[2][BK / 16][4];
-#pragma unroll
-  for (int np = 0; np < BK / 16; ++np)
-    ldmatrix_x4(kf[0][np], kt + Tile::offset(16 * np + key, half));
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    if (kk + 1 < DH / 16) {
-#pragma unroll
-      for (int np = 0; np < BK / 16; ++np)
-        ldmatrix_x4(kf[(kk + 1) & 1][np],
-                    kt + Tile::offset(16 * np + key, 2 * (kk + 1) + half));
-    }
-#pragma unroll
-    for (int np = 0; np < BK / 16; ++np) {
-      mma_bf16_16816(s[2 * np], qf[kk], kf[kk & 1][np][0], kf[kk & 1][np][1]);
-      mma_bf16_16816(s[2 * np + 1], qf[kk], kf[kk & 1][np][2],
-                     kf[kk & 1][np][3]);
-    }
-  }
-}
-
-// acc (16 rows x DH) += P V for one V tile, P from the score accumulators
-// packed to bf16; each V fragment is loaded one product pair ahead
-template <int DH, int BK>
-__device__ __forceinline__ void pv_bf16(float (&acc)[DH / 8][4],
-                                        const float (&s)[BK / 8][4],
-                                        const unsigned char* vt, int lane) {
-  using Tile = RowTile<__nv_bfloat16, DH>;
-  constexpr int kSteps = BK / 16 * (DH / 16);
-  const int key = (lane & 7) + (((lane >> 3) & 1) << 3);
-  const int half = lane >> 4;
-  uint32_t pf[BK / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    pf[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-    pf[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-    pf[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    pf[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-  }
-  uint32_t vf[2][4];
-  ldmatrix_x4_trans(vf[0], vt + Tile::offset(key, half));
-#pragma unroll
-  for (int i = 0; i < kSteps; ++i) {
-    const int kk = i / (DH / 16), dp = i % (DH / 16);
-    if (i + 1 < kSteps) {
-      const int kn = (i + 1) / (DH / 16), dn = (i + 1) % (DH / 16);
-      ldmatrix_x4_trans(vf[(i + 1) & 1],
-                        vt + Tile::offset(16 * kn + key, 2 * dn + half));
-    }
-    mma_bf16_16816(acc[2 * dp], pf[kk], vf[i & 1][0], vf[i & 1][1]);
-    mma_bf16_16816(acc[2 * dp + 1], pf[kk], vf[i & 1][2], vf[i & 1][3]);
-  }
-}
-
-// ------------------------------------------------------------ f32 path ----
-
-__device__ __forceinline__ float lds_f32(const unsigned char* p) {
-  return *reinterpret_cast<const float*>(p);
-}
-
-// s = Q K^T for one K tile through 3xTF32; each 32-wide slice of Dh is
-// summed in fresh accumulators (big and correction terms apart) and added
-// to s on the CUDA cores
-template <int DH, int BK>
-__device__ __forceinline__ void scores_f32(float (&s)[BK / 8][4],
-                                           const unsigned char* qs,
-                                           const unsigned char* kt, int row,
-                                           int g, int q) {
-  using Tile = RowTile<float, DH>;
-  constexpr int kSlice = DH < 32 ? DH : 32;
-#pragma unroll
-  for (int d0 = 0; d0 < DH; d0 += kSlice) {
-    float big[BK / 8][4] = {}, small[BK / 8][4] = {};
-#pragma unroll
-    for (int kk = d0 / 8; kk < (d0 + kSlice) / 8; ++kk) {
-      uint32_t ah[4], al[4];
-      split_tf32(lds_f32(qs + Tile::template element<4>(row, 8 * kk + q)),
-                 ah[0], al[0]);
-      split_tf32(lds_f32(qs + Tile::template element<4>(row + 8, 8 * kk + q)),
-                 ah[1], al[1]);
-      split_tf32(lds_f32(qs + Tile::template element<4>(row, 8 * kk + q + 4)),
-                 ah[2], al[2]);
-      split_tf32(
-          lds_f32(qs + Tile::template element<4>(row + 8, 8 * kk + q + 4)),
-          ah[3], al[3]);
-#pragma unroll
-      for (int nb = 0; nb < BK / 8; ++nb) {
-        uint32_t b0h, b0l, b1h, b1l;
-        split_tf32(lds_f32(kt + Tile::template element<4>(8 * nb + g,
-                                                          8 * kk + q)),
-                   b0h, b0l);
-        split_tf32(lds_f32(kt + Tile::template element<4>(8 * nb + g,
-                                                          8 * kk + q + 4)),
-                   b1h, b1l);
-        mma_3xtf32(big[nb], small[nb], ah, al, b0h, b1h, b0l, b1l);
-      }
-    }
-#pragma unroll
-    for (int nb = 0; nb < BK / 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nb][e] += big[nb][e] + small[nb][e];
-  }
-}
-
-// part (16 x DH) = P V for one V tile through 3xTF32. A's column q is the
-// key 2q of an 8-key block and column q+4 the key 2q+1, so the score
-// accumulators are the A fragment as they lie; V's rows follow suit.
-template <int DH, int BK>
-__device__ __forceinline__ void pv_f32(float (&part)[DH / 8][4],
-                                       const float (&s)[BK / 8][4],
-                                       const unsigned char* vt, int g,
-                                       int q) {
-  using Tile = RowTile<float, DH>;
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j) {
-    uint32_t ah[4], al[4];
-    split_tf32(s[j][0], ah[0], al[0]);
-    split_tf32(s[j][2], ah[1], al[1]);
-    split_tf32(s[j][1], ah[2], al[2]);
-    split_tf32(s[j][3], ah[3], al[3]);
-#pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
-      uint32_t b0h, b0l, b1h, b1l;
-      split_tf32(lds_f32(vt + Tile::template element<4>(8 * j + 2 * q,
-                                                        8 * n + g)),
-                 b0h, b0l);
-      split_tf32(lds_f32(vt + Tile::template element<4>(8 * j + 2 * q + 1,
-                                                        8 * n + g)),
-                 b1h, b1l);
-      mma_3xtf32(part[n], part[n], ah, al, b0h, b1h, b0l, b1l);
-    }
-  }
 }
 
 // ---------------------------------------------------------------- kernel --
@@ -370,7 +191,6 @@ __global__ void __launch_bounds__(kRowWarps * kSplit * 32)
   constexpr int kTileK = kSplit * BK;
   constexpr int kRowBytes = DH * sizeof(T);
   constexpr int kStageBytes = kTileK * kRowBytes;
-  using Tile = RowTile<T, DH>;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* qs = smem;                      // kBlockQ rows
   unsigned char* ks = qs + kBlockQ * kRowBytes;  // kKVStages K tiles
@@ -427,14 +247,14 @@ __global__ void __launch_bounds__(kRowWarps * kSplit * 32)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
+  const F32Lanes<DH> ln(g, qd);  // f32 fragment addressing
   uint32_t qf[kF32 ? 1 : DH / 16][4];
   if constexpr (!kF32) {
     cp_async_wait<kKVStages - 2>();  // Q is in the oldest group
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk)
-      ldmatrix_x4(qf[kk], qs + Tile::offset(rw * 16 + (lane & 15),
-                                            2 * kk + (lane >> 4)));
+      flash::lda_bf16<DH>(qf[kk], qs, rw * 16, kk, lane);
   }
 
   for (int j = 0; j < n_kt; ++j) {
@@ -459,9 +279,14 @@ __global__ void __launch_bounds__(kRowWarps * kSplit * 32)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
     if constexpr (kF32)
-      scores_f32<DH, BK>(s, qs, kt, row, g, qd);
+      scores_f32<DH, BK>(s, qs, rw * 16, kt, ln);
     else
-      scores_bf16<DH, BK>(s, qf, kt, lane);
+      scores_bf16<DH, BK>(
+          s, [&](int kk, uint32_t (&r)[4]) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) r[e] = qf[kk][e];
+          },
+          kt, lane);
 
     const int k0 = j * kTileK + kw * BK;
     if (k0 + BK - 1 > warp_lim) mask_scores<BK>(s, k0, lim, qd);
@@ -498,16 +323,10 @@ __global__ void __launch_bounds__(kRowWarps * kSplit * 32)
       }
     }
 
-    if constexpr (kF32) {
-      float part[DH / 8][4] = {};
-      pv_f32<DH, BK>(part, s, vt, g, qd);
-#pragma unroll
-      for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
-    } else {
+    if constexpr (kF32)
+      pv_f32<DH, BK>(acc, s, vt, ln);
+    else
       pv_bf16<DH, BK>(acc, s, vt, lane);
-    }
   }
   cp_async_wait<0>();
 

@@ -164,14 +164,15 @@ def dense_moe(router_w: torch.Tensor, experts: dict, x: torch.Tensor,
               top_k: int = 2) -> torch.Tensor:
     """Single-device MoE: every expert on every token, gate-combined, no
     capacity drops. ``jax.vmap`` over experts becomes the expert axis of a
-    batched product. The one-hot gate matrix is f32 as in JAX, so the
-    combine runs (and returns) in f32."""
+    batched product. The one-hot gate matrix is f32 as in JAX (f64 for f64
+    inputs), so the combine runs (and returns) in f32."""
+    acc = torch.promote_types(x.dtype, torch.float32)
     idx, gates = _routing(x @ router_w, top_k)
     y_all = expert_fn(experts, x)                      # (E, N, d)
     n_experts = router_w.shape[1]
-    onehot = F.one_hot(idx, n_experts).to(torch.float32)  # (N, k, E)
-    g = torch.sum(gates[..., None] * onehot, dim=1)        # (N, E) f32
-    return torch.einsum("ne,end->nd", g, y_all.float())
+    onehot = F.one_hot(idx, n_experts).to(acc)         # (N, k, E)
+    g = torch.sum(gates[..., None] * onehot, dim=1)    # (N, E) f32
+    return torch.einsum("ne,end->nd", g, y_all.to(acc))
 
 
 def _attn_block(params: dict, h: torch.Tensor, n_heads: int,
@@ -254,10 +255,12 @@ def lm_loss_and_metrics(params: dict, tokens: torch.Tensor,
     return loss, metrics
 
 
-def selected_attn_impl(seq_len: int, attn_impl: Optional[str] = None) -> str:
-    """The attention core a step with this sequence length will run:
-    per-call arg > global/env override > auto shape gate."""
-    return attn_impl or resolve_attention_impl(seq_len)
+def selected_attn_impl(seq_len: int, attn_impl: Optional[str] = None,
+                       head_dim: Optional[int] = None) -> str:
+    """The attention core a step with this sequence length (and head dim,
+    where given) will run: per-call arg > global/env override > auto shape
+    gate."""
+    return attn_impl or resolve_attention_impl(seq_len, head_dim)
 
 
 def dense_loss_fn(n_heads: int, top_k: int = 2, aux_weight: float = 1e-2,

@@ -31,12 +31,13 @@ def _layernorm(x: torch.Tensor, g: torch.Tensor,
                b: torch.Tensor) -> torch.Tensor:
     """LayerNorm over the last axis with the POPULATION variance, as
     ``jnp.var`` computes it (torch's default is the unbiased estimator).
-    The rsqrt runs in f32 and rounds once to x's dtype, as XLA's does:
-    torch's bf16 rsqrt on the CPU rounds twice and lands one bf16 step
-    off for some inputs."""
+    The rsqrt runs in f32 (f64 for f64 inputs) and rounds once to x's
+    dtype, as XLA's does: torch's bf16 rsqrt on the CPU rounds twice and
+    lands one bf16 step off for some inputs."""
     mu = x.mean(-1, keepdim=True)
     var = x.var(-1, unbiased=False, keepdim=True)
-    inv = torch.rsqrt((var + 1e-5).float()).to(x.dtype)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    inv = torch.rsqrt((var + 1e-5).to(acc)).to(x.dtype)
     return (x - mu) * inv * g + b
 
 

@@ -9,7 +9,8 @@ precedence chain as the JAX package (highest wins):
   2. ``set_attention_impl(...)``, the process-wide override,
   3. the ``DL4J_TPU_ATTN_IMPL`` environment variable (dense|blockwise|flash),
   4. auto: "blockwise" for T >= 1024 with ``T % min(512, T) == 0``, else
-     "dense".
+     "dense"; and "dense" for a head dim or dtype the kernels refuse
+     (``kernel_takes``), where the JAX package's lax "blockwise" runs.
 
 "flash" and "blockwise" both go through ``FlashAttention``, a
 ``torch.autograd.Function`` over three hand-written Hopper kernels: the
@@ -80,13 +81,29 @@ def get_attention_impl() -> Optional[str]:
     return None
 
 
-def resolve_attention_impl(t: Optional[int] = None) -> Optional[str]:
+def kernel_takes(head_dim: Optional[int] = None,
+                 dtype: Optional[torch.dtype] = None) -> bool:
+    """Whether the flash kernels take this head dim and element type (a
+    multiple of 8 up to 128; f32 or bf16). None stands for any."""
+    return ((head_dim is None
+             or (head_dim % 8 == 0 and 8 <= head_dim <= _MAX_HEAD_DIM))
+            and (dtype is None or dtype in _KERNEL_DTYPES))
+
+
+def resolve_attention_impl(t: Optional[int] = None,
+                           head_dim: Optional[int] = None,
+                           dtype: Optional[torch.dtype] = None
+                           ) -> Optional[str]:
     """Collapse the precedence chain to the impl that will run: override >
     env var > (given a sequence length) the auto shape gate. Returns None
-    only when no override is set AND no ``t`` was supplied."""
+    only when no override is set AND no ``t`` was supplied. Given the head
+    dim or dtype too, auto takes "dense" where the kernels refuse them; an
+    override is returned as it is (the kernels then raise, naming the
+    limit). With ``t`` alone it is the JAX package's chain."""
     impl = get_attention_impl()
     if impl is None and t is not None:
-        if t >= _BLOCKWISE_MIN_T and t % min(_DEFAULT_BLOCK, t) == 0:
+        if (t >= _BLOCKWISE_MIN_T and t % min(_DEFAULT_BLOCK, t) == 0
+                and kernel_takes(head_dim, dtype)):
             impl = "blockwise"
         else:
             impl = "dense"
@@ -358,13 +375,14 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = False,
                    impl: Optional[str] = None) -> torch.Tensor:
     """The attention core over (B, H, T, Dh). ``impl`` forces a core for
-    THIS call; otherwise the set_attention_impl/env/auto chain decides.
+    THIS call; otherwise the set_attention_impl/env/auto chain decides, by
+    T, head dim and dtype.
     Every core computes the same function (tests/test_torch_flash_attention.py
     holds them against the JAX package)."""
     if impl is not None and impl not in _IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; "
                          "options: " + ", ".join(_IMPLS))
-    impl = impl or resolve_attention_impl(q.shape[2])
+    impl = impl or resolve_attention_impl(q.shape[2], q.shape[-1], q.dtype)
     if impl in ("flash", "blockwise"):
         return FlashAttention.apply(q.contiguous(), k.contiguous(),
                                     v.contiguous(), causal)

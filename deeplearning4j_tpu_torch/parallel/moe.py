@@ -40,7 +40,8 @@ def load_balance_loss(router_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     logits = x @ router_w
     probs = softmax(logits)
     n_experts = router_w.shape[1]
-    f = F.one_hot(logits.argmax(-1), n_experts).to(torch.float32).mean(0)
+    f = F.one_hot(logits.argmax(-1), n_experts).to(
+        torch.promote_types(logits.dtype, torch.float32)).mean(0)
     return n_experts * torch.sum(f * probs.mean(0))
 
 

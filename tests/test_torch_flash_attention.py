@@ -141,6 +141,35 @@ def test_selection_chain_matches_jax(clean_chain, override, env):
             jfa.resolve_attention_impl(t), t
 
 
+@pytest.mark.parametrize("t", [1024, 2048])
+def test_auto_gate_takes_dense_where_the_kernels_refuse(clean_chain, t):
+    """Auto sends a head dim or dtype the kernels refuse to "dense" (the
+    JAX package's lax "blockwise" runs them); what they take stays
+    "blockwise". On meta tensors, auto runs at Dh=256, and a forced
+    "blockwise" raises naming the limit before any launch."""
+    for head_dim, dtype in ((256, torch.float32), (12, torch.float32),
+                            (128, torch.float16), (64, torch.float16)):
+        assert tfa.resolve_attention_impl(t, head_dim, dtype) == "dense"
+    for head_dim in (8, 64, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            assert tfa.resolve_attention_impl(t, head_dim, dtype) == \
+                "blockwise"
+    assert tfa.resolve_attention_impl(t) == jfa.resolve_attention_impl(t)
+    from deeplearning4j_tpu_torch.models import transformer_lm as tlm
+    assert tlm.selected_attn_impl(t, head_dim=256) == "dense"
+    assert tlm.selected_attn_impl(t, head_dim=128) == "blockwise"
+    x = torch.empty((1, 2, t, 256), device="meta")
+    out = tfa.attention_core(x, x, x, causal=True)
+    assert out.shape == x.shape and out.device.type == "meta"
+    with pytest.raises(ValueError, match="up to 128"):
+        tfa.attention_core(x, x, x, causal=True, impl="blockwise")
+    clean_chain.setenv(jfa.ATTN_IMPL_ENV, "flash")
+    assert tfa.resolve_attention_impl(t, 256, torch.float16) == "flash"
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        h = torch.empty((1, 2, t, 64), dtype=torch.float16, device="meta")
+        tfa.attention_core(h, h, h, causal=True)
+
+
 def test_selection_chain_rejects_what_jax_rejects(clean_chain):
     for mod in (jfa, tfa):
         with pytest.raises(ValueError):

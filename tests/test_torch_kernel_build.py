@@ -73,22 +73,32 @@ def test_real_sources_include_only_system_or_csrc_headers(name):
             assert "/" not in inc, (path.name, inc)
 
 
-@pytest.mark.parametrize("name", ["flash_attention_fwd", "fused_dense"])
+TENSOR_CORE_KERNELS = ["flash_attention_fwd", "flash_attention_bwd_dkv",
+                       "flash_attention_bwd_dq", "fused_dense"]
+
+
+def _kernel_text(name):
+    """The kernel's own code: its .cu and the csrc headers it includes
+    (the backward pair shares flash_tiles.cuh), hopper_mma.cuh left out."""
+    return "".join(p.read_text() for p in _kernels.source_files(name)
+                   if p.name != "hopper_mma.cuh")
+
+
+@pytest.mark.parametrize("name", TENSOR_CORE_KERNELS)
 def test_tensor_core_kernels_share_the_mma_header(name):
-    """K3f and K1 run mma.sync through csrc/hopper_mma.cuh, so the header
-    is part of their build key."""
+    """K3f, K3k, K3q and K1 run mma.sync through csrc/hopper_mma.cuh, so
+    the header is part of their build key."""
     names = [p.name for p in _kernels.source_files(name)]
     assert "hopper_mma.cuh" in names
-    text = (_kernels.CSRC / f"{name}.cu").read_text()
+    text = _kernel_text(name)
     assert "mma_bf16_16816" in text and "mma_3xtf32" in text
 
 
 def test_mma_header_has_no_single_pass_tf32_product():
     """The f32 paths go through the 3xTF32 split: mma_tf32_1688 is called
     only inside mma_3xtf32 (three products), never alone by a kernel."""
-    for name in ("flash_attention_fwd", "fused_dense"):
-        text = (_kernels.CSRC / f"{name}.cu").read_text()
-        assert "mma_tf32_1688" not in text, name
+    for name in TENSOR_CORE_KERNELS:
+        assert "mma_tf32_1688" not in _kernel_text(name), name
     header = (_kernels.CSRC / "hopper_mma.cuh").read_text()
     body = header[header.index("void mma_3xtf32"):]
     body = body[:body.index("\n}\n")]

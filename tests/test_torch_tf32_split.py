@@ -1,6 +1,8 @@
-"""The 3xTF32 split that K3f (csrc/flash_attention_fwd.cu) and K1
-(csrc/fused_dense.cu) use for f32 inputs, emulated on the CPU and held to
-the card's unchanged f32 tolerances against float64.
+"""The 3xTF32 split that K3f (csrc/flash_attention_fwd.cu), K1
+(csrc/fused_dense.cu) and the backward pair K3k/K3q
+(csrc/flash_attention_bwd_dkv.cu, csrc/flash_attention_bwd_dq.cu) use for
+f32 inputs, emulated on the CPU and held to the card's unchanged f32
+tolerances against float64.
 
 The emulation follows the kernels: ``cvt.rna.tf32.f32`` rounds to 10
 mantissa bits, to nearest with ties away from zero (13 low bits cleared);
@@ -9,7 +11,8 @@ a_hi*b_hi + a_hi*b_lo + a_lo*b_hi (products of two TF32 values are exact
 in f32), summed in f32 over K chunks of 8 (one m16n8k8 step) and added to
 an f32 accumulator. The tolerances are chip_smoke.py's: ``DENSE_TOL`` f32
 (1e-5 of the reference's max) for the MNIST MLP's products, ``TOL`` f32
-(2e-5 on o and on lse) for causal attention. A single TF32 pass (a_hi*b_hi
+(2e-5 on o and on lse) for causal attention, ``BWD_TOL`` f32 (1e-4 of the
+reference's max) for its dq, dk and dv. A single TF32 pass (a_hi*b_hi
 alone) misses them: the tests can tell the two apart.
 """
 
@@ -134,3 +137,64 @@ def test_causal_attention_meets_tol(passes, meets):
         errs += [float((o.double() - want_o).abs().max()),
                  float((lse.double() - want_lse).abs().max())]
     assert (max(errs) <= ATTN_TOL) is meets, errs
+
+
+BWD_TOL = chip_smoke.BWD_TOL["float32"]  # 1e-4 of the reference's max
+
+
+def mm_sliced(a: torch.Tensor, b: torch.Tensor, passes: int = 3,
+              width: int = 32) -> torch.Tensor:
+    """a @ b (f32) as K3k and K3q compute it: each slice of ``width`` along
+    the summed dimension (32 of Dh for the scores, one 32-row half of a
+    walked tile for dV, dK and dQ) is summed in fresh accumulators, the
+    TF32 products of the big term and of the correction terms apart, and
+    added to an f32 accumulator. ``passes=1`` is a single TF32 product."""
+    ah, al = split(a)
+    bh, bl = split(b)
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for c in range(0, a.shape[1], width):
+        s = slice(c, c + width)
+        part = ah[:, s] @ bh[s]
+        if passes == 3:
+            part = part + (ah[:, s] @ bl[s] + al[:, s] @ bh[s])
+        acc = acc + part
+    return acc
+
+
+def _attention_bwd(q, k, v, do, passes):
+    """K3k's and K3q's f32 math for one (B*H) slice, from K3f's emulated
+    o and lse: P = exp(s - lse) selected to 0 above the diagonal, dS =
+    P (do v^T - delta) with delta = rowsum(do o), dv = P^T do, dk = dS^T q
+    scale, dq = dS k scale."""
+    t, d = q.shape
+    scale = 1.0 / d ** 0.5
+    o, lse = _attention(q, k, v, passes)
+    delta = (do * o).sum(-1)
+    mask = torch.arange(t)[:, None] < torch.arange(t)[None, :]
+    s = mm_sliced(q, k.T.contiguous(), passes) * scale
+    p = torch.exp(s - lse[:, None]).masked_fill(mask, 0.0)
+    ds = p * (mm_sliced(do, v.T.contiguous(), passes) - delta[:, None])
+    dv = mm_sliced(p.T.contiguous(), do, passes)
+    dk = mm_sliced(ds.T.contiguous(), q, passes) * scale
+    dq = mm_sliced(ds, k, passes) * scale
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("passes,meets", [(3, True), (1, False)])
+def test_causal_attention_bwd_meets_tol(passes, meets):
+    """dq, dk, dv of causal attention at B=1 H=2 T=256 Dh=128, inputs and
+    upstream gradient ~ N(0, 1) as chip_smoke's _qkv makes them: each
+    within BWD_TOL f32 (1e-4 of the float64 reference's max) of float64."""
+    rng = np.random.default_rng(11)
+    errs = []
+    for _ in range(2):  # heads
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(
+            (256, 128)).astype(np.float32)) for _ in range(4))
+        got = _attention_bwd(q, k, v, do, passes)
+        qd, kd, vd = (x.double().requires_grad_() for x in (q, k, v))
+        s = (qd @ kd.T) / 128 ** 0.5
+        mask = torch.arange(256)[:, None] < torch.arange(256)[None, :]
+        o = torch.softmax(s.masked_fill(mask, float("-inf")), -1) @ vd
+        want = torch.autograd.grad(o, (qd, kd, vd), do.double())
+        errs += [_rel(g, w) for g, w in zip(got, want)]
+    assert (max(errs) <= BWD_TOL) is meets, errs
