@@ -70,17 +70,25 @@ Phases, each fatal on failure:
 6. the char-LSTM (models/zoo.char_lstm at the bench's lstm_wide width:
    vocab and hidden 512, batch 64, sequence 64, one-hot random tokens as
    bench.py makes them): the LSTM-cell kernel K2 against its plain version
-   on the card over 6 shapes x f32/bf16/mixed inputs, then its time at
-   both bench shapes (64x512, 256x128) beside its plain version, ATen's
-   _thnn_fused_lstm_cell (a yardstick the port never calls) and the bound;
-   MultiLayerNetwork.fit_epochs, 2 warm-up and LSTM_STEPS timed steps at
-   lr 0.01 (K2 launches exactly 64 x steps; the score on the first timed
-   batch finite and lower after the run); make_train_epoch(conf, 8,
-   donate=True) chunks at f32, under BF16_COMPUTE, with
-   set_lstm_gates(False) (the bench's _nokernels twin) and profiled (busy
-   share, K2's share of device time); predict on a held-out batch (64
-   launches, (64, 64) tokens); one step's loss and grads through K2
-   against the plain cell (f32);
+   on the card over 6 shapes x f32/bf16/mixed inputs and both bench
+   shapes from element-offset views, and the cell's backward K2b against
+   its own over the same 6 shapes' 24 cases with random dc_new and dh and
+   12 more as the last timestep's grads arrive (dc_new None, dh a row view
+   of stride 3H); the launch floor (an empty kernel launched through K2's
+   library on K2's grid, and K2 and K2b at 1x1); then K2's and K2b's time
+   at both bench shapes (64x512, 256x128) beside their plain versions,
+   ATen's _thnn_fused_lstm_cell and
+   _thnn_fused_lstm_cell_backward_impl (yardsticks the port never calls),
+   the floor and the bound; MultiLayerNetwork.fit_epochs, 2 warm-up and
+   LSTM_STEPS timed steps at lr 0.01 (K2 and K2b each launch exactly 64 x
+   steps; the score on the first timed batch finite and lower after the
+   run); make_train_epoch(conf, 8, donate=True) chunks at f32, under
+   BF16_COMPUTE, with set_lstm_gates(False) (the bench's _nokernels twin:
+   neither kernel launches) and profiled with the kernels on and off
+   (busy share, device operations a step and the most frequent by name,
+   K2's and K2b's shares of device time); predict on a held-out batch (64
+   K2 launches, no K2b, (64, 64) tokens); one step's loss and grads
+   through K2 and K2b against the plain cell (f32);
 7. the attention char-LM (models/zoo.char_attention_lm at the bench's
    attn_long width: vocab 128, d_model 512, 4 heads, batch 4, T=2048):
    fit_epochs, 2 warm-up and ATTN_STEPS timed steps with the auto core
@@ -91,8 +99,9 @@ Phases, each fatal on failure:
    listing each kernel (K3f at the serving shape; K3f, K3k, K3q at the
    training shape in f32 and bf16 with their launches over the timed f32
    training run; K1 at both MLP layer shapes in f32 and bf16 with its
-   launches over the timed fit_epochs run; K2 at both bench shapes with
-   its launches over the timed char-LSTM fit_epochs run), and as the last
+   launches over the timed fit_epochs run; K2 and K2b at both bench shapes
+   in f32 with their launches over the timed char-LSTM fit_epochs run and
+   the launch floor beside them), and as the last
    line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
    ...}}. An f32 row's bound is that of f32-accurate products: the least
    of the CUDA cores' 67 TFLOP/s and three TF32 products at 495 (the
@@ -609,18 +618,28 @@ def _self_us(event) -> float:
             or event.self_cuda_time_total)
 
 
+def _by_name(prof, value) -> dict:
+    """``value(event)`` of the profile's kernels on the card, summed by the
+    first 60 characters of their names (template instances of one kernel
+    share them), largest first."""
+    from torch.autograd import DeviceType
+
+    sums = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            sums[e.key[:60]] = sums.get(e.key[:60], 0) + value(e)
+    return dict(sorted(sums.items(), key=lambda kv: kv[1], reverse=True))
+
+
 def device_busy(prof, wall_s: float) -> dict:
     """Device busy time (sum of kernel self times on the card) against the
     run's wall time, and the kernels that take most of it."""
-    from torch.autograd import DeviceType
-
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(_self_us(e) for e in kernels) / 1e3
-    top = sorted(kernels, key=_self_us, reverse=True)[:6]
+    by_name = _by_name(prof, _self_us)
+    busy_ms = sum(by_name.values()) / 1e3
     return {"device_busy_ms": busy_ms, "wall_ms": wall_s * 1e3,
             "busy_share": busy_ms / (wall_s * 1e3),
-            "top_kernels_ms": {e.key[:60]: _self_us(e) / 1e3 for e in top}}
+            "top_kernels_ms": {k: us / 1e3
+                               for k, us in list(by_name.items())[:6]}}
 
 
 def serve(params, attn_impl, prompt_lens, seed, profiled=False) -> dict:
@@ -1271,7 +1290,9 @@ LSTM_WARMUP, LSTM_STEPS = 2, 10
 # does not depend on the rate
 LSTM_FIT_LR = 0.01
 # K2 parity shapes (B, H): both bench shapes (lstm_wide, lstm: bench.py:86,
-# :203), the TPU gate's smallest, the widest H the TPU took, ragged ones
+# :203), the TPU gate's smallest, the widest H the TPU took, ragged ones;
+# then the bench shapes from element-offset views (contiguous, aligned to
+# one element only)
 LSTM_CELL_SHAPES = ((64, 512), (256, 128), (8, 128), (100, 2048), (3, 10),
                     (1, 1))
 LSTM_BENCH_SHAPES = ((LSTM_BATCH, LSTM_VOCAB), (256, 128))
@@ -1283,7 +1304,11 @@ CELL_F32_TOL, BF16_STEP = 1e-6, 2.0 ** -7
 # ~25 f32 operations an element (3 sigmoids, 2 tanh, 3 products, 1 sum; a
 # transcendental counted as 4): far below the bytes at any shape
 CELL_OPS_PER_ELT = 25
-# one LSTM step through K2 against set_lstm_gates(False), f32: loss
+# K2b, the cell's backward: the same 5 transcendentals, the sigmoids' sums
+# and quotients and 22 products, sums and differences, ~48 an element; K2b
+# moves 13 (B, H) streams (12 without dc_new), so bytes bound it too
+CELL_BWD_OPS_PER_ELT = 48
+# one LSTM step through K2 and K2b against set_lstm_gates(False), f32: loss
 # absolute, grads as max abs error over the leaf's max (the two cells
 # compute the same f32 ops; 64 timesteps of recurrence may carry an ulp)
 LSTM_LOSS_TOL, LSTM_GRAD_TOL = 1e-5, 1e-4
@@ -1298,18 +1323,45 @@ def _one_hot_tokens(shape, vocab: int, seed: int):
     return eye[toks[..., :-1]], eye[toks[..., 1:]]
 
 
-def _cell_inputs(b, h, ifog_dtype, c_dtype, seed):
+def _cell_inputs(b, h, ifog_dtype, c_dtype, seed, offset=0):
+    """Random ifog (B, 4H) and c_prev (B, H); with ``offset`` each is a
+    contiguous view ``offset`` elements into its storage."""
     import torch
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    ifog = 2 * torch.randn((b, 4 * h), generator=gen, device=DEVICE)
-    c = torch.randn((b, h), generator=gen, device=DEVICE)
-    return ifog.to(ifog_dtype), c.to(c_dtype)
+    ifog = 2 * torch.randn(b * 4 * h + offset, generator=gen, device=DEVICE)
+    c = torch.randn(b * h + offset, generator=gen, device=DEVICE)
+    return (ifog.to(ifog_dtype)[offset:].view(b, 4 * h),
+            c.to(c_dtype)[offset:].view(b, h))
+
+
+def _cell_grads(b, h, c_dtype, seed, last_step=False):
+    """Random (dc_new, dh) in c's dtype. With ``last_step`` they come as the
+    last timestep's reach K2b: dc_new None (autograd leaves it undefined)
+    and dh a row view of a (B, 3, H) grad, row stride 3H (torch.stack's
+    backward hands out such views)."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    dh = torch.randn((b, 3 if last_step else 1, h), generator=gen,
+                     device=DEVICE).to(c_dtype)[:, -1]
+    if last_step:
+        return None, dh
+    dc = torch.randn((b, h), generator=gen, device=DEVICE).to(c_dtype)
+    return dc, dh.contiguous()
+
+
+def _cell_bwd_bytes(ifog, c, dc) -> int:
+    """Bytes K2b must move: ifog read and d_ifog written (4H each), c_prev,
+    c_new, dh and dc_new (when given) read and dc_prev written."""
+    b, h = c.shape
+    streams = 5 if dc is not None else 4
+    return b * h * (8 * ifog.element_size() + streams * c.element_size())
 
 
 def _cell_err(got, want) -> tuple:
-    """(max abs error, within tolerance) of one K2 output against the
-    plain version's, by the output's dtype."""
+    """(max abs error, within tolerance) of one K2 or K2b output against
+    the plain version's, by the output's dtype."""
     import torch
 
     g, w = got.float(), want.float()
@@ -1323,17 +1375,21 @@ def _cell_err(got, want) -> tuple:
 
 def lstm_cell_parity() -> None:
     """K2 against ``lstm_gates_reference`` on the card at every shape of
-    LSTM_CELL_SHAPES, for f32, bf16 and both mixes of input types."""
+    LSTM_CELL_SHAPES and at both bench shapes from element-offset views,
+    for f32, bf16 and both mixes of input types."""
     import torch
 
     from deeplearning4j_tpu_torch.ops import pallas_kernels as pk
 
     f32, bf16 = torch.float32, torch.bfloat16
     n = 0
-    for b, h in LSTM_CELL_SHAPES:
+    shapes = [(b, h, 0) for b, h in LSTM_CELL_SHAPES]
+    shapes += [(b, h, 1) for b, h in LSTM_BENCH_SHAPES]
+    for b, h, offset in shapes:
         for ifog_dt, c_dt in ((f32, f32), (bf16, bf16), (bf16, f32),
                               (f32, bf16)):
-            ifog, c = _cell_inputs(b, h, ifog_dt, c_dt, seed=b + h)
+            ifog, c = _cell_inputs(b, h, ifog_dt, c_dt, seed=b + h,
+                                   offset=offset)
             got = pk.lstm_gates_fwd(ifog, c)
             want = pk.lstm_gates_reference(ifog, c)
             sync()
@@ -1343,22 +1399,103 @@ def lstm_cell_parity() -> None:
                           and torch.isfinite(g.float()).all().item()
                           for g in got))
             log(f"[parity] lstm_gates B={b} H={h} ifog {str(ifog_dt)[6:]} "
-                f"c {str(c_dt)[6:]}: max abs err c_new {checks[0][0]:.3g} "
+                f"c {str(c_dt)[6:]}{f' offset {offset}' if offset else ''}: "
+                f"max abs err c_new {checks[0][0]:.3g} "
                 f"h_new {checks[1][0]:.3g} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(
                     f"lstm_gates kernel disagrees with its plain version at "
-                    f"B={b} H={h} ifog {ifog_dt} c {c_dt}: {checks}")
+                    f"B={b} H={h} ifog {ifog_dt} c {c_dt} offset {offset}: "
+                    f"{checks}")
             n += 1
     log(f"[parity] lstm_gates: {n} cases agree")
 
 
-def lstm_cell_measure() -> list:
+def lstm_cell_bwd_parity() -> None:
+    """K2b against ``lstm_gates_bwd_reference`` on the card at every shape
+    of LSTM_CELL_SHAPES, for f32, bf16 and both mixes of input types with
+    random dc_new and dh, then at f32 and bf16 with the last timestep's
+    grads (dc_new None, dh a strided row view). c_new is the plain
+    forward's."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import pallas_kernels as pk
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(f32, f32, False), (bf16, bf16, False), (bf16, f32, False),
+             (f32, bf16, False), (f32, f32, True), (bf16, bf16, True)]
+    n = 0
+    for b, h in LSTM_CELL_SHAPES:
+        for ifog_dt, c_dt, last in cases:
+            ifog, c = _cell_inputs(b, h, ifog_dt, c_dt, seed=b + h)
+            c_new, _ = pk.lstm_gates_reference(ifog, c)
+            dc, dh = _cell_grads(b, h, c_dt, seed=b + 2 * h, last_step=last)
+            got = pk.lstm_gates_bwd(ifog, c, c_new, dc, dh)
+            want = pk.lstm_gates_bwd_reference(ifog, c, c_new, dc, dh)
+            sync()
+            checks = [_cell_err(g, w) for g, w in zip(got, want)]
+            ok = (all(c_ok for _, c_ok in checks)
+                  and got[0].dtype == ifog_dt and got[1].dtype == c_dt
+                  and tuple(got[0].shape) == (b, 4 * h)
+                  and tuple(got[1].shape) == (b, h)
+                  and all(torch.isfinite(g.float()).all().item()
+                          for g in got))
+            grads = ("dc_new None, dh row stride 3H" if last
+                     else "random dc_new, dh")
+            log(f"[parity] lstm_gates_bwd B={b} H={h} ifog "
+                f"{str(ifog_dt)[6:]} c {str(c_dt)[6:]} ({grads}): max abs "
+                f"err d_ifog {checks[0][0]:.3g} dc_prev {checks[1][0]:.3g} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(
+                    f"lstm_gates_bwd kernel disagrees with its plain version "
+                    f"at B={b} H={h} ifog {ifog_dt} c {c_dt} ({grads}): "
+                    f"{checks}")
+            n += 1
+    log(f"[parity] lstm_gates_bwd: {n} cases agree")
+
+
+def launch_floor() -> dict:
+    """The floor under K2 and K2b: ``device_ms`` of an empty kernel that
+    K2's library launches through the same ctypes path on K2's grid, at
+    (1, 1) (one block) and at both bench shapes, and of K2 and K2b at
+    (1, 1); beside them the empty launch by ``time_ms`` (the host's launch
+    in the interval)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.ops import pallas_kernels as pk
+
+    lib = _kernels.load("lstm_gates")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def empty(b, h):
+        rc = lib.dl4j_lstm_gates_empty(b, h, stream)
+        if rc != 0:
+            raise RuntimeError(f"empty launch failed: CUDA error {rc}")
+
+    out = {}
+    for b, h in ((1, 1), *LSTM_BENCH_SHAPES):
+        out[f"empty_{b}x{h}"] = device_ms(lambda: empty(b, h))
+    out["empty_1x1_with_launch"] = time_ms(lambda: empty(1, 1))
+    ifog, c = _cell_inputs(1, 1, torch.float32, torch.float32, seed=1)
+    c_new, _ = pk.lstm_gates_reference(ifog, c)
+    dc, dh = _cell_grads(1, 1, torch.float32, seed=2)
+    out["lstm_gates_1x1"] = device_ms(lambda: pk.lstm_gates_fwd(ifog, c))
+    out["lstm_gates_bwd_1x1"] = device_ms(
+        lambda: pk.lstm_gates_bwd(ifog, c, c_new, dc, dh))
+    log(f"[measure] launch floor (ms, device_ms unless said) "
+        f"{json.dumps(out)}")
+    return out
+
+
+def lstm_cell_measure(floor: dict) -> list:
     """K2 at both bench shapes, f32 (the training path's type) and bf16:
     its time, its plain version's and ATen's own CUDA LSTM cell's
     (``_thnn_fused_lstm_cell`` on pre-permuted i,f,g,o inputs with zero
     hidden gates, a yardstick the port never calls), all by ``device_ms``,
-    and the bound; beside them K2 by ``time_ms`` (host launch included).
+    and the bound; beside them K2 by ``time_ms`` (host launch included)
+    and the empty kernel's ``device_ms`` on K2's grid (``launch_floor``).
     Returns the f32 entries of the kernels line."""
     import torch
 
@@ -1392,13 +1529,89 @@ def lstm_cell_measure() -> list:
                 PEAK_F32_FLOPS, err, lib,
                 f"B={b} H={h} {str(dtype)[6:]}", library_covers=lib_note,
                 launches_cover="64 timesteps x the timed fit_epochs steps",
-                ms_with_launch=host_ms)
+                ms_with_launch=host_ms,
+                launch_floor_ms=floor[f"empty_{b}x{h}"])
             log(f"[measure] lstm_gates {entry['shape']}: kernel {ms:.4f} ms "
                 f"({host_ms:.4f} ms with the host's launch in the interval),"
                 f" plain {plain:.4f} ms, library "
                 f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
                 f"{entry['bound_ms'] * 1e3:.3f} us ({entry['bound_by']}: "
                 f"{7 * b * h * elt / 1e6:.3f} MB); max abs err {err:.3g}")
+            if dtype == torch.float32:
+                entries.append(entry)
+    return entries
+
+
+def lstm_cell_bwd_measure(floor: dict) -> list:
+    """K2b at both bench shapes, f32 and bf16, with random dc_new and dh:
+    its time, its plain version's and ATen's own CUDA LSTM cell backward's
+    (``_thnn_fused_lstm_cell_backward_impl`` on the activated gates in i,
+    f, g, o order as its workspace, built outside the timed call: a
+    yardstick the port never calls), all by ``device_ms``, and the bound;
+    beside them K2b by ``time_ms`` and the launch floor. Returns the f32
+    entries of the kernels line."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import pallas_kernels as pk
+
+    entries = []
+    for b, h in LSTM_BENCH_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            ifog, c = _cell_inputs(b, h, dtype, dtype, seed=60 + h)
+            c_new, _ = pk.lstm_gates_reference(ifog, c)
+            dc, dh = _cell_grads(b, h, dtype, seed=61 + h)
+            got = pk.lstm_gates_bwd(ifog, c, c_new, dc, dh)
+            want = pk.lstm_gates_bwd_reference(ifog, c, c_new, dc, dh)
+            err = max(_cell_err(g, w)[0] for g, w in zip(got, want))
+            ms = device_ms(lambda: pk.lstm_gates_bwd(ifog, c, c_new, dc, dh))
+            plain = device_ms(
+                lambda: pk.lstm_gates_bwd_reference(ifog, c, c_new, dc, dh))
+            host_ms = time_ms(lambda: pk.lstm_gates_bwd(ifog, c, c_new, dc,
+                                                        dh))
+            z = ifog.float()
+            workspace = torch.cat(
+                [torch.sigmoid(z[:, :2 * h]), torch.tanh(z[:, 3 * h:]),
+                 torch.sigmoid(z[:, 2 * h:3 * h])], dim=1).to(dtype)
+            fused = getattr(torch.ops.aten,
+                            "_thnn_fused_lstm_cell_backward_impl", None)
+            lib, lib_err, lib_note = None, None, (
+                "this torch has no aten._thnn_fused_lstm_cell_backward_impl")
+            if fused is not None:
+                lib = device_ms(lambda: fused(dh, dc, c, c_new, workspace,
+                                              False))
+                lib_gates, lib_dc, _ = fused(dh, dc, c, c_new, workspace,
+                                             False)
+                # back to i, f, o, g: the same function up to gate order
+                lib_ifog = torch.cat([lib_gates[:, :2 * h],
+                                      lib_gates[:, 3 * h:],
+                                      lib_gates[:, 2 * h:3 * h]], dim=1)
+                lib_err = max(_rel_err(lib_ifog, want[0]),
+                              _rel_err(lib_dc, want[1]))
+                lib_note = ("aten._thnn_fused_lstm_cell_backward_impl(dh, "
+                            "dc_new, c_prev, c_new, workspace, False): gate "
+                            "order i,f,g,o, activated gates precomputed as "
+                            "its workspace (K2b recomputes them from ifog)")
+            nbytes = _cell_bwd_bytes(ifog, c, dc)
+            entry = _kernel_entry(
+                "lstm_gates_bwd",
+                "deeplearning4j_tpu/ops/pallas_kernels.py:240",
+                ms, plain, float(CELL_BWD_OPS_PER_ELT * b * h), nbytes,
+                PEAK_F32_FLOPS, err, lib, f"B={b} H={h} {str(dtype)[6:]}",
+                replaces_note=("_lstm_gates_bwd, the lax backward of K2 that "
+                               "XLA fuses: no pallas_call"),
+                library_covers=lib_note, library_rel_err=lib_err,
+                launches_cover="64 timesteps x the timed fit_epochs steps",
+                ms_with_launch=host_ms,
+                launch_floor_ms=floor[f"empty_{b}x{h}"])
+            log(f"[measure] lstm_gates_bwd {entry['shape']}: kernel "
+                f"{ms:.4f} ms ({host_ms:.4f} ms with the host's launch in the"
+                f" interval), plain {plain:.4f} ms, library "
+                f"{'n/a' if lib is None else f'{lib:.4f} ms'} (its outputs "
+                f"{'n/a' if lib_err is None else f'{lib_err:.3g}'} from "
+                f"the plain version's, relative), bound "
+                f"{entry['bound_ms'] * 1e3:.3f} us ({entry['bound_by']}: "
+                f"{nbytes / 1e6:.3f} MB), launch floor "
+                f"{entry['launch_floor_ms']:.4f} ms; max abs err {err:.3g}")
             if dtype == torch.float32:
                 entries.append(entry)
     return entries
@@ -1413,8 +1626,9 @@ def _lstm_conf(lr: float = 0.1):  # the zoo's rate
 def lstm_fit() -> dict:
     """The facade's main path on the char-LSTM: MultiLayerNetwork
     .fit_epochs over a ListDataSetIterator at batch 64, LSTM_WARMUP warm-up
-    steps then LSTM_STEPS timed steps (K2 counted from 0 over exactly
-    those: 64 a step), then predict on a held-out batch (counted alone)."""
+    steps then LSTM_STEPS timed steps (K2 and K2b counted from 0 over
+    exactly those: 64 each a step), then predict on a held-out batch
+    (counted alone: 64 K2 launches, no K2b)."""
     from deeplearning4j_tpu_torch.datasets.dataset import DataSet
     from deeplearning4j_tpu_torch.datasets.iterator import (
         ListDataSetIterator,
@@ -1437,11 +1651,14 @@ def lstm_fit() -> dict:
     sync()
     wall = time.perf_counter() - t0
     launches = _kernels.LAUNCHES["lstm_gates"]
+    bwd_launches = _kernels.LAUNCHES["lstm_gates_bwd"]
     score1 = net.score(first)
-    if launches != LSTM_SEQ * LSTM_STEPS:
-        raise AssertionError(f"lstm_gates launched {launches} times over "
-                             f"{LSTM_STEPS} steps, expected {LSTM_SEQ} per "
-                             "step")
+    for name, n in (("lstm_gates", launches),
+                    ("lstm_gates_bwd", bwd_launches)):
+        if n != LSTM_SEQ * LSTM_STEPS:
+            raise AssertionError(f"{name} launched {n} times over "
+                                 f"{LSTM_STEPS} steps, expected {LSTM_SEQ} "
+                                 "per step")
     if not (np.isfinite([score0, score1]).all() and score1 < score0):
         raise AssertionError(f"LSTM score on the first timed batch "
                              f"{score0} -> {score1}: not finite or not "
@@ -1450,15 +1667,19 @@ def lstm_fit() -> dict:
     _kernels.reset_launches()
     pred = net.predict(hx)
     predict_launches = _kernels.LAUNCHES["lstm_gates"]
-    if predict_launches != LSTM_SEQ or pred.shape != (b, LSTM_SEQ):
-        raise AssertionError(f"predict: {predict_launches} launches "
-                             f"(expected {LSTM_SEQ}), shape {pred.shape}")
+    predict_bwd = _kernels.LAUNCHES["lstm_gates_bwd"]
+    if (predict_launches != LSTM_SEQ or predict_bwd != 0
+            or pred.shape != (b, LSTM_SEQ)):
+        raise AssertionError(f"predict: {predict_launches} K2 launches "
+                             f"(expected {LSTM_SEQ}), {predict_bwd} K2b "
+                             f"(expected 0), shape {pred.shape}")
     ms = wall * 1e3 / LSTM_STEPS
     out = {"steps": LSTM_STEPS, "batch": [b, LSTM_SEQ], "lr": LSTM_FIT_LR,
            "wall_s": wall, "ms_per_step": ms, "samples_per_s": b * 1e3 / ms,
            "tokens_per_s": b * LSTM_SEQ * 1e3 / ms,
            "score_first_batch": [score0, score1], "launches": launches,
-           "predict_launches": predict_launches,
+           "bwd_launches": bwd_launches, "predict_launches": predict_launches,
+           "predict_bwd_launches": predict_bwd,
            "predict_shape": list(pred.shape)}
     log(f"[lstm] fit_epochs {json.dumps(out)}")
     return out
@@ -1476,10 +1697,12 @@ def lstm_epoch(bf16: bool, kernels: bool = True,
                profiled: bool = False) -> dict:
     """make_train_epoch(conf, 8, donate=True) on one (8, 64, 64, 512) chunk
     of one-hot tokens, as bench.measure("lstm_wide") builds it: a warm-up
-    chunk, then one timed chunk with K2 counted from 0 over it. With
-    ``kernels=False`` the chunk runs with set_lstm_gates(False), the
-    bench's ``_nokernels`` twin. With ``profiled`` the timed chunk runs
-    under torch.profiler for the busy share and K2's share."""
+    chunk, then one timed chunk with K2 and K2b counted from 0 over it.
+    With ``kernels=False`` the chunk runs with set_lstm_gates(False), the
+    bench's ``_nokernels`` twin: neither launches. With ``profiled`` the
+    timed chunk runs under torch.profiler for the busy share, the device
+    operations a step (the most frequent by name) and K2's and K2b's
+    shares."""
     import contextlib
 
     import torch
@@ -1514,11 +1737,14 @@ def lstm_epoch(bf16: bool, kernels: bool = True,
     finally:
         pk.set_lstm_gates(None)
     launches = _kernels.LAUNCHES["lstm_gates"]
+    bwd_launches = _kernels.LAUNCHES["lstm_gates_bwd"]
     scores = scores.tolist()
     want = LSTM_SEQ * LSTM_CHUNK if kernels else 0
-    if launches != want:
-        raise AssertionError(f"lstm_gates launched {launches} times over a "
-                             f"{LSTM_CHUNK}-step chunk, expected {want}")
+    for name, n in (("lstm_gates", launches),
+                    ("lstm_gates_bwd", bwd_launches)):
+        if n != want:
+            raise AssertionError(f"{name} launched {n} times over a "
+                                 f"{LSTM_CHUNK}-step chunk, expected {want}")
     if not np.isfinite(warm + scores).all():
         raise AssertionError(f"LSTM epoch scores not finite: {warm}, "
                              f"{scores}")
@@ -1528,25 +1754,26 @@ def lstm_epoch(bf16: bool, kernels: bool = True,
            "batch": [LSTM_BATCH, LSTM_SEQ], "wall_s": wall,
            "ms_per_step": ms, "samples_per_s": LSTM_BATCH * 1e3 / ms,
            "tokens_per_s": LSTM_BATCH * LSTM_SEQ * 1e3 / ms,
-           "launches": launches, "scores": warm + scores}
+           "launches": launches, "bwd_launches": bwd_launches,
+           "scores": warm + scores}
     if profiled:
-        from torch.autograd import DeviceType
-
         out.update(device_busy(prof, wall))
-        out["device_ops_per_step"] = sum(
-            e.count for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA) / LSTM_CHUNK
-        out["lstm_gates_device_ms"] = _kernel_share(prof, "lstm_gates")
-        out["lstm_gates_share"] = (out["lstm_gates_device_ms"]
-                                   / max(out["device_busy_ms"], 1e-9))
+        counts = _by_name(prof, lambda e: e.count)
+        out["device_ops_per_step"] = sum(counts.values()) / LSTM_CHUNK
+        out["device_ops_per_step_by_kernel"] = {
+            k: n / LSTM_CHUNK for k, n in list(counts.items())[:10]}
+        for name in ("lstm_gates", "lstm_gates_bwd"):
+            out[f"{name}_device_ms"] = _kernel_share(prof, f"{name}_kernel")
+            out[f"{name}_share"] = (out[f"{name}_device_ms"]
+                                    / max(out["device_busy_ms"], 1e-9))
     log(f"[lstm] train_epoch {json.dumps(out)}")
     return out
 
 
 def lstm_grad_parity() -> None:
     """One char-LSTM step's loss and grads (batch 64, sequence 64, f32, TF32
-    off) through K2 against set_lstm_gates(False) (the plain per-op cell),
-    from one set of params and one batch."""
+    off) through K2 and K2b against set_lstm_gates(False) (the plain cell,
+    forward and backward), from one set of params and one batch."""
     import torch
 
     from deeplearning4j_tpu_torch._device import tree_leaves, tree_unflatten
@@ -1566,7 +1793,9 @@ def lstm_grad_parity() -> None:
         loss = F.network_loss(conf, tree_unflatten(params, leaves), x, y,
                               train=True)
         grads = torch.autograd.grad(loss, leaves)
-        return float(loss.detach()), grads, _kernels.LAUNCHES["lstm_gates"]
+        return float(loss.detach()), grads, (
+            _kernels.LAUNCHES["lstm_gates"],
+            _kernels.LAUNCHES["lstm_gates_bwd"])
 
     try:
         kl, kg, k_launches = loss_and_grads(True)
@@ -1576,32 +1805,39 @@ def lstm_grad_parity() -> None:
     names = sorted(params[0])
     errs = {n: _rel_err(g, w) for n, g, w in zip(names, kg, dg)}
     loss_err = abs(kl - dl)
-    log(f"[parity] LSTM step K2 vs plain cell, f32, batch {LSTM_BATCH}x"
+    log(f"[parity] LSTM step K2+K2b vs plain cell, f32, batch {LSTM_BATCH}x"
         f"{LSTM_SEQ}: loss {kl:.7f} vs {dl:.7f} (abs err {loss_err:.3g}), "
         f"grad rel err per leaf {json.dumps(errs)}; launches {k_launches} "
         f"vs {d_launches}")
     if not (loss_err <= LSTM_LOSS_TOL and max(errs.values()) <= LSTM_GRAD_TOL
-            and k_launches == LSTM_SEQ and d_launches == 0
+            and k_launches == (LSTM_SEQ, LSTM_SEQ)
+            and d_launches == (0, 0)
             and all(torch.isfinite(g).all().item() for g in kg)):
-        raise AssertionError(f"LSTM grads through K2 vs plain cell: loss err "
-                             f"{loss_err} (tol {LSTM_LOSS_TOL}), grad errs "
+        raise AssertionError(f"LSTM grads through K2+K2b vs plain cell: loss "
+                             f"err {loss_err} (tol {LSTM_LOSS_TOL}), grad errs "
                              f"{errs} (tol {LSTM_GRAD_TOL}), launches "
                              f"{k_launches}/{d_launches}")
 
 
 def lstm() -> list:
-    """Phase 6; returns K2's entries of the kernels line."""
+    """Phase 6; returns K2's and K2b's entries of the kernels line."""
     lstm_cell_parity()
-    entries = lstm_cell_measure()
+    lstm_cell_bwd_parity()
+    floor = launch_floor()
+    entries = lstm_cell_measure(floor)
+    bwd_entries = lstm_cell_bwd_measure(floor)
     main_run = lstm_fit()
     for entry in entries:
         entry["launches"] = main_run["launches"]
+    for entry in bwd_entries:
+        entry["launches"] = main_run["bwd_launches"]
     lstm_epoch(bf16=False)
     lstm_epoch(bf16=True)
     lstm_epoch(bf16=False, kernels=False)
     lstm_epoch(bf16=False, profiled=True)
+    lstm_epoch(bf16=False, kernels=False, profiled=True)
     lstm_grad_parity()
-    return entries
+    return entries + bwd_entries
 
 
 # ------------------------------------------------------------- phase 7 ----

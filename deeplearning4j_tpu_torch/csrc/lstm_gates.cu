@@ -1,6 +1,7 @@
 // LSTM cell nonlinearity for Hopper (sm_90a), K2:
 //   c_new = sigmoid(f) * c_prev + sigmoid(i) * tanh(g)
 //   h_new = sigmoid(o) * tanh(c_new)
+// Its backward is K2b (lstm_gates_bwd.cu).
 //
 // Replaces: the Pallas TPU kernel
 //   deeplearning4j_tpu/ops/pallas_kernels.py::_lstm_gates_kernel, launched
@@ -21,15 +22,23 @@
 // Bound on an H100 SXM: the kernel moves 7*B*H elements (4H + H read and
 // 2H written per row) and does some 30 operations an element, so bytes
 // bound it: at the bench's shapes (64x512 and 256x128, f32) 0.92 MB, 0.27
-// us at 3.35 TB/s. Either is a few waves of one launch, so the time on the
-// card is launch latency, and that is what this design accepts.
+// us at 3.35 TB/s. Either is one wave of one launch, so the time on the
+// card is launch latency. On an H100 80GB HBM3 at 700 W (chip_smoke.py's
+// launch_floor): an empty kernel launched through dl4j_lstm_gates_empty
+// takes 4.8 us between two CUDA events, K2 at 1x1 5.4 us (one thread's
+// load, math and store) and at 64x512 6.1 us: 0.6 us for the volume,
+// against the 0.27 us bound.
 //
 // Design: one thread per (b, j). It reads ifog[b, j], ifog[b, H+j],
 // ifog[b, 2H+j], ifog[b, 3H+j] and c_prev[b, j], so a warp reads 32
 // neighbouring addresses in each of the five streams and writes 32 in each
 // of the two outputs. Indices are 64-bit, and a grid-stride loop covers any
-// element count. No shared memory: nothing is read twice. Vectorised loads
-// and fusing the cell into the recurrent product's epilogue are later work.
+// element count. No shared memory: nothing is read twice. 16-byte packs of
+// 4 f32 or 8 bf16 elements a thread were slower on the card (6.7 us f32,
+// 7.2 bf16 at 64x512 over a 4.9 us floor, against this layout's 6.1 over
+// 4.8): a thread's dependent chain of transcendentals grows with its
+// elements, and that chain, not the loads, sets the time of one wave.
+// Fusing the cell into the recurrent product's epilogue is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,13 +94,20 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Does nothing: launched by dl4j_lstm_gates_empty, it measures the floor
+// that any launch costs on the card.
+__global__ void __launch_bounds__(kThreads) empty_kernel() {}
+
+int64_t grid_blocks(int64_t n) {
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  return blocks > kMaxBlocks ? kMaxBlocks : blocks;
+}
+
 template <typename TI, typename TC>
 cudaError_t launch(const void* ifog, const void* c_prev, void* c_out,
                    void* h_out, int64_t b, int64_t h, cudaStream_t stream) {
-  const int64_t n = b * h;
-  int64_t blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  lstm_gates_kernel<TI, TC><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  lstm_gates_kernel<TI, TC><<<(unsigned)grid_blocks(b * h), kThreads, 0,
+                               stream>>>(
       static_cast<const TI*>(ifog), static_cast<const TC*>(c_prev),
       static_cast<TC*>(c_out), static_cast<TC*>(h_out), b, h);
   return cudaGetLastError();
@@ -124,4 +140,14 @@ extern "C" int dl4j_lstm_gates(const void* ifog, const void* c_prev,
                  : launch<float, float>(ifog, c_prev, c_out, h_out, b, h, s);
   }
   return (int)err;
+}
+
+// The launch floor: an empty kernel on the grid dl4j_lstm_gates launches
+// for (b, h), through the same ctypes path. Returns cudaGetLastError().
+extern "C" int dl4j_lstm_gates_empty(long long b, long long h, void* stream) {
+  if (b <= 0 || h <= 0 || b > INT64_MAX / h)
+    return (int)cudaErrorInvalidValue;
+  empty_kernel<<<(unsigned)grid_blocks(b * h), kThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
 }

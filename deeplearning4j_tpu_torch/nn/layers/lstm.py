@@ -9,7 +9,10 @@ projection to the output. Input layout: (batch, time, n_in).
 The JAX ``lax.scan`` over time is a Python loop here: one (B, 1+n_in+H) x
 (1+n_in+H, 4H) product and one cell (``ops.pallas_kernels.lstm_gates``,
 kernel K2 on the card) per timestep; autograd unrolls the loop for the
-backward.
+backward, where each timestep's cell is one launch of kernel K2b (the
+cell's backward). K2b reads the h grads from ``torch.stack``'s backward
+as the row views they are, and the last timestep's missing c grad as
+zero, so the cell adds no copy or zero-fill to the backward.
 """
 
 from __future__ import annotations

@@ -36,7 +36,8 @@ LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                             "flash_attention_bwd_dkv": 0,
                             "flash_attention_bwd_dq": 0,
                             "fused_dense": 0,
-                            "lstm_gates": 0}
+                            "lstm_gates": 0,
+                            "lstm_gates_bwd": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -66,6 +67,12 @@ _SIGNATURES = {
     },
     "lstm_gates": {
         "dl4j_lstm_gates": [_P, _P, _P, _P, _L, _L, _I, _I, _P],
+        # an empty kernel on K2's grid: the launch floor, for measurement
+        "dl4j_lstm_gates_empty": [_L, _L, _P],
+    },
+    "lstm_gates_bwd": {
+        "dl4j_lstm_gates_bwd": [_P, _P, _P, _P, _L, _P, _L, _P, _P, _L, _L,
+                                _I, _I, _P],
     },
 }
 

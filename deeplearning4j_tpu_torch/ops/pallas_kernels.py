@@ -21,15 +21,22 @@ so it takes every shape, those of the MNIST MLP included.
   (K2): from the (B, 4H) preactivations in gate order i, f, o, g and
   c_prev (B, H), ``c_new = σ(f)·c_prev + σ(i)·tanh(g)`` and
   ``h_new = σ(o)·tanh(c_new)`` in f32, each rounded once to c_prev's
-  dtype. Differentiable through ``LSTMGates``, whose backward is the JAX
-  package's lax backward (``_lstm_gates_bwd``) in plain torch.
+  dtype. Differentiable through ``LSTMGates``, whose backward is
+  ``csrc/lstm_gates_bwd.cu`` (K2b): the JAX package's lax backward
+  (``_lstm_gates_bwd``, which XLA fuses and no Pallas kernel carries) as
+  one hand-written kernel, ``(d_ifog, dc_prev)`` from ifog, c_prev, c_new
+  and the grads of c_new and h_new, with the gates recomputed.
 
 ``lstm_gates_reference`` is K2's plain version, computed as the TPU
 kernel computes it (f32, one rounding; not the JAX package's
-``_lstm_gates_ref``, which rounds at every op at bf16). It is also the
-route ``set_lstm_gates(False)`` takes, on either device. The TPU kernel's
-shape gate (h % 128, B % 8, h <= 2048) is a TPU layout rule: K2 takes
-every shape.
+``_lstm_gates_ref``, which rounds at every op at bf16), and
+``lstm_gates_bwd_reference`` K2b's (f32, one rounding: what XLA's fusion
+of ``_lstm_gates_bwd`` computes). ``lstm_gates_fwd`` and
+``lstm_gates_bwd`` use them only for a tensor on the CPU; on a CUDA
+tensor they launch K2 and K2b or raise. ``set_lstm_gates(False)`` sends
+both halves of the cell through the plain versions, on either device.
+The TPU kernel's shape gate (h % 128, B % 8, h <= 2048) is a TPU layout
+rule: K2 and K2b take every shape.
 """
 
 from __future__ import annotations
@@ -180,11 +187,12 @@ def fused_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 # ------------------------------------------------------------- lstm gates ----
 
-# The A/B switch for K2: None = the default (on). The JAX default is "on
-# where the shape passes the TPU gate"; K2 takes every shape, so the port's
-# default is the JAX default minus the gate. ``set_lstm_gates(False)`` sends
-# the cell through the plain gate math (``lstm_gates_reference``), as the
-# JAX bench's ``lstm_wide_bf16_nokernels`` stage does.
+# The A/B switch for K2 and K2b: None = the default (on). The JAX default
+# is "on where the shape passes the TPU gate"; K2 takes every shape, so the
+# port's default is the JAX default minus the gate. ``set_lstm_gates(False)``
+# sends the cell through the plain gate math (``lstm_gates_reference`` and
+# ``lstm_gates_bwd_reference``), as the JAX bench's
+# ``lstm_wide_bf16_nokernels`` stage does.
 _lstm_gates_override: Optional[bool] = None
 
 
@@ -220,9 +228,9 @@ def lstm_gates_reference(ifog: torch.Tensor, c_prev: torch.Tensor):
     return c_new.to(c_prev.dtype), h_new.to(c_prev.dtype)
 
 
-def _check_lstm_inputs(ifog: torch.Tensor, c_prev: torch.Tensor) -> None:
-    """What K2 takes: ifog (B, 4H) and c_prev (B, H), each float32 or
-    bfloat16, on one CUDA device, contiguous."""
+def _check_lstm_layout(ifog: torch.Tensor, c_prev: torch.Tensor) -> None:
+    """What K2 and K2b take of ifog and c_prev: (B, 4H) and (B, H), each
+    float32 or bfloat16, contiguous."""
     if ifog.dim() != 2 or c_prev.dim() != 2:
         raise ValueError(f"lstm_gates takes ifog (B, 4H) and c_prev (B, H); "
                          f"got {tuple(ifog.shape)}, {tuple(c_prev.shape)}")
@@ -238,13 +246,28 @@ def _check_lstm_inputs(ifog: torch.Tensor, c_prev: torch.Tensor) -> None:
     for name, t in (("ifog", ifog), ("c_prev", c_prev)):
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous; pass .contiguous()")
-    for name, t in (("ifog", ifog), ("c_prev", c_prev)):
+
+
+def _check_cuda(named) -> None:
+    """Every (name, tensor) of ``named`` (None skipped) on one CUDA
+    device."""
+    named = [(name, t) for name, t in named if t is not None]
+    for name, t in named:
         if not t.is_cuda:
             raise ValueError(f"{name} is on {t.device}; the kernel takes "
                              "CUDA tensors")
-    if ifog.device != c_prev.device:
-        raise ValueError(f"ifog and c_prev must share a device; got "
-                         f"{ifog.device} and {c_prev.device}")
+    (first, t0), *rest = named
+    for name, t in rest:
+        if t.device != t0.device:
+            raise ValueError(f"{first} and {name} must share a device; got "
+                             f"{t0.device} and {t.device}")
+
+
+def _check_lstm_inputs(ifog: torch.Tensor, c_prev: torch.Tensor) -> None:
+    """What K2 takes: ifog (B, 4H) and c_prev (B, H), each float32 or
+    bfloat16, on one CUDA device, contiguous."""
+    _check_lstm_layout(ifog, c_prev)
+    _check_cuda((("ifog", ifog), ("c_prev", c_prev)))
 
 
 def lstm_gates_fwd(ifog: torch.Tensor, c_prev: torch.Tensor):
@@ -274,36 +297,145 @@ def lstm_gates_fwd(ifog: torch.Tensor, c_prev: torch.Tensor):
     return c_new, h_new
 
 
+def lstm_gates_bwd_reference(ifog: torch.Tensor, c_prev: torch.Tensor,
+                             c_new: torch.Tensor,
+                             dc_new: Optional[torch.Tensor],
+                             dh: Optional[torch.Tensor]):
+    """Plain torch version of K2b, the JAX package's ``_lstm_gates_bwd``:
+    (d_ifog, dc_prev) from the cell's inputs, c_new and the grads of c_new
+    and h_new (None reads as zero), computed in f32 (f64 for f64 inputs)
+    from upcast inputs with the gates and ``tanh(c_new)`` recomputed, and
+    rounded once to ifog's and c_prev's dtypes. At f32 it is the lax
+    backward op for op; at bf16 it is what XLA's fusion of it computes,
+    not the per-op rounding of eager JAX."""
+    acc = torch.promote_types(torch.promote_types(ifog.dtype, c_prev.dtype),
+                              torch.float32)
+    i, f, o, gg = _gates(ifog.to(acc), c_prev.shape[-1])
+    tanh_c = torch.tanh(c_new.to(acc))
+    if dh is None:
+        dh = torch.zeros_like(tanh_c)
+    dh = dh.to(acc)
+    do = dh * tanh_c
+    dc = dh * o * (1.0 - tanh_c * tanh_c)
+    if dc_new is not None:
+        dc = dc_new.to(acc) + dc
+    di = dc * gg
+    df = dc * c_prev.to(acc)
+    dgg = dc * i
+    dc_prev = dc * f
+    d_ifog = torch.cat([di * i * (1.0 - i),
+                        df * f * (1.0 - f),
+                        do * o * (1.0 - o),
+                        dgg * (1.0 - gg * gg)], dim=-1)
+    return d_ifog.to(ifog.dtype), dc_prev.to(c_prev.dtype)
+
+
+def _row_stride(name: str, t: Optional[torch.Tensor], b: int, h: int) -> int:
+    """The row stride K2b reads an incoming grad with: (B, H) in c's dtype,
+    each row contiguous (a row view of a wider tensor is read in place);
+    0 for None (read as zero)."""
+    if t is None:
+        return 0
+    if tuple(t.shape) != (b, h):
+        raise ValueError(f"lstm_gates_bwd: {name} is {tuple(t.shape)}, "
+                         f"expected {(b, h)}")
+    if h > 1 and t.stride(1) != 1:
+        raise ValueError(f"lstm_gates_bwd: {name} rows are not contiguous "
+                         f"(strides {t.stride()}); pass .contiguous()")
+    return t.stride(0)
+
+
+def _check_lstm_bwd_inputs(ifog, c_prev, c_new, dc_new, dh):
+    """What K2b takes: K2's ifog and c_prev, c_new like c_prev, and dc_new
+    and dh (B, H) in c's dtype with contiguous rows or None, on one CUDA
+    device. Returns their row strides."""
+    _check_lstm_layout(ifog, c_prev)
+    b, h = c_prev.shape
+    named = (("c_new", c_new), ("dc_new", dc_new), ("dh", dh))
+    for name, t in named:
+        if t is not None and t.dtype != c_prev.dtype:
+            raise ValueError(f"lstm_gates_bwd: {name} is {t.dtype}, expected "
+                             f"c_prev's {c_prev.dtype}")
+    if tuple(c_new.shape) != (b, h):
+        raise ValueError(f"lstm_gates_bwd: c_new is {tuple(c_new.shape)}, "
+                         f"expected {(b, h)}")
+    if not c_new.is_contiguous():
+        raise ValueError("c_new is not contiguous; pass .contiguous()")
+    strides = (_row_stride("dc_new", dc_new, b, h),
+               _row_stride("dh", dh, b, h))
+    _check_cuda((("ifog", ifog), ("c_prev", c_prev)) + named)
+    return strides
+
+
+def lstm_gates_bwd(ifog: torch.Tensor, c_prev: torch.Tensor,
+                   c_new: torch.Tensor, dc_new: Optional[torch.Tensor],
+                   dh: Optional[torch.Tensor]):
+    """(d_ifog, dc_prev) of the LSTM cell, in ifog's and c_prev's dtypes;
+    dc_new or dh may be None (zero).
+
+    On a CUDA tensor: launches ``csrc/lstm_gates_bwd.cu`` (K2b) on the
+    current stream (or raises). On a CPU tensor:
+    ``lstm_gates_bwd_reference``."""
+    if ifog.device.type == "cpu":
+        return lstm_gates_bwd_reference(ifog, c_prev, c_new, dc_new, dh)
+    dc_stride, dh_stride = _check_lstm_bwd_inputs(ifog, c_prev, c_new,
+                                                  dc_new, dh)
+    b, h = c_prev.shape
+    d_ifog = torch.empty_like(ifog)
+    dc_prev = torch.empty_like(c_prev)
+    if dc_prev.numel() == 0:
+        return d_ifog, dc_prev
+    lib = _kernels.load("lstm_gates_bwd")
+    stream = torch.cuda.current_stream(ifog.device).cuda_stream
+    rc = lib.dl4j_lstm_gates_bwd(
+        ifog.data_ptr(), c_prev.data_ptr(), c_new.data_ptr(),
+        None if dc_new is None else dc_new.data_ptr(), dc_stride,
+        None if dh is None else dh.data_ptr(), dh_stride, d_ifog.data_ptr(),
+        dc_prev.data_ptr(), b, h, int(ifog.dtype == torch.bfloat16),
+        int(c_prev.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"lstm_gates_bwd launch failed: CUDA error {rc} at "
+                           f"ifog {tuple(ifog.shape)} {ifog.dtype}, c_prev "
+                           f"{c_prev.dtype}")
+    _kernels.count_launch("lstm_gates_bwd")
+    return d_ifog, dc_prev
+
+
+def _rows_contiguous(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A grad as K2b reads it: as it is when its rows are contiguous (row
+    views of the (B, T, H) grad of ``torch.stack`` are), else a copy."""
+    if t is None or t.shape[1] <= 1 or t.stride(1) == 1:
+        return t
+    return t.contiguous()
+
+
 class LSTMGates(torch.autograd.Function):
-    """The LSTM cell, forward through ``lstm_gates_fwd`` (K2 on the card)
-    or, with ``set_lstm_gates(False)``, ``lstm_gates_reference``; backward the
-    JAX package's ``_lstm_gates_bwd`` in plain torch on both devices. The
-    residuals are recomputed as ``_lstm_gates_fwd`` recomputes them: the
-    gates from ifog at ifog's dtype, ``tanh(c_new)`` at c_new's."""
+    """The LSTM cell: forward through ``lstm_gates_fwd`` (K2 on the card),
+    backward through ``lstm_gates_bwd`` (K2b on the card), or, with
+    ``set_lstm_gates(False)``, both halves through their plain versions on
+    either device. Grads are not materialized: an unused output's grad
+    reaches the backward as None and K2b reads it as zero, so autograd
+    launches no zero-fill for the last timestep's dc_new."""
 
     @staticmethod
     def forward(ctx, ifog, c_prev):
-        fwd = lstm_gates_fwd if use_lstm_gates() else lstm_gates_reference
+        ctx.set_materialize_grads(False)
+        ctx.kernels = use_lstm_gates()
+        fwd = lstm_gates_fwd if ctx.kernels else lstm_gates_reference
         c_new, h_new = fwd(ifog, c_prev)
         ctx.save_for_backward(ifog, c_prev, c_new)
         return c_new, h_new
 
     @staticmethod
     def backward(ctx, dc_new, dh):
+        if dc_new is None and dh is None:
+            return None, None
         ifog, c_prev, c_new = ctx.saved_tensors
-        i, f, o, gg = _gates(ifog, c_prev.shape[-1])
-        tanh_c = torch.tanh(c_new)
-        do = dh * tanh_c
-        dc = dc_new + dh * o * (1.0 - tanh_c * tanh_c)
-        di = dc * gg
-        df = dc * c_prev
-        dgg = dc * i
-        dc_prev = dc * f
-        d_ifog = torch.cat([di * i * (1.0 - i),
-                            df * f * (1.0 - f),
-                            do * o * (1.0 - o),
-                            dgg * (1.0 - gg * gg)], dim=-1)
-        return d_ifog.to(ifog.dtype), dc_prev.to(c_prev.dtype)
+        if ctx.kernels:
+            return lstm_gates_bwd(ifog, c_prev, c_new,
+                                  _rows_contiguous(dc_new),
+                                  _rows_contiguous(dh))
+        return lstm_gates_bwd_reference(ifog, c_prev, c_new, dc_new, dh)
 
 
 def lstm_gates(ifog: torch.Tensor, c_prev: torch.Tensor):
