@@ -95,15 +95,33 @@ Phases, each fatal on failure:
    (K3f, K3k and K3q each launch once a step), output on one batch (one
    K3f launch), one step's loss and grads through the kernels against
    dense attention (f32) with non-zero grads for wq, wk and wv;
-8. output: the card's name and power limit from nvidia-smi, one JSON line
+8. the CLI (deeplearning4j_tpu_torch.cli.driver), the user's entry point:
+   the trained flagship params of phase 4 saved by Checkpointer (meta from
+   lm_checkpoint_meta) and restored onto the card from the manifest alone,
+   every leaf torch.equal, and the same for a bf16 copy (save and restore
+   ms and bytes logged); ``predict --model <ckpt_dir> --max-len 2048
+   --slots 8 --max-new-tokens 16 --serve-dtype bf16`` on prompts of
+   PROMPT_LENS, in process with the launches counted from 0 (K3f exactly
+   n_layers x the admissions whose bucket resolves to it), its rows equal
+   to a direct DecodeEngine's on the same params and knobs, then once more
+   as ``python -m deeplearning4j_tpu_torch.cli.driver`` in a subprocess
+   (exit 0, the same file); ``train`` (2 epochs, batch 512), ``test`` and
+   ``predict`` of zoo.mnist_mlp's conf JSON on CSVs of synthetic_mnist
+   (4096 rows to train on, 1024 held out), each with the launches counted
+   from 0 (K1 exactly 2 x the train steps and 2 x the batches of test and
+   of predict), test's accuracy above 0.9, predict's classes equal to
+   net.predict of a net loaded from the same params.npz; the CLI's
+   tokens/s, ms per MLP step and CSV read time logged;
+9. output: the card's name and power limit from nvidia-smi, one JSON line
    listing each kernel (K3f at the serving shape; K3f, K3k, K3q at the
    training shape in f32 and bf16 with their launches over the timed f32
    training run; K1 at both MLP layer shapes in f32 and bf16 with its
    launches over the timed fit_epochs run; K2 and K2b at both bench shapes
    in f32 with their launches over the timed char-LSTM fit_epochs run and
-   the launch floor beside them), and as the last
-   line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
-   ...}}. An f32 row's bound is that of f32-accurate products: the least
+   the launch floor beside them; K3f's and K1's rows also carry
+   ``cli_launches``, their counts over phase 8's CLI runs), and as the
+   last line {"ok": true, "device": {"platform": "gpu", "kind": ...,
+   "count": ...}}. An f32 row's bound is that of f32-accurate products: the least
    of the CUDA cores' 67 TFLOP/s and three TF32 products at 495 (the
    kernels' 3xTF32 split), named in bound_by, with the CUDA cores' bound
    kept beside it.
@@ -822,6 +840,7 @@ def train(profiled: bool = False) -> dict:
     if profiled:
         out.update(device_busy(prof, wall))
     log(f"[train] {json.dumps(out)}")
+    out["params"] = params
     return out
 
 
@@ -1261,8 +1280,9 @@ def mlp_grad_parity() -> None:
                              f"{k_launches}/{d_launches}")
 
 
-def mlp() -> list:
-    """Phase 5; returns K1's entries of the kernels line."""
+def mlp() -> tuple:
+    """Phase 5; returns K1's entries of the kernels line and the
+    fit_epochs run."""
     dense_parity()
     entries = dense_measure()
     main_run = mlp_fit()
@@ -1274,7 +1294,7 @@ def mlp() -> list:
     mlp_epoch(bf16=True)
     mlp_epoch(bf16=False, profiled=True)
     mlp_grad_parity()
-    return entries
+    return entries, main_run
 
 
 # ------------------------------------------------------------- phase 6 ----
@@ -1980,6 +2000,275 @@ def attn_lm() -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 8 ----
+
+# the CLI's MLP run: synthetic_mnist CSVs (784 features, then the label)
+CLI_TRAIN_ROWS, CLI_HELD_OUT, CLI_EPOCHS = 4096, 1024, 2
+CKPT_STEP = TRAIN_STEPS + 2  # the trained params' step count
+
+
+def _cli(argv) -> tuple:
+    """``cli.driver.main(argv)`` in process, which must return 0: (stdout,
+    wall seconds)."""
+    import contextlib
+    import io
+
+    from deeplearning4j_tpu_torch.cli.driver import main as cli_main
+
+    buf = io.StringIO()
+    sync()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main([str(a) for a in argv])
+    sync()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]} exited {rc}")
+    return buf.getvalue(), wall
+
+
+def ckpt_round_trip(params, work) -> dict:
+    """The trained flagship params saved by Checkpointer (meta from
+    lm_checkpoint_meta) and restored onto the card from the manifest alone,
+    every leaf torch.equal to what was saved; the same for a bf16 copy.
+    Returns each copy's root, save and restore ms and bytes."""
+    import torch
+
+    from deeplearning4j_tpu_torch._device import tree_leaves, tree_map
+    from deeplearning4j_tpu_torch.models.transformer_lm import (
+        lm_checkpoint_meta,
+    )
+    from deeplearning4j_tpu_torch.scaleout.ckpt import (
+        Checkpointer,
+        read_manifest,
+        template_from_manifest,
+    )
+    from deeplearning4j_tpu_torch.telemetry.registry import MetricsRegistry
+
+    out = {}
+    for name, tree in (("f32", params),
+                       ("bf16", tree_map(lambda _, x: x.to(torch.bfloat16),
+                                         params))):
+        root = f"{work}/lm_ckpt_{name}"
+        ck = Checkpointer(root, registry=MetricsRegistry())
+        sync()
+        t0 = time.perf_counter()
+        step_dir = ck.save(CKPT_STEP, {"params": tree},
+                           meta=lm_checkpoint_meta(tree, N_HEADS))
+        save_ms = (time.perf_counter() - t0) * 1e3
+        manifest = read_manifest(step_dir)
+        template = template_from_manifest(manifest)
+        t0 = time.perf_counter()
+        state, step, meta = ck.restore(template, device=DEVICE)
+        sync()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        got, want = tree_leaves(state["params"]), tree_leaves(tree)
+        if not (step == CKPT_STEP and meta["lm"]["n_heads"] == N_HEADS
+                and len(got) == len(want) == len(manifest.leaves)
+                and all(g.device.type == DEVICE and torch.equal(g, w)
+                        for g, w in zip(got, want))):
+            raise AssertionError(f"checkpoint round trip ({name}) is not "
+                                 "leaf for leaf equal on the card")
+        out[name] = {"root": root, "save_ms": save_ms,
+                     "restore_ms": restore_ms,
+                     "bytes": manifest.total_bytes,
+                     "leaves": len(manifest.leaves)}
+    log(f"[ckpt] {json.dumps(out)}")
+    return out
+
+
+def cli_predict_lm(params, root, work, direct_tokens_per_s) -> dict:
+    """``predict --model <ckpt_dir>`` at the flagship's serving knobs
+    (max-len 2048, 8 slots, 16 new tokens, bf16), in process with the
+    launches counted from 0: K3f launches n_layers x the admissions whose
+    bucket resolves to it, and the rows equal a direct DecodeEngine's on
+    the same params and knobs, whose one run on a fresh engine is timed
+    (phase 3's engine is timed after a warm-up). The command runs twice (each run builds its
+    engine anew, as a user's does); ``DecodeEngine.from_checkpoint`` alone
+    is timed beside it. Then the same command once as ``python -m
+    deeplearning4j_tpu_torch.cli.driver``: exit 0, the same file."""
+    from pathlib import Path
+
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.serve.engine import DecodeEngine
+    from deeplearning4j_tpu_torch.telemetry.registry import default_registry
+
+    rng = np.random.RandomState(21)
+    prompts = [_prompt(rng, n) for n in PROMPT_LENS]
+    prompts_path = f"{work}/prompts.txt"
+    with open(prompts_path, "w") as f:
+        f.write("\n".join(" ".join(map(str, p)) for p in prompts) + "\n")
+    argv = ["predict", "--model", root, "--input", prompts_path,
+            "--max-len", MAX_LEN, "--slots", N_SLOTS, "--max-new-tokens",
+            MAX_NEW, "--serve-dtype", "bf16", "--device", DEVICE]
+    direct = DecodeEngine(params, N_HEADS, n_slots=N_SLOTS, max_len=MAX_LEN,
+                          serve_dtype="bf16", seed=0, device=DEVICE)
+    sync()
+    t0 = time.perf_counter()
+    reqs = [direct.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
+    direct.run_until_idle()
+    sync()
+    fresh_s = time.perf_counter() - t0
+    want = N_LAYERS * _kernel_admissions(direct, reqs)
+    reg = default_registry()
+    walls, engine_ms = [], []
+    for _ in range(2):
+        prefill0 = reg.histogram("serve_prefill_ms").sum
+        decode0 = reg.histogram("serve_decode_step_ms").sum
+        _kernels.reset_launches()
+        _, wall = _cli(argv + ["--output", f"{work}/gen.txt"])
+        launches = dict(_kernels.LAUNCHES)
+        walls.append(wall)
+        engine_ms.append(reg.histogram("serve_prefill_ms").sum - prefill0
+                         + reg.histogram("serve_decode_step_ms").sum
+                         - decode0)
+        with open(f"{work}/gen.txt") as f:
+            rows = [[int(t) for t in line.split()] for line in f]
+        if launches["flash_attention_fwd"] != want or want == 0:
+            raise AssertionError(
+                f"cli predict: flash_attention_fwd launched "
+                f"{launches['flash_attention_fwd']} times, expected "
+                f"n_layers x flash admissions = {want}")
+        if rows != [r.generated for r in reqs] or \
+                any(len(r) != MAX_NEW for r in rows):
+            raise AssertionError("cli predict rows differ from a direct "
+                                 "DecodeEngine's on the same params")
+    sync()
+    t0 = time.perf_counter()
+    DecodeEngine.from_checkpoint(root, n_slots=N_SLOTS, max_len=MAX_LEN,
+                                 serve_dtype="bf16", device=DEVICE)
+    sync()
+    load_s = time.perf_counter() - t0
+
+    repo = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.cli.driver",
+         *map(str, argv), "--output", f"{work}/gen_sub.txt"],
+        cwd=str(repo), capture_output=True, text=True, timeout=300)
+    sub_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m deeplearning4j_tpu_torch.cli.driver"
+                             f" predict exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    with open(f"{work}/gen_sub.txt") as f, open(f"{work}/gen.txt") as g:
+        if f.read() != g.read():
+            raise AssertionError("the subprocess CLI's rows differ from the "
+                                 "in-process run's")
+    tokens = sum(len(r) for r in rows)
+    out = {"requests": len(rows), "tokens": tokens, "wall_s": walls,
+           "tokens_per_s": [tokens / w for w in walls],
+           "from_checkpoint_s": load_s, "engine_ms": engine_ms,
+           "tokens_per_s_engine": [tokens * 1e3 / ms for ms in engine_ms],
+           "direct_engine_tokens_per_s": direct_tokens_per_s,
+           "fresh_direct_engine_tokens_per_s":
+               sum(len(r.generated) for r in reqs) / fresh_s,
+           "flash_launches": launches["flash_attention_fwd"],
+           "flash_admissions": want // N_LAYERS,
+           "subprocess_wall_s": sub_wall}
+    log(f"[cli] predict (LM checkpoint) {json.dumps(out)}")
+    return out
+
+
+def _write_csv(path, n, seed) -> tuple:
+    x, y = _mnist(n, seed)
+    labels = y.argmax(-1)
+    np.savetxt(path, np.concatenate([x, labels[:, None]], axis=1),
+               fmt="%.4f", delimiter=",")
+    return np.round(x, 4).astype(np.float32), labels
+
+
+def cli_mlp(work, fit_ms_per_step) -> dict:
+    """``train``/``test``/``predict`` of the MNIST MLP (zoo.mnist_mlp's
+    conf JSON) on synthetic_mnist CSVs at batch 512, each with the launches
+    counted from 0: K1 launches exactly 2 x the train steps and 2 x the
+    batches of test and of predict; test's accuracy above 0.9; predict's
+    classes equal net.predict of a net loaded from the same params.npz."""
+    from deeplearning4j_tpu_torch.datasets.records import (
+        CSVRecordReader,
+        RecordReaderDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.models.zoo import mnist_mlp
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import _kernels
+
+    t0 = time.perf_counter()
+    _write_csv(f"{work}/train.csv", CLI_TRAIN_ROWS, seed=31)
+    hx, hy = _write_csv(f"{work}/held.csv", CLI_HELD_OUT, seed=32)
+    write_s = time.perf_counter() - t0
+    conf = mnist_mlp(MLP_H1, MLP_H2)
+    with open(f"{work}/mlp.json", "w") as f:
+        f.write(conf.to_json())
+    t0 = time.perf_counter()
+    it = RecordReaderDataSetIterator(CSVRecordReader(f"{work}/train.csv"),
+                                     MLP_BATCH, num_possible_labels=10)
+    read_rows = sum(ds.num_examples() for ds in it)
+    read_s = time.perf_counter() - t0
+    assert read_rows == CLI_TRAIN_ROWS
+
+    common = ["--conf", f"{work}/mlp.json", "--model", f"{work}/params.npz",
+              "--batch", MLP_BATCH, "--labels", 10, "--device", DEVICE]
+    steps = CLI_EPOCHS * -(-CLI_TRAIN_ROWS // MLP_BATCH)
+    held_batches = -(-CLI_HELD_OUT // MLP_BATCH)
+    launches = {}
+    _kernels.reset_launches()
+    _, train_s = _cli(["train", "--input", f"{work}/train.csv",
+                          "--epochs", CLI_EPOCHS, *common])
+    launches["train"] = _kernels.LAUNCHES["fused_dense"]
+    _kernels.reset_launches()
+    text, test_s = _cli(["test", "--input", f"{work}/held.csv", *common])
+    launches["test"] = _kernels.LAUNCHES["fused_dense"]
+    _kernels.reset_launches()
+    _, predict_s = _cli(["predict", "--input", f"{work}/held.csv",
+                            "--output", f"{work}/preds.txt", *common])
+    launches["predict"] = _kernels.LAUNCHES["fused_dense"]
+    want = {"train": 2 * steps, "test": 2 * held_batches,
+            "predict": 2 * held_batches}
+    if launches != want:
+        raise AssertionError(f"cli MLP: fused_dense launches {launches}, "
+                             f"expected {want}")
+    accuracy = float(re.search(r"Accuracy:\s+([0-9.]+)", text).group(1))
+    with open(f"{work}/preds.txt") as f:
+        preds = np.array([int(t) for t in f.read().split()])
+    net = MultiLayerNetwork(conf, device=DEVICE).init()
+    net.set_params(np.load(f"{work}/params.npz")["params"])
+    direct = np.concatenate([net.predict(hx[i:i + MLP_BATCH])
+                             for i in range(0, CLI_HELD_OUT, MLP_BATCH)])
+    if not (accuracy > 0.9 and preds.shape == (CLI_HELD_OUT,)
+            and np.array_equal(preds, direct)):
+        raise AssertionError(f"cli MLP: test accuracy {accuracy}, predict "
+                             f"equal to net.predict: "
+                             f"{np.array_equal(preds, direct)}")
+    out = {"train_rows": CLI_TRAIN_ROWS, "held_out": CLI_HELD_OUT,
+           "epochs": CLI_EPOCHS, "steps": steps, "batch": MLP_BATCH,
+           "csv_write_s": write_s, "csv_read_s": read_s,
+           "train_wall_s": train_s, "ms_per_step": train_s * 1e3 / steps,
+           "fit_epochs_ms_per_step": fit_ms_per_step,
+           "test_wall_s": test_s, "predict_wall_s": predict_s,
+           "test_accuracy": accuracy,
+           "held_out_accuracy_of_predict": float((preds == hy).mean()),
+           "launches": launches}
+    log(f"[cli] MLP train/test/predict {json.dumps(out)}")
+    return out
+
+
+def cli(params, direct_tokens_per_s, fit_ms_per_step) -> dict:
+    """Phase 8: the CLI, the port's user entry point, over the paths of
+    phases 3 and 5."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="dl4j_torch_cli_")
+    try:
+        ckpt = ckpt_round_trip(params, work)
+        lm = cli_predict_lm(params, ckpt["f32"]["root"], work,
+                            direct_tokens_per_s)
+        mlp_run = cli_mlp(work, fit_ms_per_step)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"ckpt": ckpt, "lm": lm, "mlp": mlp_run}
+
+
 # ---------------------------------------------------------------- main ----
 
 def main() -> int:
@@ -2017,6 +2306,7 @@ def main() -> int:
     del params
 
     train_main = train()
+    trained = train_main.pop("params")
     for entry in train_entries:
         entry["launches"] = train_main["launches"][entry["name"]]
         entry["launches_cover"] = ("the timed f32 training run (the "
@@ -2026,9 +2316,15 @@ def main() -> int:
     train(profiled=True)
     wide_head_step()
 
-    mlp_entries = mlp()
+    mlp_entries, mlp_main = mlp()
     lstm_entries = lstm()
     attn_lm()
+
+    cli_run = cli(trained, main_run["tokens_per_s"],
+                  mlp_main["ms_per_step"])
+    serve_entry["cli_launches"] = {"predict": cli_run["lm"]["flash_launches"]}
+    for entry in mlp_entries:
+        entry["cli_launches"] = cli_run["mlp"]["launches"]
 
     print(smi)
     print(json.dumps({"kernels": [serve_entry, *train_entries,

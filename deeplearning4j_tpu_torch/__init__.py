@@ -17,5 +17,9 @@ Slice 3 is MultiLayerNetwork training and inference of the MNIST MLP:
 ``nn.multilayer.MultiLayerNetwork`` over ``nn.functional`` (confs, params,
 dense and output layers, the updater), its dense layers' forward on the
 hand-written fused-dense kernel in ``csrc/fused_dense.cu``
-(``ops.pallas_kernels.fused_dense``).
+(``ops.pallas_kernels.fused_dense``). The CLI (``cli.driver``) drives
+them as users do: ``predict`` serves the LM from a checkpoint of the JAX
+package's format (``scaleout.ckpt``), and ``train``/``test``/``predict``
+run a MultiLayerNetwork on CSV or svmLight records (``datasets.records``)
+with ``eval.Evaluation``.
 """

@@ -1,0 +1,6 @@
+"""Counterpart of ``deeplearning4j_tpu/scaleout``: so far the checkpoint
+format (``scaleout.ckpt``) and the blob store (``scaleout.blobstore``). The
+distributed runners, the state tracker and the job contracts come with
+ROADMAP slice 7."""
+
+from deeplearning4j_tpu_torch.scaleout.ckpt import Checkpointer  # noqa: F401

@@ -1,0 +1,207 @@
+"""Counterpart of ``deeplearning4j_tpu/scaleout/ckpt/checkpointer.py``:
+periodic saves, retention, resume and telemetry over one checkpoint root.
+
+``Checkpointer.save()`` writes a snapshot (manifest-committed, see
+sharded_io), records save duration, bytes and chunk count in the port's
+metrics registry under the JAX package's names (``ckpt_saves_total``,
+``ckpt_save_ms``, ...), and applies retention: keep the newest
+``keep_last`` committed steps, delete older ones, and sweep interrupted
+(manifest-less) save directories once a same-or-newer step has committed.
+``restore()`` reads a step back onto one device, CUDA unless the caller
+passes ``device="cpu"``.
+
+Not ported yet: the ``ckpt.save``/``ckpt.restore`` trace spans (the port's
+``telemetry/trace``, ROADMAP slice 9); ``restore_net``/``save_net`` and
+``CheckpointIterationListener`` (``net_state`` and the listener chain,
+ROADMAP slice 5, item 14); the multi-process ``save_process``/
+``merge_save`` and ``shardings=`` (ROADMAP slices 7 and 8).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+import time
+from typing import Callable, Dict, Optional, Tuple
+
+from deeplearning4j_tpu_torch._device import DeviceLike
+from deeplearning4j_tpu_torch.scaleout.ckpt import manifest as mf
+from deeplearning4j_tpu_torch.scaleout.ckpt.reshard import (
+    latest_step,
+    latest_step_dir,
+    restore_sharded,
+    verify_checksums,
+)
+from deeplearning4j_tpu_torch.scaleout.ckpt.sharded_io import save_sharded
+
+_NET_STATE_SLICE = ("ROADMAP slice 5, item 14 (net_state and the listener "
+                    "chain)")
+
+
+class Checkpointer:
+    """Checkpoint store with retention and telemetry.
+
+    save(step, state[, meta])          → committed step dir
+    restore(template[, step, device])  → (state, step, meta)
+    latest_step() / step_dirs()        → what a resume would load
+    """
+
+    def __init__(self, root: str, keep_last: int = 3, registry=None,
+                 prefix: str = "ckpt", verify_on_restore: bool = False):
+        from deeplearning4j_tpu_torch.telemetry.registry import (
+            default_registry,
+        )
+
+        self.root = str(root)
+        self.keep_last = max(1, int(keep_last))
+        self.registry = registry if registry is not None else \
+            default_registry()
+        self.prefix = prefix
+        self.verify_on_restore = verify_on_restore
+        # retention-race pin: the step a reader most recently resolved
+        # (latest_step()/restore()) is never GC'd, even if newer saves push
+        # it past keep_last mid-restore
+        self._pin_lock = threading.Lock()
+        self._last_resolved_step: Optional[int] = None
+
+    # ------------------------------------------------------- last_good ----
+    def _last_good_path(self) -> str:
+        return os.path.join(self.root, "LAST_GOOD.json")
+
+    def mark_last_good(self, step: int) -> None:
+        """Tag ``step`` as the rollback target. The tag is a marker file
+        next to the step dirs (atomic tmp+replace), so it survives the
+        process and is visible to every reader of the root; ``gc()`` never
+        collects the tagged step."""
+        os.makedirs(self.root, exist_ok=True)
+        tmp = f"{self._last_good_path()}.tmp.{os.getpid()}"
+        with open(tmp, "w") as fh:
+            json.dump({"step": int(step), "ts": time.time()}, fh)
+        os.replace(tmp, self._last_good_path())
+        self.registry.gauge(f"{self.prefix}_last_good_step").set(float(step))
+
+    def last_good_step(self) -> Optional[int]:
+        """The tagged rollback target, or None when none was ever tagged."""
+        try:
+            with open(self._last_good_path()) as fh:
+                return int(json.load(fh)["step"])
+        except (OSError, ValueError, KeyError, TypeError):
+            return None
+
+    # ------------------------------------------------------------- save ----
+    def save(self, step: int, state, meta: Optional[Dict] = None,
+             mesh=None) -> str:
+        reg, p = self.registry, self.prefix
+        t0 = time.perf_counter()
+        # save_sharded copies every leaf to the host (a synchronizing
+        # .cpu()), so nothing is left enqueued when the clock stops
+        step_dir = save_sharded(self.root, step, state, meta=meta, mesh=mesh)
+        save_ms = (time.perf_counter() - t0) * 1000.0
+        manifest = mf.read_manifest(step_dir)
+        n_chunks = sum(len(e.chunks) for e in manifest.leaves)
+        reg.counter(f"{p}_saves_total").inc()
+        reg.counter(f"{p}_bytes_total").inc(float(manifest.total_bytes))
+        reg.histogram(f"{p}_save_ms").observe(save_ms)
+        reg.gauge(f"{p}_last_step").set(float(step))
+        reg.gauge(f"{p}_last_bytes").set(float(manifest.total_bytes))
+        reg.gauge(f"{p}_last_shards").set(float(n_chunks))
+        self.gc()
+        return step_dir
+
+    def maybe_save(self, step: int, state_fn: Callable[[], object],
+                   save_every: int, meta: Optional[Dict] = None,
+                   mesh=None) -> Optional[str]:
+        """Save iff ``step`` lands on the cadence (and is > 0)."""
+        if save_every <= 0 or step <= 0 or step % save_every:
+            return None
+        return self.save(step, state_fn(), meta=meta, mesh=mesh)
+
+    # ---------------------------------------------------------- restore ----
+    def latest_step(self) -> Optional[int]:
+        step = latest_step(self.root)
+        if step is not None:
+            self._pin(step)
+        return step
+
+    def _pin(self, step: int) -> None:
+        with self._pin_lock:
+            self._last_resolved_step = int(step)
+
+    def step_dirs(self):
+        return mf.committed_steps(self.root)
+
+    def _dir_for(self, step: Optional[int]) -> str:
+        if step is None:
+            step_dir = latest_step_dir(self.root)
+            if step_dir is None:
+                raise FileNotFoundError(
+                    f"no committed checkpoint under {self.root}")
+            resolved = mf.parse_step(step_dir)
+            if resolved is not None:
+                self._pin(resolved)
+            return step_dir
+        step_dir = os.path.join(self.root, mf.step_dir_name(step))
+        if not mf.has_manifest(step_dir):
+            raise FileNotFoundError(
+                f"step {step} has no committed checkpoint under {self.root}")
+        self._pin(int(step))
+        return step_dir
+
+    def restore(self, template, shardings=None, step: Optional[int] = None,
+                device: DeviceLike = None) -> Tuple[object, int, Dict]:
+        """Load the latest (or a specific) committed step into the template
+        structure, as tensors on ``device`` (CUDA unless ``device="cpu"``).
+        Returns ``(state, step, meta)``."""
+        reg, p = self.registry, self.prefix
+        step_dir = self._dir_for(step)
+        if self.verify_on_restore:
+            problems = verify_checksums(step_dir)
+            if problems:
+                raise ValueError(
+                    f"checkpoint {step_dir} failed checksum "
+                    "verification: " + "; ".join(problems))
+        t0 = time.perf_counter()
+        state, manifest = restore_sharded(step_dir, template, shardings,
+                                          device=device)
+        restore_ms = (time.perf_counter() - t0) * 1000.0
+        reg.histogram(f"{p}_restore_ms").observe(restore_ms)
+        reg.counter(f"{p}_restores_total").inc()
+        return state, manifest.step, dict(manifest.meta or {})
+
+    def restore_net(self, step: Optional[int] = None):
+        """Rebuild a MultiLayerNetwork from a net-state checkpoint (not
+        ported yet)."""
+        raise NotImplementedError(f"restore_net comes with {_NET_STATE_SLICE}")
+
+    def save_net(self, net, iteration: Optional[int] = None) -> str:
+        """Save a MultiLayerNetwork's full training state (not ported
+        yet)."""
+        raise NotImplementedError(f"save_net comes with {_NET_STATE_SLICE}")
+
+    # --------------------------------------------------------- retention ----
+    def gc(self) -> None:
+        """Retention sweep: keep the newest ``keep_last`` committed steps;
+        delete older committed ones, and delete interrupted (manifest-less)
+        directories that a same-or-newer committed step has superseded.
+
+        Never deletes the step a reader most recently resolved via
+        ``latest_step()``/``restore()``, nor the step tagged ``last_good``
+        (the rollback target)."""
+        committed = mf.committed_steps(self.root)
+        if not committed:
+            return
+        newest = committed[-1][0]
+        with self._pin_lock:
+            pinned = self._last_resolved_step
+        last_good = self.last_good_step()
+        for step, step_dir in committed[:-self.keep_last]:
+            if pinned is not None and step == pinned:
+                continue
+            if last_good is not None and step == last_good:
+                continue
+            shutil.rmtree(step_dir, ignore_errors=True)
+        for step, step_dir in mf.uncommitted_dirs(self.root):
+            if step is not None and step <= newest:
+                shutil.rmtree(step_dir, ignore_errors=True)

@@ -22,9 +22,10 @@ iteration.
 
 The engine runs on CUDA unless built with ``device="cpu"``, and raises when
 CUDA is absent. Metrics land in the port's registry under ``serve_*``.
-The prefix cache, chunked prefill, speculative decoding, request tracing,
-the runtime profiler, ``tuned=``, ``from_checkpoint`` and
-``from_live_params`` come with later slices.
+``from_checkpoint`` builds an engine from an LM checkpoint of either
+package (scaleout/ckpt), ``from_live_params`` from a params tree already in
+memory. The prefix cache, chunked prefill, speculative decoding, request
+tracing, the runtime profiler and ``tuned=`` come with later slices.
 """
 
 from __future__ import annotations
@@ -159,6 +160,71 @@ class DecodeEngine:
         self.decode_steps = 0
         self._occupancy_sum = 0
         self._t_first_activity: Optional[float] = None
+
+    # ------------------------------------------------------------ loading ----
+    @classmethod
+    def from_checkpoint(cls, root: str, *, n_heads: Optional[int] = None,
+                        step: Optional[int] = None, **kwargs):
+        """Build an engine from an LM checkpoint under ``root`` (the latest
+        committed step, or ``step``): the manifest supplies the template,
+        ``meta["lm"]`` (``lm_checkpoint_meta``) or the ``n_heads`` argument
+        the head count the shapes erase. The params are restored straight
+        onto the engine's device (``device=`` in ``kwargs``, CUDA unless
+        "cpu")."""
+        import os
+
+        from deeplearning4j_tpu_torch.scaleout.ckpt import manifest as mf
+        from deeplearning4j_tpu_torch.scaleout.ckpt.checkpointer import (
+            Checkpointer,
+        )
+        from deeplearning4j_tpu_torch.scaleout.ckpt.reshard import (
+            latest_step_dir,
+            template_from_manifest,
+        )
+
+        if step is None:
+            step_dir = latest_step_dir(root)
+            if step_dir is None:
+                raise FileNotFoundError(
+                    f"no committed checkpoint under {root}")
+        else:
+            step_dir = os.path.join(root, mf.step_dir_name(step))
+        manifest = mf.read_manifest(step_dir)
+        template = template_from_manifest(manifest)
+        state, _step, meta = Checkpointer(root).restore(
+            template, step=manifest.step, device=kwargs.get("device"))
+        # training saves wrap the tree as {"params": ...}; unwrap either way
+        params = state.get("params", state) if isinstance(state, dict) \
+            else state
+        if not (isinstance(params, dict) and "embed" in params
+                and "blocks" in params):
+            raise ValueError(
+                f"checkpoint under {root} is not a flagship-LM params tree "
+                "(no embed/blocks leaves) — the decode engine serves "
+                "models/transformer_lm checkpoints only")
+        lm_meta = (meta or {}).get("lm") or {}
+        n_heads = n_heads if n_heads is not None else lm_meta.get("n_heads")
+        if n_heads is None:
+            raise ValueError(
+                "n_heads is not recoverable from param shapes — save with "
+                "meta=lm_checkpoint_meta(params, n_heads) or pass n_heads=")
+        kwargs.setdefault("top_k", int(lm_meta.get("top_k", 2)))
+        kwargs.setdefault("weight_version", f"ckpt-step-{manifest.step}")
+        return cls(params, int(n_heads), **kwargs)
+
+    @classmethod
+    def from_live_params(cls, params, n_heads: int, *,
+                         device: DeviceLike = None, **kwargs):
+        """Cold start from a params tree already in memory, e.g. a live
+        trainer's: every leaf is copied device to device onto the serving
+        device (CUDA unless ``device="cpu"``), never through the host. The
+        engine is token-identical to one built from the same params
+        directly. Redistribution from a tree sharded over several cards
+        comes with ROADMAP slices 7 and 8."""
+        dev = resolve_device(device)
+        kwargs.setdefault("weight_version", "live-params")
+        return cls(tree_map(lambda _, x: x.to(dev), params), int(n_heads),
+                   device=dev, **kwargs)
 
     # ---------------------------------------------------------- admission ----
     def _make_buckets(self, min_bucket: int) -> List[int]:
