@@ -37,6 +37,37 @@ Phases, each fatal on failure:
    torch.profiler for the device busy share and the kernels that take it.
    Prefill logits of one long prompt through the kernel and through dense
    attention must agree within 1e-3 at f32;
+3b. the serving fast path on the same flagship (n_slots=8, max_len=2048):
+   24 greedy requests of 16 new tokens, each one of 2 shared 1024-token
+   system prefixes (64 pages of 16) and its own 16-900-token suffix, driven
+   by serve.run_open_loop at half the request rate the plain engine
+   sustains in one burst, through four engines: plain, prefix_cache=True,
+   speculative=SpeculativeConfig(k=4, draft_layers=1), and all three with
+   prefill_chunk=256. At f32 (serve_dtype=None, traced into a temporary
+   directory): every request finishes its 16 tokens; every fast-path
+   stream equals the plain engine's or leaves it only where the plain
+   run's top-2 logits tie within 1e-3 of the largest |logit| (position and
+   gap printed); a prompt whose pages cover it is admitted twice and the
+   second admission adds nothing to serve_prefill_dispatches_total; the
+   prefix cache's invariants hold; the trace holds one serve.request tree
+   per request with its four children and each prefill span's mode equal
+   to the request's record; the forward kernel launches exactly
+   n_layers x the classic prefills plus draft_layers x the draft
+   admissions whose bucket resolves to it, never zero times, and that
+   count and the admission modes are what the traffic fixes (plain
+   n_layers x requests; prefix cache n_layers x the 2 prefixes' cold
+   misses; speculative plain's plus draft_layers x requests; composed
+   draft_layers x requests). At bf16 each engine, warmed by a burst of
+   other prompts, runs 192 requests of the same mix on the same kind of
+   schedule with the same checks but for the streams (their matching
+   share is logged): tokens/s,
+   first-token, latency and inter-token p50/p99, the prefix hit rate and
+   pages held, the accept rate and each verify step's ms against its draft
+   steps' ms (k+1 draft decodes with k reads to the host), and the
+   composed engine once more on new prompts under torch.profiler for the
+   device busy share; then a classic prefill and chunk steps of widths
+   64, 512 and 1024 alone, at f32 and bf16: host ms to the fenced token
+   and, profiled, device ms and kernel launches;
 4. training at the same width: make_single_device_train_step(4,
    donate=True) with the auto core takes 2 warm-up and 10 timed SGD steps
    on one (B=4, T=2048) batch; every loss is finite, the last below the
@@ -119,7 +150,9 @@ Phases, each fatal on failure:
    launches over the timed fit_epochs run; K2 and K2b at both bench shapes
    in f32 with their launches over the timed char-LSTM fit_epochs run and
    the launch floor beside them; K3f's and K1's rows also carry
-   ``cli_launches``, their counts over phase 8's CLI runs), and as the
+   ``cli_launches``, their counts over phase 8's CLI runs, and K3f's
+   ``fastpath_launches``, its count over each bf16 engine's run of phase
+   3b), and as the
    last line {"ok": true, "device": {"platform": "gpu", "kind": ...,
    "count": ...}}. An f32 row's bound is that of f32-accurate products: the least
    of the CUDA cores' 67 TFLOP/s and three TF32 products at 495 (the
@@ -754,6 +787,476 @@ def prefill_parity(params) -> None:
         f"agreement {agree:.4f}")
     if not (err <= 1e-3 and torch.isfinite(flash).all().item()):
         raise AssertionError(f"prefill logits flash vs dense differ by {err}")
+
+
+# ------------------------------------------------------------ phase 3b ----
+
+# the serving fast path at the flagship's width: 24 greedy requests, each
+# one of 2 shared 1024-token system prefixes (64 pages of 16) and its own
+# suffix of 16-900 tokens; request 0's suffix is 256 tokens, so its pages
+# cover the whole prompt and its second admission is a full prefix hit
+FP_REQUESTS, FP_PREFIX, FP_SUFFIX, FP_FULL_HIT_SUFFIX = 24, 1024, (16, 900), 256
+# the bf16 timed runs take this many requests of the same mix, so each
+# percentile rests on a few hundred latencies and thousands of gaps
+FP_TIMED_REQUESTS = 192
+FP_CHUNK, FP_SPEC_K, FP_DRAFT_LAYERS = 256, 4, 1
+FP_ENGINES = ("plain", "prefix_cache", "speculative", "composed")
+# offered load: this share of the rate the plain engine sustains
+FP_LOAD = 0.5
+# an f32 stream may leave the plain engine's only where the plain run's
+# top-2 logits tie within this share of the largest |logit| there
+FP_TIE = 1e-3
+FP_SEED = 7         # the open-loop arrival schedule's
+# what each run logs of its LoadReport
+FP_REPORT = ("duration_s", "tokens_per_sec", "offered_rps",
+             "first_token_p50_ms", "first_token_p99_ms", "latency_p50_ms",
+             "latency_p99_ms", "inter_token_p50_ms", "inter_token_p99_ms")
+
+
+def _fp_knobs(name: str) -> dict:
+    from deeplearning4j_tpu_torch.serve import SpeculativeConfig
+
+    spec = SpeculativeConfig(k=FP_SPEC_K, draft_layers=FP_DRAFT_LAYERS)
+    return {"plain": {},
+            "prefix_cache": {"prefix_cache": True},
+            "speculative": {"speculative": spec},
+            "composed": {"prefix_cache": True, "speculative": spec,
+                         "prefill_chunk": FP_CHUNK}}[name]
+
+
+def _fp_prompts(seed: int, n: int) -> list:
+    rng = np.random.RandomState(seed)
+    prefixes = [_prompt(rng, FP_PREFIX) for _ in range(2)]
+    lens = rng.randint(FP_SUFFIX[0], FP_SUFFIX[1] + 1, n)
+    lens[0] = FP_FULL_HIT_SUFFIX
+    return [prefixes[i % 2] + _prompt(rng, int(n))
+            for i, n in enumerate(lens)]
+
+
+def _fp_engine(params, name: str, serve_dtype):
+    from deeplearning4j_tpu_torch.serve.engine import DecodeEngine
+    from deeplearning4j_tpu_torch.telemetry.registry import MetricsRegistry
+
+    return DecodeEngine(params, N_HEADS, n_slots=N_SLOTS, max_len=MAX_LEN,
+                        serve_dtype=serve_dtype, registry=MetricsRegistry(),
+                        seed=5, device=DEVICE, **_fp_knobs(name))
+
+
+def _fp_k3f_expected(engine, reqs) -> int:
+    """K3f's launches for these requests: n_layers for each classic
+    prefill (``bucket`` set) and draft_layers for each draft admission
+    (every admission of a speculative engine, at the prompt's bucket),
+    where the bucket resolves to the kernel."""
+    from deeplearning4j_tpu_torch.models.transformer_lm import lm_n_layers
+    from deeplearning4j_tpu_torch.ops.flash_attention import (
+        resolve_attention_impl,
+    )
+
+    def kernel(bucket):
+        return (engine.attn_impl or resolve_attention_impl(bucket)) in (
+            "flash", "blockwise")
+
+    want = N_LAYERS * sum(r.bucket is not None and kernel(r.bucket)
+                          for r in reqs)
+    if engine.spec is not None:
+        want += lm_n_layers(engine._draft_params) * sum(
+            kernel(engine.bucket_for(len(r.prompt))) for r in reqs)
+    return want
+
+
+def _fp_traffic(engine, name: str, prompts) -> tuple:
+    """What the traffic fixes for engine ``name``, apart from the engine's
+    own record: K3f's launch count and each admission mode's count (a
+    range for the composed engine: a prompt that arrives while its
+    prefix's first request is still chunking misses the cache). ``cold``
+    is the number of distinct system prefixes; every prompt's bucket
+    must resolve to the kernel, so a plain admission launches it once a
+    layer and a draft admission once a draft layer."""
+    from deeplearning4j_tpu_torch.ops.flash_attention import (
+        resolve_attention_impl,
+    )
+
+    off = [len(p) for p in prompts
+           if resolve_attention_impl(engine.bucket_for(len(p)))
+           not in ("flash", "blockwise")]
+    if off:
+        raise AssertionError(f"fast path: prompts of {off} tokens do not "
+                             f"admit at a kernel bucket")
+    n, cold = len(prompts), len({tuple(p[:FP_PREFIX]) for p in prompts})
+    dl = FP_DRAFT_LAYERS
+    return {"plain": (N_LAYERS * n, {"full": (n, n)}),
+            "prefix_cache": (N_LAYERS * cold, {"full": (cold, cold),
+                                               "suffix": (n - cold,
+                                                          n - cold)}),
+            "speculative": ((N_LAYERS + dl) * n, {"full": (n, n)}),
+            "composed": (dl * n, {"chunked": (cold, n),
+                                  "suffix": (0, n - cold)})}[name]
+
+
+def _fp_drive(engine, name, prompts, rate, profiled=False) -> dict:
+    """``run_open_loop`` over ``prompts`` at ``rate``, the launches counted
+    from 0 over exactly that run; every request must finish MAX_NEW
+    tokens, K3f's count must be exact, non-zero and what the traffic
+    fixes, and the admission modes must be those the traffic allows."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.serve import run_open_loop
+
+    reqs, spec_ms = [], []
+    submit, spec_step = engine.submit, engine._spec_step
+
+    def recording_submit(*args, **kwargs):
+        reqs.append(submit(*args, **kwargs))
+        return reqs[-1]
+
+    def timed_spec_step(*args):
+        spec_ms.append(spec_step(*args))
+        return spec_ms[-1]
+
+    engine.submit, engine._spec_step = recording_submit, timed_spec_step
+    verify = engine.registry.histogram("serve_verify_step_ms")
+    decode = engine.registry.histogram("serve_decode_step_ms")
+    v0, vn0, d0, dn0 = verify.sum, verify.count, decode.sum, decode.count
+    prefix0 = engine._prefix.stats() if engine._prefix is not None else None
+    spec0 = (engine.spec_accepted_total, engine._spec_proposed_total)
+    ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+           if profiled else contextlib.nullcontext())
+    sync()
+    _kernels.reset_launches()
+    try:
+        with ctx as prof:
+            report = run_open_loop(engine, prompts, rate,
+                                   max_new_tokens=MAX_NEW, seed=FP_SEED)
+            sync()
+    finally:
+        engine.submit, engine._spec_step = submit, spec_step
+    launches = _kernels.LAUNCHES["flash_attention_fwd"]
+    for r in reqs:
+        if not (r.done.is_set() and r.finish_reason == "max_new_tokens"
+                and len(r.generated) == MAX_NEW):
+            raise AssertionError(
+                f"fast path: request {r.rid} (prompt {len(r.prompt)}) ended "
+                f"{r.finish_reason!r} with {len(r.generated)} tokens")
+    want = _fp_k3f_expected(engine, reqs)
+    fixed, mode_range = _fp_traffic(engine, name, prompts)
+    if launches != want or want != fixed or want == 0:
+        raise AssertionError(f"fast path {name}: flash_attention_fwd "
+                             f"launched {launches} times; the requests' "
+                             f"records expect {want}, the traffic {fixed}")
+    if engine._prefix is not None:
+        engine._prefix.check_invariants()
+    verify_n = verify.count - vn0
+    rep = report.to_dict()
+    by_mode = {}
+    for r in reqs:
+        by_mode.setdefault(_fp_mode(r), []).append(r)
+    modes = {m: len(rs) for m, rs in by_mode.items()}
+    if sum(modes.values()) != len(prompts) or any(
+            not lo <= modes.get(m, 0) <= hi
+            for m, (lo, hi) in mode_range.items()) or set(modes) - set(
+            mode_range):
+        raise AssertionError(f"fast path {name}: admission modes {modes}, "
+                             f"the traffic allows {mode_range}")
+    out = {**{k: rep[k] for k in FP_REPORT}, "k3f_launches": launches,
+           "modes": modes,
+           # host-clock means per admission mode: the page lookup and seed
+           # (cached) and the prefill compute (suffix), fenced by its token
+           "prefill_ms_by_mode": {
+               m: {"cached": statistics.mean(r.prefill_cached_ms
+                                             for r in rs),
+                   "compute": statistics.mean(r.prefill_suffix_ms
+                                              for r in rs)}
+               for m, rs in by_mode.items()},
+           "decode_steps": decode.count - dn0,
+           "decode_step_ms": ((decode.sum - d0) / (decode.count - dn0)
+                              if decode.count > dn0 else None)}
+    if prefix0 is not None:
+        now = engine._prefix.stats()
+        lookups = now["lookups"] - prefix0["lookups"]
+        out["prefix_hit_rate"] = (now["hits"] - prefix0["hits"]) / lookups
+        out["prefix_pages"] = now["pages"]
+        out["prefix_evictions"] = now["evictions"] - prefix0["evictions"]
+    if engine.spec is not None:
+        proposed = engine._spec_proposed_total - spec0[1]
+        out["spec_accept_rate"] = ((engine.spec_accepted_total - spec0[0])
+                                   / max(1, proposed))
+    if verify_n:
+        verify_ms = (verify.sum - v0) / verify_n
+        out["verify_step_ms"] = verify_ms
+        out["draft_ms_per_verify"] = sum(spec_ms) / verify_n - verify_ms
+        out["plain_decode_ticks"] = decode.count - dn0 - verify_n
+    if profiled:
+        busy = device_busy(prof, report.duration_s)
+        out.update(busy_share=busy["busy_share"],
+                   device_busy_ms=busy["device_busy_ms"],
+                   top_kernels_ms=dict(list(busy["top_kernels_ms"].items())[:4]))
+    return {**out, "requests": reqs}
+
+
+def _fp_mode(req) -> str:
+    """How the prompt went in (the prefill span's ``mode``), read from the
+    request's own record."""
+    return ("full" if req.bucket is not None
+            else "cached_full" if req.prefill_chunks == 0
+            else "suffix" if req.cached_tokens else "chunked")
+
+
+def _fp_divergence(params, prompt, want, got) -> tuple:
+    """The first position where ``got`` leaves ``want``, and the top-2 gap
+    of the logits there over the largest |logit|, from an f32 dense
+    forward of the prompt and ``want``'s tokens before it; (None, None)
+    when the streams agree."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer_lm import lm_prefill
+
+    pos = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b),
+               None)
+    if pos is None:
+        return None, None
+    toks = torch.tensor([prompt + want[:pos]], device=DEVICE)
+    with torch.inference_mode():
+        logits = lm_prefill(params, toks, N_HEADS, attn_impl="dense")[0]
+    last = logits[0, -1].float()
+    top = torch.topk(last, 2).values
+    return pos, ((top[0] - top[1]) / last.abs().max()).item()
+
+
+def _fp_full_hit(engine, prompt):
+    """A prompt whose pages cover it, admitted twice: the second admission
+    must add nothing to ``serve_prefill_dispatches_total``. Returns the
+    second request."""
+    counter = engine.registry.counter("serve_prefill_dispatches_total")
+    engine.submit(prompt, max_new_tokens=MAX_NEW)
+    engine.run_until_idle()
+    before = counter.value
+    req = engine.submit(prompt, max_new_tokens=MAX_NEW)
+    engine.run_until_idle()
+    if not (counter.value == before and req.cached_tokens == len(prompt)
+            and req.prefill_chunks == 0 and req.bucket is None
+            and len(req.generated) == MAX_NEW):
+        raise AssertionError(
+            f"full prefix hit ran a prefill: dispatches {before} -> "
+            f"{counter.value}, cached_tokens {req.cached_tokens} of "
+            f"{len(prompt)}")
+    return req
+
+
+def _fp_check_streams(params, name, prompts, want, got) -> list:
+    """Each f32 stream of ``got`` equals ``want``'s, or leaves it where
+    the plain run's top-2 logits tie within FP_TIE of the logit scale.
+    Returns the requests that left it."""
+    diverged = []
+    for p, w, r in zip(prompts, want, got):
+        pos, gap = _fp_divergence(params, p, w, r.generated)
+        if pos is None:
+            continue
+        log(f"[fastpath] f32 {name}: request {r.rid} leaves the plain "
+            f"stream at token {pos}; the plain run's top-2 gap there is "
+            f"{gap:.3g} of its largest |logit|")
+        diverged.append(r.rid)
+        if not gap < FP_TIE:
+            raise AssertionError(
+                f"f32 {name}: request {r.rid} diverges at token {pos} "
+                f"where the top-2 gap is {gap:.3g} of the logit scale (a "
+                f"near-tie is < {FP_TIE})")
+    return diverged
+
+
+def _fp_trace_check(trace_dir, reqs) -> dict:
+    """One ``serve.request`` tree per request, with its four children, and
+    each prefill span's ``mode`` equal to the request's own record."""
+    from tools.trace_report import load_trace_dir
+
+    spans = load_trace_dir(trace_dir)
+    kids = {}
+    for sp in spans.values():
+        kids.setdefault(sp.get("parent_id"), []).append(sp)
+    trees = [sp for sp in spans.values() if sp["name"] == "serve.request"]
+    by_rid = {sp["attrs"]["rid"]: sp for sp in trees}
+    if sorted(by_rid) != sorted(r.rid for r in reqs) or \
+            len(trees) != len(reqs):
+        raise AssertionError(f"trace holds {len(trees)} serve.request "
+                             f"trees for {len(reqs)} requests")
+    modes = {}
+    for r in reqs:
+        children = {c["name"]: c for c in kids.get(by_rid[r.rid]["span_id"],
+                                                   [])}
+        if sorted(children) != ["serve.decode", "serve.prefill",
+                                "serve.queue_wait", "serve.retire"]:
+            raise AssertionError(f"request {r.rid}'s trace tree has "
+                                 f"{sorted(children)}")
+        mode = children["serve.prefill"]["attrs"]["mode"]
+        if mode != _fp_mode(r):
+            raise AssertionError(f"request {r.rid}: traced mode {mode}, "
+                                 f"recorded {_fp_mode(r)}")
+        modes[mode] = modes.get(mode, 0) + 1
+    return {"trees": len(trees), "spans": len(spans), "modes": modes}
+
+
+FP_STEP_WIDTHS = (64, 512, 1024)  # chunk widths a suffix admission takes
+
+
+def fp_step_profile(params) -> dict:
+    """A classic prefill (bucket MAX_LEN) and chunk steps of the widths a
+    suffix admission takes, each alone on its cache, at f32 and bf16:
+    host wall to the fenced token (median of 10) and, from one profiled
+    call, the device time and kernel launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.models.transformer_lm import (
+        init_kv_cache,
+        make_chunk_prefill_step,
+        make_prefill_step,
+    )
+    from deeplearning4j_tpu_torch.serve.quant import (
+        activation_dtype,
+        dequantize_tree,
+        prepare_serve_params,
+    )
+
+    rng = np.random.RandomState(34)
+    out = {}
+    for serve_dtype in (None, "bf16"):
+        p = prepare_serve_params(params, serve_dtype)
+        cache = init_kv_cache(N_LAYERS, N_SLOTS, N_HEADS, D_MODEL // N_HEADS,
+                              MAX_LEN, dtype=activation_dtype(serve_dtype),
+                              device=DEVICE)
+        prefill = make_prefill_step(N_HEADS, params_transform=dequantize_tree)
+        chunk = make_chunk_prefill_step(N_HEADS,
+                                        params_transform=dequantize_tree)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        temp = torch.tensor(0.0, device=DEVICE)
+        full = torch.tensor([_prompt(rng, MAX_LEN)], device=DEVICE)
+        calls = {f"classic {MAX_LEN}": lambda: int(prefill(
+            p, cache, full, MAX_LEN - 1, 0, temp, gen)[1])}
+        for w in FP_STEP_WIDTHS:
+            toks = torch.tensor([_prompt(rng, w)], device=DEVICE)
+            start = min(FP_PREFIX, MAX_LEN - w)
+            calls[f"chunk {w}"] = lambda t=toks, s=start, w=w: int(chunk(
+                p, cache, t, s, w - 1, 1, temp, gen)[1])
+        row = {}
+        for name, fn in calls.items():
+            for _ in range(3):
+                fn()
+            walls = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                fn()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                sync()
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA]
+            row[name] = {"host_ms": statistics.median(walls),
+                         "device_ms": sum(map(_self_us, kernels)) / 1e3,
+                         "kernels": sum(e.count for e in kernels)}
+        out[serve_dtype or "f32"] = row
+    log(f"[fastpath] prefill-shaped steps alone: {json.dumps(out)}")
+    return out
+
+
+def fastpath(params) -> dict:
+    """Phase 3b: the same prompts and open-loop schedule through the plain
+    engine, the prefix cache, speculative decoding and all three with
+    chunked prefill; at f32 (traced, every stream held against the plain
+    engine's) and at bf16 (timed over FP_TIMED_REQUESTS requests of the
+    same mix)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.telemetry import trace as tr
+
+    prompts = _fp_prompts(31, FP_REQUESTS)
+    timed = _fp_prompts(31, FP_TIMED_REQUESTS)
+    warm = _fp_prompts(32, FP_REQUESTS)
+    # the rate the plain engine sustains: the timed prompts in one burst
+    # on a warmed bf16 engine
+    plain = _fp_engine(params, "plain", "bf16")
+    for p in warm:
+        plain.submit(p, max_new_tokens=MAX_NEW)
+    plain.run_until_idle()
+    sync()
+    t0 = time.perf_counter()
+    for p in timed:
+        plain.submit(p, max_new_tokens=MAX_NEW)
+    plain.run_until_idle()
+    sync()
+    sustained = len(timed) / (time.perf_counter() - t0)
+    rate = FP_LOAD * sustained
+    log(f"[fastpath] plain bf16 engine sustains {sustained:.2f} requests/s "
+        f"({len(timed)} in one burst); offered load {rate:.2f} requests/s")
+    del plain
+
+    # f32, TF32 off: every fast path's streams against the plain engine's
+    f32 = {}
+    work = tempfile.mkdtemp(prefix="dl4j_torch_fastpath_")
+    try:
+        for name in FP_ENGINES:
+            engine = _fp_engine(params, name, None)
+            trace_dir = f"{work}/{name}"
+            tracer = tr.configure(f"fastpath-{name}", trace_dir,
+                                  crash_hooks=False)
+            try:
+                run = _fp_drive(engine, name, prompts, rate)
+            finally:
+                tr.set_tracer(None)
+                tracer.close()
+            run["trace"] = _fp_trace_check(trace_dir, run["requests"])
+            f32[name] = run
+            want = [r.generated for r in f32["plain"]["requests"]]
+            run["diverged_near_tie"] = _fp_check_streams(
+                params, name, prompts, want, run["requests"])
+            if engine._prefix is not None:
+                hit = _fp_full_hit(engine, prompts[0])
+                run["full_hit_diverged_near_tie"] = _fp_check_streams(
+                    params, name, prompts[:1], want[:1], [hit])
+                engine._prefix.check_invariants()
+            log(f"[fastpath] f32 {name}: {json.dumps(_fp_summary(run))}")
+            del engine
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # bf16: timed, each engine warmed by a burst of other prompts
+    bf16 = {}
+    for name in FP_ENGINES:
+        engine = _fp_engine(params, name, "bf16")
+        for p in warm:
+            engine.submit(p, max_new_tokens=MAX_NEW)
+        engine.run_until_idle()
+        run = _fp_drive(engine, name, timed, rate)
+        if name == "plain":
+            want = [r.generated for r in run["requests"]]
+        run["streams_equal_plain"] = sum(
+            r.generated == w for r, w in zip(run["requests"], want)) / len(want)
+        run["tokens_equal_plain"] = float(np.mean(
+            [a == b for r, w in zip(run["requests"], want)
+             for a, b in zip(r.generated, w)]))
+        if name == "composed":
+            run["profiled"] = _fp_summary(_fp_drive(
+                engine, name, _fp_prompts(33, FP_REQUESTS), rate,
+                profiled=True))
+        bf16[name] = run
+        log(f"[fastpath] bf16 {name}: {json.dumps(_fp_summary(run))}")
+        del engine
+        torch.cuda.empty_cache()
+    return {"sustained_rps": sustained, "offered_rps": rate,
+            "f32": {n: _fp_summary(r) for n, r in f32.items()},
+            "bf16": {n: _fp_summary(r) for n, r in bf16.items()},
+            "steps": fp_step_profile(params)}
+
+
+def _fp_summary(run: dict) -> dict:
+    return {k: v for k, v in run.items() if k != "requests"}
 
 
 # ------------------------------------------------------------- phase 4 ----
@@ -2303,6 +2806,9 @@ def main() -> int:
     serve(params, "flash", FLASH_PROMPT_LENS, seed=2)
     serve(params, None, PROMPT_LENS, seed=3, profiled=True)
     prefill_parity(params)
+    fast = fastpath(params)
+    serve_entry["fastpath_launches"] = {
+        name: run["k3f_launches"] for name, run in fast["bf16"].items()}
     del params
 
     train_main = train()

@@ -21,5 +21,7 @@ hand-written fused-dense kernel in ``csrc/fused_dense.cu``
 them as users do: ``predict`` serves the LM from a checkpoint of the JAX
 package's format (``scaleout.ckpt``), and ``train``/``test``/``predict``
 run a MultiLayerNetwork on CSV or svmLight records (``datasets.records``)
-with ``eval.Evaluation``.
+with ``eval.Evaluation``. The engine's fast path (``serve.prefix_cache``,
+``serve.speculative``, chunked prefill) is traced by ``telemetry.trace``
+and driven under open-loop load by ``serve.loadgen``.
 """

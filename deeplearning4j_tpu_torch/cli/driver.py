@@ -14,7 +14,8 @@ package's order, so a model trained by either CLI loads in the other.
 
 Not ported yet, each raising ``SystemExit`` that names its slice:
 ``train --runtime parallel`` (ROADMAP slice 7), ``train --profile``
-(slice 9) and the ``fleet`` subcommand (slice 4).
+(slice 9) and the ``fleet`` subcommand (slice 4c, after slice 7's tracker
+protocol).
 """
 
 from __future__ import annotations
@@ -243,7 +244,8 @@ def predict(args) -> int:
 
 def _fleet(args) -> int:
     raise SystemExit("the fleet subcommand (a serving-fleet replica) comes "
-                     "with ROADMAP slice 4 (serve/fleet.py)")
+                     "with ROADMAP slice 4c (serve/fleet.py, after slice "
+                     "7's tracker protocol)")
 
 
 def _add_common(p: argparse.ArgumentParser, needs_model_in: bool,
@@ -320,7 +322,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     p_fleet = sub.add_parser(
         "fleet",
-        help="run a serving-fleet replica (not ported yet: ROADMAP slice 4)")
+        help="run a serving-fleet replica (not ported yet: ROADMAP slice "
+             "4c)")
     p_fleet.add_argument("fleet_args", nargs=argparse.REMAINDER)
     p_fleet.set_defaults(func=_fleet)
     return parser

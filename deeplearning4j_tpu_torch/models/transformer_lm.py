@@ -18,6 +18,13 @@ Serving paths:
 - ``lm_decode_step``: one token per slot attending over the per-slot KV
   cache with a position mask (plain torch; decode attention was never a
   TPU kernel).
+- ``lm_verify_step`` / ``make_verify_step``: the same math for W tokens
+  per slot, the speculative verify step of width k+1.
+- ``lm_chunk_prefill`` / ``make_chunk_prefill_step``: one slot's W prompt
+  tokens written at ``start``..``start + W - 1`` against the cache the
+  slot already holds (chunked prefill and the prefix cache's suffix).
+- ``draft_truncate_params`` / ``draft_distill_loss``: the speculative
+  draft, cut from the flagship or distilled from it.
 
 The cache is a fixed-size paged buffer ``{"k", "v"}`` with leaves of shape
 (L, S, H, T_max, Dh). Where JAX returned a new cache, the port writes the
@@ -31,9 +38,8 @@ update, with the ``guard=`` and ``with_metrics=`` seams). Gradients come
 from ``torch.autograd``; on a CUDA tensor the attention's backward runs on
 the flash backward kernels through ``ops.flash_attention.FlashAttention``.
 
-The mesh, sharding, pipeline, composed, verify and chunk-prefill step
-factories, and the ``profile=``/``runprof=``/``tuned=`` seams, come with
-later slices.
+The mesh, sharding, pipeline and composed step factories, and the
+``profile=``/``runprof=``/``tuned=`` seams, come with later slices.
 """
 
 from __future__ import annotations
@@ -491,30 +497,48 @@ def _decode_block(layer_params: dict, h: torch.Tensor, ck: torch.Tensor,
                   top_k: int) -> torch.Tensor:
     """One decoder block for W new tokens per slot. h: (S, W, d); ck/cv:
     (S, H, T_max, Dh), written IN PLACE at ``positions``..``positions + W -
-    1`` FIRST; then every query attends with the mask ``index <= position +
+    1`` FIRST (one index-put each for K and V, every slot and offset at
+    once); then every query attends with the mask ``index <= position +
     offset``. Callers keep ``positions + W <= T_max``: torch indexing
     raises where JAX's dynamic_update_slice would clamp."""
     hn = _layernorm(h, layer_params["ln_g"], layer_params["ln_b"])
     q = _split_heads(hn @ layer_params["wq"], n_heads)    # (S, H, W, Dh)
     k_new = _split_heads(hn @ layer_params["wk"], n_heads)
     v_new = _split_heads(hn @ layer_params["wv"], n_heads)
-    slots = torch.arange(h.shape[0], device=h.device)
-    for w in range(h.shape[1]):
-        ck[slots, :, positions + w] = k_new[:, :, w].to(ck.dtype)
-        cv[slots, :, positions + w] = v_new[:, :, w].to(cv.dtype)
+    pos_q = positions[:, None] + torch.arange(h.shape[1], device=h.device)
+    slots = torch.arange(h.shape[0], device=h.device)[:, None]   # (S, 1)
+    ck[slots, :, pos_q] = k_new.transpose(1, 2).to(ck.dtype)  # (S,W,H,Dh)
+    cv[slots, :, pos_q] = v_new.transpose(1, 2).to(cv.dtype)
     scores = torch.einsum("shqd,shkd->shqk", q, ck) / (
         (q.shape[-1] * 1.0) ** 0.5)                           # (S,H,W,T_max)
-    pos_q = positions[:, None] + torch.arange(h.shape[1], device=h.device)
     mask = (torch.arange(ck.shape[2], device=h.device)[None, None, None, :]
             <= pos_q[:, None, :, None])
     scores = scores.masked_fill(~mask, _NEG_INF)
     o = torch.einsum("shqk,shkd->shqd", softmax(scores), cv)
     h = h + (_merge_heads(o) @ layer_params["wo"]).to(h.dtype)
     h2 = _layernorm(h, layer_params["ln2_g"], layer_params["ln2_b"])
-    flat = h2.reshape(-1, h2.shape[-1])                        # (S, d)
+    flat = h2.reshape(-1, h2.shape[-1])                        # (S·W, d)
     moe_out = dense_moe(layer_params["router"], layer_params["experts"],
                         flat, top_k)
     return h + moe_out.reshape(h.shape).to(h.dtype)
+
+
+def lm_verify_step(params: dict, cache: dict, tokens: torch.Tensor,
+                   positions: torch.Tensor, n_heads: int,
+                   top_k: int = 2) -> tuple:
+    """W tokens per slot: tokens (S, W) land at ``positions``..``positions
+    + W - 1`` (S,) in the cache (written in place) and per-position
+    next-token logits (S, W, V) come back with it. Offset i's query sees
+    exactly the cache a decode step at ``positions + i`` would, so
+    logits[:, i] are those of i sequential decode steps over the same
+    tokens: the speculative verify forward. Callers keep ``positions + W
+    <= T_max``."""
+    h = params["embed"][tokens.long()]                          # (S, W, d)
+    positions = positions.long()
+    for i in range(lm_n_layers(params)):
+        h = _decode_block(_layer(params["blocks"], i), h, cache["k"][i],
+                          cache["v"][i], positions, n_heads, top_k)
+    return cache, h @ params["dec_w"] + params["dec_b"]
 
 
 def lm_decode_step(params: dict, cache: dict, tokens: torch.Tensor,
@@ -522,14 +546,31 @@ def lm_decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                    top_k: int = 2) -> tuple:
     """One decode iteration over every slot: tokens (S,) land at
     ``positions`` (S,) in the cache and next-token logits (S, V) come back
-    with the cache (updated in place)."""
-    h = params["embed"][tokens.long()][:, None, :]              # (S, 1, d)
-    positions = positions.long()
+    with the cache (updated in place): ``lm_verify_step`` at W=1."""
+    cache, logits = lm_verify_step(params, cache, tokens[:, None],
+                                   positions, n_heads, top_k)
+    return cache, logits[:, 0, :]
+
+
+def lm_chunk_prefill(params: dict, cache: dict, tokens: torch.Tensor,
+                     start: int, slot: int, n_heads: int,
+                     top_k: int = 2) -> tuple:
+    """One slot's tokens (1, W) written at absolute positions
+    ``start``..``start + W - 1`` of slot ``slot``'s cache rows (in place,
+    through a view of the slot: no write-back), each query attending the
+    slot's cache at ``index <= start + offset``: it sees every earlier
+    chunk and any prefix-cache-seeded page. Returns (cache, logits (W,
+    V)). ``start + W`` past T_max raises."""
+    if start + tokens.shape[1] > cache["k"].shape[3]:
+        raise ValueError(f"a {tokens.shape[1]}-wide chunk at {start} passes "
+                         f"the cache's T_max {cache['k'].shape[3]}")
+    h = params["embed"][tokens.long()]                          # (1, W, d)
+    pos = torch.tensor([start], dtype=torch.int64, device=h.device)
     for i in range(lm_n_layers(params)):
-        h = _decode_block(_layer(params["blocks"], i), h, cache["k"][i],
-                          cache["v"][i], positions, n_heads, top_k)
-    logits = (h @ params["dec_w"] + params["dec_b"])[:, 0, :]
-    return cache, logits
+        h = _decode_block(_layer(params["blocks"], i), h,
+                          cache["k"][i, slot:slot + 1],
+                          cache["v"][i, slot:slot + 1], pos, n_heads, top_k)
+    return cache, (h @ params["dec_w"] + params["dec_b"])[0]
 
 
 def sample_tokens(logits: torch.Tensor, generator: Optional[torch.Generator],
@@ -587,6 +628,91 @@ def make_prefill_step(n_heads: int, top_k: int = 2,
         return cache, sample_tokens(logits[0, last_idx], generator, temp)
 
     return prefill
+
+
+def make_verify_step(n_heads: int, top_k: int = 2, params_transform=None):
+    """The speculative flagship step: ``verify(params, cache, tokens,
+    positions, temps, generator) -> (cache, toks)`` with tokens (S, W) →
+    toks (S, W) int32. toks[:, i] is ``sample_tokens`` over the logits at
+    offset i (greedy argmax where ``temps <= 0``: the value the acceptance
+    rule compares the proposals against). Where JAX folds each offset into
+    the step's key, the W draws come from ``generator`` in offset order."""
+    transform = params_transform or (lambda p: p)
+
+    @torch.inference_mode()
+    def verify(params, cache, tokens, positions, temps, generator):
+        params = transform(params)
+        cache, logits = lm_verify_step(params, cache, tokens, positions,
+                                       n_heads, top_k)
+        toks = torch.stack([sample_tokens(logits[:, i, :], generator, temps)
+                            for i in range(tokens.shape[1])], dim=1)
+        return cache, toks
+
+    return verify
+
+
+def make_chunk_prefill_step(n_heads: int, top_k: int = 2,
+                            params_transform=None):
+    """Chunked/suffix prefill step: ``chunk(params, cache, tokens, start,
+    last_idx, slot, temp, generator) -> (cache, tok)``: ``lm_chunk_prefill``
+    of one slot's tokens (1, W), then ``tok`` sampled from the logits at
+    in-chunk index ``last_idx``. The engine reads ``tok`` from the final
+    chunk only (last_idx = prompt_len - 1 - start). ``start``, ``last_idx``
+    and ``slot`` are host ints; the caller keeps ``start + W <= T_max``
+    (the engine shifts the final chunk left to overlap: recomputing a
+    position from the same tokens rewrites the same values)."""
+    transform = params_transform or (lambda p: p)
+
+    @torch.inference_mode()
+    def chunk(params, cache, tokens, start, last_idx, slot, temp,
+              generator):
+        params = transform(params)
+        cache, logits = lm_chunk_prefill(params, cache, tokens, int(start),
+                                         int(slot), n_heads, top_k)
+        return cache, sample_tokens(logits[int(last_idx)], generator, temp)
+
+    return chunk
+
+
+def draft_truncate_params(params: dict, n_layers: int) -> dict:
+    """Layer-truncated draft LM: the flagship's first ``n_layers`` decoder
+    blocks with the SAME embedding and decoder head, the draft for
+    speculative decoding that needs no training. Every leaf is the
+    flagship's tensor or a view of it (``blocks[...][:n]``), never a copy,
+    as JAX shares the leaves."""
+    total = lm_n_layers(params)
+    if not (1 <= n_layers <= total):
+        raise ValueError(
+            f"draft n_layers must be in [1, {total}], got {n_layers}")
+    blocks = tree_map(lambda _, x: x[:n_layers], params["blocks"])
+    return {"embed": params["embed"], "blocks": blocks,
+            "dec_w": params["dec_w"], "dec_b": params["dec_b"]}
+
+
+def draft_distill_loss(teacher_params: dict, n_heads: int, top_k: int = 2,
+                       attn_impl: Optional[str] = None):
+    """Self-distillation objective for a trained draft: ``loss(draft_params,
+    tokens)`` is the mean KL(teacher ‖ draft) over every position, the
+    teacher (flagship) forward run without grad (JAX's ``stop_gradient``).
+    Distil ``draft_truncate_params(flagship, n)`` with it, then hand the
+    result to ``DecodeEngine(speculative=SpeculativeConfig(
+    draft_params=...))``."""
+    def core(q, k, v):
+        return attention_core(q, k, v, causal=True, impl=attn_impl)
+
+    moe = partial(dense_moe, top_k=top_k)
+
+    def loss(draft_params: dict, tokens) -> torch.Tensor:
+        with torch.no_grad():
+            t_logits, _ = lm_forward(teacher_params, tokens, n_heads, core,
+                                     moe)
+        t_logp = torch.log_softmax(t_logits, dim=-1)
+        d_logits, _ = lm_forward(draft_params, tokens, n_heads, core, moe)
+        d_logp = torch.log_softmax(d_logits, dim=-1)
+        return torch.mean(torch.sum(torch.exp(t_logp) * (t_logp - d_logp),
+                                    dim=-1))
+
+    return loss
 
 
 def lm_dims(params: dict) -> dict:

@@ -1,6 +1,16 @@
-"""The port's serving stack: the decode engine and the serve_dtype seam."""
+"""The port's serving stack: the decode engine, its fast path (prefix
+cache, speculative decoding), the open-loop load generator and the
+serve_dtype seam. The fleet replica and router come with ROADMAP slice 7
+(the tracker protocol they speak)."""
 
 from deeplearning4j_tpu_torch.serve.engine import DecodeEngine, ServeRequest
+from deeplearning4j_tpu_torch.serve.loadgen import (
+    LoadReport,
+    arrival_schedule,
+    run_open_loop,
+    run_open_loop_http,
+)
+from deeplearning4j_tpu_torch.serve.prefix_cache import PrefixPageCache
 from deeplearning4j_tpu_torch.serve.quant import (
     QuantTensor,
     activation_dtype,
@@ -8,7 +18,26 @@ from deeplearning4j_tpu_torch.serve.quant import (
     params_nbytes,
     prepare_serve_params,
 )
+from deeplearning4j_tpu_torch.serve.speculative import (
+    SpeculativeConfig,
+    accept_longest_prefix,
+    resolve_speculative,
+)
 
-__all__ = ["DecodeEngine", "ServeRequest", "QuantTensor",
-           "activation_dtype", "dequantize_tree", "params_nbytes",
-           "prepare_serve_params"]
+__all__ = [
+    "DecodeEngine",
+    "ServeRequest",
+    "LoadReport",
+    "arrival_schedule",
+    "run_open_loop",
+    "run_open_loop_http",
+    "PrefixPageCache",
+    "QuantTensor",
+    "SpeculativeConfig",
+    "accept_longest_prefix",
+    "activation_dtype",
+    "dequantize_tree",
+    "params_nbytes",
+    "prepare_serve_params",
+    "resolve_speculative",
+]

@@ -20,12 +20,55 @@ step; requests retire per decode step at EOS / ``max_new_tokens`` /
 cache-page exhaustion, and the freed slot is reusable on the very next
 iteration.
 
+Serving fast path: three schedule optimizations, each token-identical to
+the cold engine at f32 and each off by default.
+
+- ``prefix_cache=``: shared-prefix KV page reuse (serve/prefix_cache.py).
+  Admission looks up the longest cached page-aligned prefix, copies it
+  into the slot's cache rows, and prefills ONLY the uncached suffix (one
+  chunk-step call, plain-torch attention). A FULL hit (the cached prefix
+  covers all but at most the last prompt token) runs no flagship prefill
+  at all: the last prompt token rides the ordinary decode step, whose
+  write-then-mask math gives exactly the prefill's last-position logits.
+  Every flagship prefill-shaped call (classic or chunk) counts
+  ``serve_prefill_dispatches_total``. Pages are inserted after each
+  prefill completes, as clones of the slot's rows.
+- ``prefill_chunk=``: prompts longer than the chunk prefill in fixed-width
+  chunks, ONE chunk per scheduler iteration interleaved with decode
+  steps, so a long admission no longer blocks every running request's
+  next token. The final chunk shifts left to ``n - W`` rather than
+  changing width. While a slot is mid-prefill its host position points
+  at the next chunk's start, so the shared decode step's garbage write
+  for that slot lands where the next chunk overwrites it first.
+- ``speculative=`` / ``DL4J_TPU_SERVE_SPEC``: draft/verify speculative
+  decoding (serve/speculative.py). A layer-truncated (or distilled) draft
+  proposes k tokens per slot in k draft decode steps, each read back to
+  the host because the next proposal feeds on it; the flagship verifies
+  all k in ONE ``make_verify_step`` call of width k+1, and the host
+  accepts the longest matching prefix plus the flagship's bonus token.
+  Near the cache's end (positions + k + 1 > max_len) and while a slot is
+  mid-chunk, an iteration takes the plain decode step instead.
+
+Only the classic prefill (cold misses, and every draft admission) runs
+``attention_core`` and so the flash kernel K3f; the chunk, suffix and
+verify steps use the decode step's einsum attention.
+
+Request tracing: when a process tracer is configured
+(telemetry/trace.py), every request becomes a ``serve.request`` span with
+``serve.queue_wait`` / ``serve.prefill`` / ``serve.decode`` /
+``serve.retire`` children (``accept`` and ``verify`` events on the decode
+span, the retire reason and weight version as attributes), and every
+scheduler iteration an ``engine.step`` span; the names, parents and
+attributes are the JAX engine's, so ``tools/trace_report.py`` reads them.
+Unconfigured, each site is a None check. Latency histograms carry the
+request's trace id as an exemplar.
+
 The engine runs on CUDA unless built with ``device="cpu"``, and raises when
 CUDA is absent. Metrics land in the port's registry under ``serve_*``.
 ``from_checkpoint`` builds an engine from an LM checkpoint of either
 package (scaleout/ckpt), ``from_live_params`` from a params tree already in
-memory. The prefix cache, chunked prefill, speculative decoding, request
-tracing, the runtime profiler and ``tuned=`` come with later slices.
+memory. The runtime profiler (``runprof=``) and ``tuned=`` come with
+slice 9: passing either raises.
 """
 
 from __future__ import annotations
@@ -41,10 +84,17 @@ import torch
 from deeplearning4j_tpu_torch._device import DeviceLike, resolve_device, \
     tree_map
 from deeplearning4j_tpu_torch.models.transformer_lm import (
+    draft_truncate_params,
     init_kv_cache,
     lm_dims,
+    make_chunk_prefill_step,
     make_decode_step,
     make_prefill_step,
+    make_verify_step,
+)
+from deeplearning4j_tpu_torch.serve.prefix_cache import (
+    PrefixPageCache,
+    seed_slot_pages,
 )
 from deeplearning4j_tpu_torch.serve.quant import (
     activation_dtype,
@@ -52,6 +102,11 @@ from deeplearning4j_tpu_torch.serve.quant import (
     params_nbytes,
     prepare_serve_params,
 )
+from deeplearning4j_tpu_torch.serve.speculative import (
+    accept_longest_prefix,
+    resolve_speculative,
+)
+from deeplearning4j_tpu_torch.telemetry import trace as _trace
 
 _UNSET = object()
 
@@ -61,7 +116,8 @@ class ServeRequest:
     request retires; ``generated`` then holds the output tokens (EOS
     excluded) and ``finish_reason`` one of "eos" | "max_new_tokens" |
     "max_len". Timestamps are perf_counter seconds: ``t_submit`` →
-    ``t_first`` (first token) → ``t_done``."""
+    ``t_first`` (first token) → ``t_done``; ``t_tokens`` stamps every
+    accepted token. ``bucket`` is set by a classic prefill only."""
 
     def __init__(self, rid: int, prompt: List[int], max_new_tokens: int,
                  temperature: float, eos_id: Optional[int]):
@@ -79,7 +135,23 @@ class ServeRequest:
         self.t_admit: Optional[float] = None
         self.t_first: Optional[float] = None
         self.t_done: Optional[float] = None
+        # tracing: None unless a process tracer is configured at submit
+        self.span = None          # serve.request (submit → retire)
+        self.queue_span = None    # serve.queue_wait (submit → admission)
+        self.decode_span = None   # serve.decode (admission → retire)
+        self.prefill_span = None  # serve.prefill (may span iterations)
+        # outlives the span: the retire-time latency observations carry
+        # it as their exemplar after serve.request has ended
+        self.trace_id = None
         self.prefill_ms: float = 0.0
+        self.decode_ms: float = 0.0  # sum of the decode steps it rode
+        # prefill_ms = the prefix-cache seed time + the suffix/chunk or
+        # classic compute time
+        self.prefill_cached_ms: float = 0.0
+        self.prefill_suffix_ms: float = 0.0
+        self.cached_tokens: int = 0     # positions seeded from the cache
+        self.prefill_chunks: int = 0    # chunk-step calls this request ran
+        self.t_tokens: List[float] = []
 
     @property
     def latency_s(self) -> Optional[float]:
@@ -102,16 +174,31 @@ class DecodeEngine:
                  eos_id: Optional[int] = None, seed: int = 0,
                  registry=None, min_bucket: int = 8,
                  weight_version: Optional[str] = None,
+                 prefix_cache=False, prefix_page_tokens: int = 16,
+                 prefix_cache_pages: int = 256,
+                 prefill_chunk: Optional[int] = None,
+                 speculative=None, runprof=None, tuned=None,
                  device: DeviceLike = None):
         from deeplearning4j_tpu_torch.telemetry.registry import (
             default_registry,
         )
 
+        for name, value in (("runprof", runprof), ("tuned", tuned)):
+            if value is not None and value is not False:
+                raise NotImplementedError(
+                    f"DecodeEngine({name}=...) comes with ROADMAP slice 9 "
+                    "(the runtime profiler and the autotuner); pass "
+                    f"{name}=None")
         self.device = resolve_device(device)
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         if max_len < 2:
             raise ValueError(f"max_len must be >= 2, got {max_len}")
+        if prefill_chunk is not None and not (
+                1 <= int(prefill_chunk) < max_len):
+            raise ValueError(
+                f"prefill_chunk must be in [1, max_len), got "
+                f"{prefill_chunk}")
         self.dims = lm_dims(params)
         self.n_heads = int(n_heads)
         if self.dims["d_model"] % self.n_heads:
@@ -130,17 +217,71 @@ class DecodeEngine:
         self.params = prepare_serve_params(params, serve_dtype)
         self.weight_bytes = params_nbytes(self.params)
         head_dim = self.dims["d_model"] // self.n_heads
+        cache_dtype = activation_dtype(serve_dtype)
         self._cache = init_kv_cache(self.dims["n_layers"], self.n_slots,
                                     self.n_heads, head_dim, self.max_len,
-                                    dtype=activation_dtype(serve_dtype),
-                                    device=self.device)
+                                    dtype=cache_dtype, device=self.device)
         self._decode = make_decode_step(self.n_heads, self.top_k,
                                         params_transform=dequantize_tree)
         self._prefill = make_prefill_step(self.n_heads, self.top_k,
                                           attn_impl=attn_impl,
                                           params_transform=dequantize_tree)
         self._buckets = self._make_buckets(min_bucket)
+        # --- serving fast path, every seam off by default ---
+        self.prefill_chunk = (None if prefill_chunk is None
+                              else int(prefill_chunk))
+        if prefix_cache is True:
+            self._prefix = PrefixPageCache(
+                page_tokens=prefix_page_tokens,
+                capacity_pages=prefix_cache_pages,
+                registry=self.registry)
+        else:
+            self._prefix = prefix_cache or None
+        # one chunk step serves chunked prefill AND the prefix suffix
+        self._chunk = (make_chunk_prefill_step(
+            self.n_heads, self.top_k, params_transform=dequantize_tree)
+            if (self.prefill_chunk is not None or self._prefix is not None)
+            else None)
+        self._chunking: dict = {}       # slot -> pending chunk plan
+        self.spec = resolve_speculative(speculative)
+        if self.spec is not None:
+            if self.spec.k + 1 >= max_len:
+                raise ValueError(
+                    f"speculative k={self.spec.k} needs k+1 < max_len "
+                    f"({max_len})")
+            draft_raw = (tree_map(lambda _, x: x.to(self.device),
+                                  self.spec.draft_params)
+                         if self.spec.draft_params is not None
+                         else draft_truncate_params(params,
+                                                    self.spec.draft_layers))
+            self._draft_params = prepare_serve_params(draft_raw,
+                                                      serve_dtype)
+            self._draft_cache = init_kv_cache(
+                lm_dims(draft_raw)["n_layers"], self.n_slots,
+                self.n_heads, head_dim, self.max_len, dtype=cache_dtype,
+                device=self.device)
+            self._draft_decode = make_decode_step(
+                self.n_heads, self.top_k, params_transform=dequantize_tree)
+            self._draft_prefill = make_prefill_step(
+                self.n_heads, self.top_k, attn_impl=attn_impl,
+                params_transform=dequantize_tree)
+            self._verify = make_verify_step(
+                self.n_heads, self.top_k, params_transform=dequantize_tree)
+        self.spec_verify_steps = 0
+        self.spec_accepted_total = 0
+        self._spec_proposed_total = 0
+        # the counter the full-prefix-hit check reads exists (at 0) from
+        # construction; the spec instruments likewise when armed
         self.registry.counter("serve_prefill_dispatches_total")
+        if self.spec is not None:
+            for name in ("serve_spec_verify_steps_total",
+                         "serve_spec_accepted_tokens_total",
+                         "serve_spec_draft_prefills_total",
+                         "serve_spec_draft_steps_total"):
+                self.registry.counter(name)
+            self.registry.histogram("serve_spec_accepted_per_verify")
+            self.registry.histogram("serve_verify_step_ms")
+            # serve_spec_accept_rate stays unborn until 8 verify steps
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(int(seed))
         self._lock = threading.RLock()
@@ -264,6 +405,20 @@ class DecodeEngine:
                            temperature,
                            self.eos_id if eos_id is _UNSET else eos_id)
         req.t_submit = time.perf_counter()
+        tracer = _trace.get_tracer()
+        if tracer is not None:
+            # parents under the submitting thread's current span, or roots
+            # a fresh trace; the children below parent under it
+            # explicitly, since they run on the scheduler's thread
+            req.span = tracer.start_span(
+                "serve.request",
+                attrs={"rid": req.rid, "prompt_len": len(prompt),
+                       "max_new_tokens": req.max_new_tokens,
+                       "temperature": req.temperature,
+                       "weight_version": self.weight_version})
+            req.queue_span = tracer.start_span("serve.queue_wait",
+                                               parent=req.span)
+            req.trace_id = req.span.trace_id
         with self._work:
             self._queue.append(req)
             self.requests_total += 1
@@ -278,45 +433,203 @@ class DecodeEngine:
     def _free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self._slots) if r is None]
 
+    def _padded(self, tokens: Sequence[int], width: int) -> torch.Tensor:
+        """``tokens`` right-padded with zeros to (1, width) on the device."""
+        padded = np.zeros((1, width), np.int64)
+        padded[0, :len(tokens)] = tokens
+        return torch.from_numpy(padded).to(self.device)
+
     def _admit(self, req: ServeRequest, slot: int) -> None:
-        """Classic one-shot bucketed prefill into ``slot``."""
         n = len(req.prompt)
+        if req.queue_span is not None:
+            req.queue_span.end()
+            req.queue_span = None
         req.t_admit = time.perf_counter()
         req.slot = slot
         self._slots[slot] = req
         self._temps[slot] = req.temperature
+        # ---- prefix-cache lookup + slot seed (no flagship compute) ----
+        plen = 0
+        if self._prefix is not None:
+            t0 = time.perf_counter()
+            plen, k_pages, v_pages = self._prefix.lookup(req.prompt)
+            if plen:
+                seed_slot_pages(self._cache["k"], self._cache["v"],
+                                torch.cat(k_pages, dim=2),
+                                torch.cat(v_pages, dim=2), slot)
+                # an attribution stamp, not a device time: the copy is
+                # fenced by the step that next reads the cache
+                req.prefill_cached_ms = (time.perf_counter() - t0) * 1000.0
+                req.prefill_ms += req.prefill_cached_ms
+            req.cached_tokens = plen
+        req.prefill_span = (req.span.tracer.start_span(
+            "serve.prefill", parent=req.span,
+            attrs={"slot": slot, "prompt_len": n, "cached_tokens": plen})
+            if req.span is not None else None)
+        if self.spec is not None:
+            self._draft_admit(req, slot, n)
+        # ---- full hit: the cached prefix covers every position the last
+        # prompt token's decode step does not write itself: NO flagship
+        # prefill; the first token comes from the shared decode step ----
+        if plen >= n - 1:
+            self._tokens[slot] = req.prompt[-1]
+            self._positions[slot] = n - 1
+            self._finish_prefill_span(req, mode="cached_full")
+            if req.span is not None:
+                req.decode_span = req.span.tracer.start_span(
+                    "serve.decode", parent=req.span, attrs={"slot": slot})
+            return
+        # ---- chunked path: long prompts (or any cached-prefix suffix)
+        # run through the chunk step, one chunk per scheduler iteration
+        # when prefill_chunk is configured ----
+        if self._chunk is not None and (
+                plen > 0 or (self.prefill_chunk is not None
+                             and n > self.prefill_chunk)):
+            plan = self._chunk_plan(req, plen)
+            if self.prefill_chunk is not None and len(plan) > 1:
+                # garbage-write shield: the shared decode step writes this
+                # slot at _positions; point it where the next chunk
+                # overwrites before any query can read it
+                self._positions[slot] = plan[0][1]
+                self._chunking[slot] = {"req": req, "plan": plan,
+                                        "idx": 0}
+                return
+            for idx in range(len(plan)):
+                self._run_chunk(req, slot, plan, idx)
+            return
+        # ---- classic one-shot bucketed prefill ----
         bucket = self.bucket_for(n)
         req.bucket = bucket
-        padded = np.zeros((1, bucket), np.int64)
-        padded[0, :n] = req.prompt
+        if req.prefill_span is not None:
+            req.prefill_span.set_attr("bucket", bucket)
         t0 = time.perf_counter()
         self._cache, tok = self._prefill(
-            self.params, self._cache,
-            torch.from_numpy(padded).to(self.device), n - 1, slot,
-            torch.tensor(req.temperature, device=self.device),
+            self.params, self._cache, self._padded(req.prompt, bucket),
+            n - 1, slot, torch.tensor(req.temperature, device=self.device),
             self._generator)
         self.registry.counter("serve_prefill_dispatches_total").inc()
         tok = int(tok)  # fences the prefill: slot state changes with it
         now = time.perf_counter()
+        req.prefill_suffix_ms += (now - t0) * 1000.0
         req.prefill_ms += (now - t0) * 1000.0
-        self._complete_prefill(req, slot, tok, now)
+        self._complete_prefill(req, slot, tok, now, mode="full")
+
+    def _draft_admit(self, req: ServeRequest, slot: int, n: int) -> None:
+        """Seed the DRAFT cache for an admitted slot (speculative only):
+        one draft-prefill call over the full prompt, counted apart from
+        ``serve_prefill_dispatches_total`` (that one counts flagship
+        work; the draft is the cost of speculation)."""
+        self._draft_cache, _ = self._draft_prefill(
+            self._draft_params, self._draft_cache,
+            self._padded(req.prompt, self.bucket_for(n)), n - 1, slot,
+            torch.tensor(0.0, device=self.device), self._generator)
+        self.registry.counter("serve_spec_draft_prefills_total").inc()
+
+    def _chunk_plan(self, req: ServeRequest, plen: int) -> list:
+        """Chunk schedule covering prompt positions [plen, n): a list of
+        ``(tokens (1, W) np.int64, start, last_idx)``. Interleaved mode
+        (prefill_chunk set, suffix > chunk) uses W = prefill_chunk with the
+        FINAL chunk shifted left to ``n - W`` (same width; the overlap
+        rewrites identical values); the prefix-suffix one-shot uses one
+        bucket-width chunk. Every start keeps start + W <= max_len, where
+        torch indexing would raise."""
+        n = len(req.prompt)
+        C = self.prefill_chunk
+        if C is not None and n - plen > C:
+            starts = list(range(plen, n - C, C))
+            starts.append(n - C)
+            width = C
+        else:
+            width = min(self.bucket_for(n - plen), self.max_len)
+            starts = [max(0, n - width)]
+        plan = []
+        for i, s in enumerate(starts):
+            toks = np.zeros((1, width), np.int64)
+            real = req.prompt[s:min(s + width, n)]
+            toks[0, :len(real)] = real
+            last_idx = (n - 1 - s) if i == len(starts) - 1 else width - 1
+            plan.append((toks, s, last_idx))
+        return plan
+
+    def _run_chunk(self, req: ServeRequest, slot: int, plan: list,
+                   idx: int) -> None:
+        """Run chunk ``idx``; on the final chunk, complete the admission
+        with its sampled first token."""
+        toks, start, last_idx = plan[idx]
+        final = idx == len(plan) - 1
+        t0 = time.perf_counter()
+        self._cache, tok = self._chunk(
+            self.params, self._cache, torch.from_numpy(toks).to(self.device),
+            start, last_idx, slot,
+            torch.tensor(req.temperature, device=self.device),
+            self._generator)
+        self.registry.counter("serve_prefill_dispatches_total").inc()
+        req.prefill_chunks += 1
+        if final:
+            tok = int(tok)  # fences the chunk, as the classic prefill
+        now = time.perf_counter()
+        req.prefill_suffix_ms += (now - t0) * 1000.0
+        req.prefill_ms += (now - t0) * 1000.0
+        if final:
+            self._chunking.pop(slot, None)
+            self._complete_prefill(
+                req, slot, tok, now,
+                mode="suffix" if req.cached_tokens else "chunked")
+        else:
+            # shield: the next chunk overwrites [next_start, + W)
+            self._positions[slot] = plan[idx + 1][1]
 
     def _complete_prefill(self, req: ServeRequest, slot: int, tok: int,
-                          now: float) -> None:
-        """Prompt K/V resident: arm decode state, accept the first token."""
-        self.registry.histogram("serve_prefill_ms").observe(req.prefill_ms)
+                          now: float, mode: str) -> None:
+        """Prompt K/V fully resident: publish its pages to the prefix
+        cache (which clones them), arm decode state, accept the first
+        token."""
+        if self._prefix is not None:
+            n_pages = len(req.prompt) // self._prefix.page_tokens
+            if n_pages:
+                span = n_pages * self._prefix.page_tokens
+                self._prefix.insert(
+                    req.prompt,
+                    self._cache["k"][:, slot, :, :span, :],
+                    self._cache["v"][:, slot, :, :span, :])
+        self.registry.histogram("serve_prefill_ms").observe(
+            req.prefill_ms, exemplar=req.trace_id)
+        self._finish_prefill_span(req, mode=mode)
         self._positions[slot] = len(req.prompt)
+        if req.span is not None:
+            # started BEFORE the first accept: max_new_tokens=1 or an
+            # instant EOS retire the request inside this very call
+            req.decode_span = req.span.tracer.start_span(
+                "serve.decode", parent=req.span, attrs={"slot": slot})
         self._accept_token(req, tok, now)
+
+    def _finish_prefill_span(self, req: ServeRequest, mode: str) -> None:
+        if req.prefill_span is None:
+            return
+        req.prefill_span.set_attr("mode", mode)
+        req.prefill_span.set_attr("cached_tokens", req.cached_tokens)
+        req.prefill_span.set_attr("chunks", req.prefill_chunks)
+        req.prefill_span.set_attr("cached_ms",
+                                  round(req.prefill_cached_ms, 3))
+        req.prefill_span.set_attr("suffix_ms",
+                                  round(req.prefill_suffix_ms, 3))
+        req.prefill_span.end()
+        req.prefill_span = None
 
     def _accept_token(self, req: ServeRequest, tok: int, now: float) -> None:
         """Record one sampled token for ``req`` and retire it at EOS /
         max_new_tokens / cache exhaustion (iteration-level eviction)."""
         if req.t_first is None:
+            # for a full prefix hit that is the shared decode step
             req.t_first = now
         if req.eos_id is not None and tok == req.eos_id:
             self._finish(req, "eos", now)
             return
         req.generated.append(tok)
+        req.t_tokens.append(now)
+        if req.decode_span is not None:
+            req.decode_span.add_event("accept", token=tok,
+                                      n=len(req.generated))
         self.tokens_total += 1
         self.registry.counter("serve_tokens_total").inc()
         if len(req.generated) >= req.max_new_tokens:
@@ -330,6 +643,38 @@ class DecodeEngine:
     def _finish(self, req: ServeRequest, reason: str, now: float) -> None:
         req.finish_reason = reason
         req.t_done = now
+        if req.span is not None:
+            if req.decode_span is not None:
+                req.decode_span.set_attr("decode_ms",
+                                         round(req.decode_ms, 3))
+                req.decode_span.set_attr("tokens", len(req.generated))
+                req.decode_span.end()
+                req.decode_span = None
+            retire = req.span.tracer.start_span(
+                "serve.retire", parent=req.span,
+                attrs={"reason": reason, "tokens": len(req.generated),
+                       "weight_version": self.weight_version})
+            retire.end()
+            # the attribution tools/trace_report.py tables: queue_wait +
+            # prefill + decode + gap = latency by construction (gap: time
+            # admitted but outside the request's own steps)
+            queue_ms = ((req.t_admit or now) - req.t_submit) * 1000.0
+            latency_ms = (now - req.t_submit) * 1000.0
+            req.span.set_attr("queue_wait_ms", round(queue_ms, 3))
+            req.span.set_attr("prefill_ms", round(req.prefill_ms, 3))
+            req.span.set_attr("prefill_cached_ms",
+                              round(req.prefill_cached_ms, 3))
+            req.span.set_attr("prefill_suffix_ms",
+                              round(req.prefill_suffix_ms, 3))
+            req.span.set_attr("cached_tokens", req.cached_tokens)
+            req.span.set_attr("decode_ms", round(req.decode_ms, 3))
+            req.span.set_attr("gap_ms", round(
+                latency_ms - queue_ms - req.prefill_ms - req.decode_ms, 3))
+            req.span.set_attr("latency_ms", round(latency_ms, 3))
+            req.span.set_attr("tokens", len(req.generated))
+            req.span.set_attr("finish_reason", reason)
+            req.span.end()
+            req.span = None
         if req.slot is not None:
             self._slots[req.slot] = None
             self._tokens[req.slot] = 0
@@ -339,10 +684,11 @@ class DecodeEngine:
         self.registry.counter("serve_completed_total",
                               {"reason": reason}).inc()
         self.registry.histogram("serve_request_ms").observe(
-            (now - req.t_submit) * 1000.0)
+            (now - req.t_submit) * 1000.0, exemplar=req.trace_id)
         if req.t_first is not None:
             self.registry.histogram("serve_first_token_ms").observe(
-                (req.t_first - req.t_submit) * 1000.0)
+                (req.t_first - req.t_submit) * 1000.0,
+                exemplar=req.trace_id)
         req.done.set()
 
     # ------------------------------------------------------------- stepping ----
@@ -352,48 +698,173 @@ class DecodeEngine:
                 r is not None for r in self._slots)
 
     def step(self) -> int:
-        """One scheduler iteration: admit into free slots, then one decode
-        step over every slot. Returns tokens emitted (0 = idle)."""
+        """One scheduler iteration: admit into free slots, run one chunk
+        for each slot mid-prefill, then one decode (or speculative) step
+        over every slot. Returns tokens emitted (0 = idle)."""
+        tracer = _trace.get_tracer()
+        step_span = (tracer.start_span("engine.step", parent=False)
+                     if tracer is not None else None)
         with self._lock:
             tokens_before = self.tokens_total
             free = self._free_slots()
+            admitted = 0
             while self._queue and free:
                 self._admit(self._queue.pop(0), free.pop(0))
+                admitted += 1
             self.registry.gauge("serve_queue_depth").set(
                 float(len(self._queue)))
-            active = [r for r in self._slots if r is not None]
+            # ---- chunked prefill: ONE chunk per mid-prefill slot per
+            # iteration, interleaved with the decode steps ----
+            for slot in list(self._chunking):
+                st = self._chunking[slot]
+                self._run_chunk(st["req"], slot, st["plan"], st["idx"])
+                if slot in self._chunking:
+                    st["idx"] += 1
+            active = [r for r in self._slots
+                      if r is not None and r.slot not in self._chunking]
             self.registry.gauge("serve_active_slots").set(
                 float(len(active)))
             if not active:
+                if step_span is not None:
+                    step_span.set_attr("admissions", admitted)
+                    step_span.set_attr("occupancy", 0)
+                    step_span.set_attr("idle", not self._chunking)
+                    step_span.end()
                 return self.tokens_total - tokens_before
-            # every slot writes its K/V at its position: JAX's
-            # dynamic_update_slice would clamp an out-of-range start onto
-            # live positions, torch indexing would fault — neither may
-            # happen (_accept_token retires a slot at max_len)
-            if int(self._positions.max()) >= self.max_len:
-                raise RuntimeError(
-                    f"decode position {int(self._positions.max())} outside "
-                    f"the cache page (max_len {self.max_len})")
-            t0 = time.perf_counter()
-            self._cache, toks = self._decode(
-                self.params, self._cache,
-                torch.from_numpy(self._tokens).to(self.device),
-                torch.from_numpy(self._positions).to(self.device),
-                torch.from_numpy(self._temps).to(self.device),
-                self._generator)
-            toks = toks.cpu().numpy()  # fences the step: retirement sees it
-            now = time.perf_counter()
-            decode_ms = (now - t0) * 1000.0
-            self.registry.histogram("serve_decode_step_ms").observe(
-                decode_ms)
-            self.decode_steps += 1
-            self._occupancy_sum += len(active)
-            for req in active:
-                self._positions[req.slot] += 1
-                self._accept_token(req, int(toks[req.slot]), now)
+            # ---- speculative eligibility: the verify step writes k+1
+            # positions per slot; near the page end (or while a slot is
+            # mid-chunk) take the plain decode step, as JAX does, where
+            # dynamic_update_slice would clamp and torch would raise ----
+            spec_tick = (
+                self.spec is not None and not self._chunking
+                and all(int(self._positions[r.slot]) + self.spec.k + 1
+                        <= self.max_len for r in active))
+            if spec_tick:
+                decode_ms = self._spec_step(active, step_span)
+            else:
+                # every slot writes its K/V at its position: JAX's
+                # dynamic_update_slice would clamp an out-of-range start
+                # onto live positions, torch indexing would fault;
+                # neither may happen (_accept_token retires at max_len)
+                if int(self._positions.max()) >= self.max_len:
+                    raise RuntimeError(
+                        f"decode position {int(self._positions.max())} "
+                        f"outside the cache page (max_len {self.max_len})")
+                t0 = time.perf_counter()
+                self._cache, toks = self._decode(
+                    self.params, self._cache,
+                    torch.from_numpy(self._tokens).to(self.device),
+                    torch.from_numpy(self._positions).to(self.device),
+                    torch.from_numpy(self._temps).to(self.device),
+                    self._generator)
+                toks = toks.cpu().numpy()  # fences the step for retirement
+                now = time.perf_counter()
+                decode_ms = (now - t0) * 1000.0
+                self.registry.histogram("serve_decode_step_ms").observe(
+                    decode_ms)
+                self.decode_steps += 1
+                self._occupancy_sum += len(active)
+                for req in active:
+                    if req.decode_span is not None:
+                        req.decode_ms += decode_ms
+                    self._positions[req.slot] += 1
+                    self._accept_token(req, int(toks[req.slot]), now)
+            occupancy_after = sum(r is not None for r in self._slots)
             self.registry.gauge("serve_active_slots").set(
-                float(sum(r is not None for r in self._slots)))
+                float(occupancy_after))
+            if step_span is not None:
+                step_span.set_attr("admissions", admitted)
+                step_span.set_attr("occupancy", len(active))
+                step_span.set_attr("retired",
+                                   len(active) - occupancy_after)
+                step_span.set_attr("queue_depth", len(self._queue))
+                step_span.set_attr("decode_ms", round(decode_ms, 3))
+                step_span.end()
             return self.tokens_total - tokens_before
+
+    def _spec_step(self, active: List[ServeRequest], step_span) -> float:
+        """One speculative iteration (under the scheduler lock): k draft
+        decode steps propose, ONE flagship verify step of width k+1
+        checks, the host accepts the longest matching prefix + the
+        flagship's bonus token per slot. Greedy slots emit 1..k+1 tokens
+        per flagship call and the stream is exactly the non-speculative
+        one; sampling slots accept only position 0's sampled token."""
+        k = self.spec.k
+        t0 = time.perf_counter()
+        drafts = np.zeros((self.n_slots, k), np.int64)
+        cur = self._tokens.copy()
+        dpos = self._positions.copy()
+        temps = torch.from_numpy(self._temps).to(self.device)
+        # k+1 draft steps, not k: the extra one writes the LAST proposal's
+        # K/V into the draft cache, so a fully accepted round leaves no
+        # hole at p+k when the next round starts from p+k+1 (its proposal
+        # is discarded). Eligibility (p + k + 1 <= max_len) bounds every
+        # write.
+        for j in range(k + 1):
+            self._draft_cache, dt = self._draft_decode(
+                self._draft_params, self._draft_cache,
+                torch.from_numpy(cur).to(self.device),
+                torch.from_numpy(dpos).to(self.device), temps,
+                self._generator)
+            if j < k:
+                # proposal j+1 feeds on proposal j: one host read each
+                dt = dt.cpu().numpy()
+                drafts[:, j] = dt
+                cur = dt.astype(np.int64)
+            dpos += 1
+        self.registry.counter("serve_spec_draft_steps_total").inc(k + 1)
+        t1 = time.perf_counter()
+        vt = np.concatenate([self._tokens[:, None], drafts], axis=1)
+        self._cache, vtoks = self._verify(
+            self.params, self._cache, torch.from_numpy(vt).to(self.device),
+            torch.from_numpy(self._positions).to(self.device), temps,
+            self._generator)
+        vtoks = vtoks.cpu().numpy()  # fences the verify for acceptance
+        now = time.perf_counter()
+        draft_ms = (t1 - t0) * 1000.0
+        verify_ms = (now - t1) * 1000.0
+        # a slow verify is attributable to a real request's trace
+        self.registry.histogram("serve_verify_step_ms").observe(
+            verify_ms, exemplar=active[0].trace_id)
+        self.registry.histogram("serve_decode_step_ms").observe(
+            draft_ms + verify_ms)
+        self.registry.counter("serve_spec_verify_steps_total").inc()
+        self.spec_verify_steps += 1
+        self.decode_steps += 1
+        self._occupancy_sum += len(active)
+        for req in active:
+            slot = req.slot
+            p = int(self._positions[slot])
+            if req.temperature > 0:
+                a, emitted = 0, [int(vtoks[slot, 0])]
+            else:
+                a, emitted = accept_longest_prefix(drafts[slot],
+                                                   vtoks[slot])
+            self.spec_accepted_total += a
+            self._spec_proposed_total += k
+            self.registry.counter(
+                "serve_spec_accepted_tokens_total").inc(a)
+            self.registry.histogram(
+                "serve_spec_accepted_per_verify").observe(
+                float(a), exemplar=req.trace_id)
+            if req.decode_span is not None:
+                req.decode_ms += draft_ms + verify_ms
+                req.decode_span.add_event("verify", accepted=a,
+                                          proposed=k,
+                                          emitted=len(emitted))
+            for j, tok in enumerate(emitted):
+                self._positions[slot] = p + j + 1
+                self._accept_token(req, tok, now)
+                if req.done.is_set():
+                    break  # retired mid-run; trailing tokens discarded
+        if self.spec_verify_steps >= 8:
+            self.registry.gauge("serve_spec_accept_rate").set(
+                self.spec_accepted_total
+                / max(1, self._spec_proposed_total))
+        if step_span is not None:
+            step_span.set_attr("speculative", True)
+            step_span.set_attr("draft_ms", round(draft_ms, 3))
+        return draft_ms + verify_ms
 
     def run_until_idle(self, max_steps: int = 100_000) -> int:
         """Drive ``step`` until queue and slots drain; returns tokens."""
@@ -458,7 +929,7 @@ class DecodeEngine:
     # -------------------------------------------------------------- stats ----
     def stats(self) -> dict:
         """Scheduler state + throughput + per-in-flight-request ages, with
-        the JAX engine's keys (the fast-path entries are off here)."""
+        the JAX engine's keys."""
         with self._lock:
             now = time.perf_counter()
             in_flight = []
@@ -497,10 +968,18 @@ class DecodeEngine:
                 "tokens_per_sec": (self.tokens_total / elapsed
                                    if elapsed > 0 else 0.0),
                 "in_flight": in_flight,
-                "prefill_chunk": None,
-                "chunking_slots": 0,
-                "prefix_cache": None,
-                "speculative": None,
+                "prefill_chunk": self.prefill_chunk,
+                "chunking_slots": len(self._chunking),
+                "prefix_cache": (self._prefix.stats()
+                                 if self._prefix is not None else None),
+                "speculative": ({
+                    "k": self.spec.k,
+                    "verify_steps": self.spec_verify_steps,
+                    "accepted_tokens": self.spec_accepted_total,
+                    "accept_rate": (
+                        self.spec_accepted_total
+                        / max(1, self._spec_proposed_total)),
+                } if self.spec is not None else None),
                 "model": dict(self.dims, n_heads=self.n_heads,
                               top_k=self.top_k),
             }

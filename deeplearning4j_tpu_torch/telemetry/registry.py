@@ -8,18 +8,22 @@ Semantics follow the Prometheus client model:
   rejected).
 - ``Gauge``: a float that can go anywhere (``set``/``inc``).
 - ``Histogram``: cumulative bucket counts over fixed ``le`` upper bounds
-  plus ``sum``/``count`` (an implicit ``+Inf`` bucket always exists).
+  plus ``sum``/``count`` (an implicit ``+Inf`` bucket always exists), and
+  per bucket the latest trace exemplar: ``observe(value, exemplar=)``
+  attaches a trace id (by default the calling thread's current span's,
+  when the process tracer of ``telemetry/trace.py`` has one open).
 
 Instruments are identified by (name, labels) and are get-or-create. Every
 instrument guards its state with its own ``threading.Lock``; the registry's
 get-or-create maps are guarded by one ``threading.RLock`` and instrument
 methods never take it, so there is no lock-ordering cycle. The JAX
-package's lockwatch seam and its trace exemplars are not ported yet.
+package's lockwatch seam is not ported yet.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 # per-iteration wall-clock style measurements land in milliseconds
@@ -28,6 +32,19 @@ DEFAULT_BUCKETS: Tuple[float, ...] = (
 )
 
 LabelDict = Optional[Dict[str, str]]
+
+
+def _current_trace_id() -> Optional[str]:
+    """The calling thread's current span's trace id, or None when tracing
+    is off or no span is open. Imported lazily: trace.py takes
+    default_registry from here."""
+    from deeplearning4j_tpu_torch.telemetry import trace as _trace
+
+    tracer = _trace.get_tracer()
+    if tracer is None:
+        return None
+    sp = tracer.current_span()
+    return sp.trace_id if sp is not None else None
 
 
 def _label_key(labels: LabelDict) -> Tuple[Tuple[str, str], ...]:
@@ -82,10 +99,19 @@ class Histogram:
         self._counts = [0] * (len(bs) + 1)  # last slot = +Inf
         self._sum = 0.0
         self._count = 0
+        # per-bucket latest {trace_id, value, ts}: empty unless a trace id
+        # was captured, so snapshots are unchanged when tracing is off
+        self._exemplars: Dict[int, Dict] = {}
 
-    def observe(self, value: float) -> None:
-        """Record one observation."""
+    def observe(self, value: float, exemplar: Optional[str] = None) -> None:
+        """Record one observation. ``exemplar`` attaches a trace id to the
+        observation's bucket (latest wins per bucket); with
+        ``exemplar=None`` the calling thread's current span (the process
+        tracer's) is captured when one is open, and nothing is stored
+        otherwise."""
         value = float(value)
+        if exemplar is None:
+            exemplar = _current_trace_id()
         with self._lock:
             self._sum += value
             self._count += 1
@@ -96,17 +122,36 @@ class Histogram:
             else:
                 idx = len(self.bounds)
             self._counts[idx] += 1
+            if exemplar is not None:
+                self._exemplars[idx] = {"trace_id": str(exemplar),
+                                        "value": value, "ts": time.time()}
+
+    def _exemplar_rows(self) -> List[Dict]:
+        # called under self._lock
+        bounds = list(self.bounds) + [float("inf")]
+        return [{"le": bounds[i], **dict(self._exemplars[i])}
+                for i in sorted(self._exemplars)]
+
+    def exemplars(self) -> List[Dict]:
+        """Recorded exemplars, one per bucket that has one: ``{"le",
+        "trace_id", "value", "ts"}`` sorted by bucket bound."""
+        with self._lock:
+            return self._exemplar_rows()
 
     def snapshot(self) -> Dict:
         """Cumulative bucket counts (Prometheus ``le`` semantics) +
-        sum/count."""
+        sum/count, and an ``exemplars`` list only when exemplars were
+        captured."""
         with self._lock:
             cum, acc = [], 0
             for i, b in enumerate(self.bounds):
                 acc += self._counts[i]
                 cum.append({"le": b, "count": acc})
             cum.append({"le": float("inf"), "count": acc + self._counts[-1]})
-            return {"buckets": cum, "sum": self._sum, "count": self._count}
+            out = {"buckets": cum, "sum": self._sum, "count": self._count}
+            if self._exemplars:
+                out["exemplars"] = self._exemplar_rows()
+            return out
 
     @property
     def count(self) -> int:
