@@ -23,5 +23,12 @@ package's format (``scaleout.ckpt``), and ``train``/``test``/``predict``
 run a MultiLayerNetwork on CSV or svmLight records (``datasets.records``)
 with ``eval.Evaluation``. The engine's fast path (``serve.prefix_cache``,
 ``serve.speculative``, chunked prefill) is traced by ``telemetry.trace``
-and driven under open-loop load by ``serve.loadgen``.
+and driven under open-loop load by ``serve.loadgen``. Slice 5 adds the
+conv layers (``nn.layers.convolution``, ``subsampling``; LeNet's dense
+layers on the fused-dense kernel), the solvers and listeners
+(``optimize.solver``, ``optimize.listeners``) with net-state checkpoints
+(``scaleout.ckpt.net_state``, ``CheckpointIterationListener``), and the
+pretraining layers (``nn.layers.autoencoder``, ``rbm``,
+``recursive_autoencoder``) behind ``MultiLayerNetwork.pretrain`` and
+``finetune``.
 """

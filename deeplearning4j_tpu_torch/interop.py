@@ -9,11 +9,12 @@ stacked blocks, weights stored (in, out)), as torch tensors. The two
 packages then compute the same function.
 
 ``mln_params_from_numpy`` does the same for a ``MultiLayerNetwork``'s
-params (a tuple of per-layer dicts with the key set of a ported layer
-type: DENSE/OUTPUT ``{"W", "b"}``, LSTM ``{"recurrentweights",
-"decoderweights", "decoderbias"}``, ATTENTION ``{"ln_g", "ln_b", "wq",
-"wk", "wv", "wo", "decoderweights", "decoderbias"}``; weights (n_in,
-n_out)), and ``updater_state_from_numpy`` for its updater state (a tuple
+params (a tuple of per-layer dicts with the key set of a layer type:
+DENSE/OUTPUT ``{"W", "b"}``, RBM/AUTOENCODER/RECURSIVE_AUTOENCODER
+``{"W", "b", "vb"}``, CONVOLUTION ``{"convweights", "convbias"}`` (OIHW),
+SUBSAMPLING ``{}``, LSTM ``{"recurrentweights", "decoderweights",
+"decoderbias"}``, ATTENTION ``{"ln_g", "ln_b", "wq", "wk", "wv", "wo",
+"decoderweights", "decoderbias"}``; dense weights (n_in, n_out)), and ``updater_state_from_numpy`` for its updater state (a tuple
 of ``{"hist", "v"}`` trees over the same keys).
 """
 
@@ -31,9 +32,12 @@ _LM_KEYS = ("embed", "blocks", "dec_w", "dec_b")
 _BLOCK_KEYS = ("ln_g", "ln_b", "wq", "wk", "wv", "wo", "ln2_g", "ln2_b",
                "router", "experts")
 _EXPERT_KEYS = ("w1", "b1", "w2", "b2")
-# the parameter keys of each ported layer type (nn/params.py)
+# the parameter keys of each layer type (nn/params.py)
 _LAYER_KEY_SETS = (
     ("W", "b"),
+    ("W", "b", "vb"),
+    ("convweights", "convbias"),
+    (),
     ("recurrentweights", "decoderweights", "decoderbias"),
     ("ln_g", "ln_b", "wq", "wk", "wv", "wo", "decoderweights",
      "decoderbias"),

@@ -174,8 +174,10 @@ def _raw_train_step(conf: MultiLayerConfiguration, policy=None,
                 xin = x.to(policy.compute_dtype)
             score = network_loss(conf, ps, xin, labels, train=True,
                                  key=kdrop)
-            grads = tree_unflatten(params,
-                                   list(torch.autograd.grad(score, leaves)))
+            # a leaf the loss does not reach (a pretraining layer's
+            # visible bias) gets a zero grad, as jax.grad gives it
+            grads = tree_unflatten(params, list(torch.autograd.grad(
+                score, leaves, allow_unused=True, materialize_grads=True)))
         new_params, new_states = [], []
         with torch.no_grad():
             for i in range(conf.n_layers):

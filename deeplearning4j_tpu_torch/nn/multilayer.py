@@ -9,9 +9,10 @@ package loads in the other.
 
 The network lives on one device: CUDA unless ``device="cpu"``. Everything
 runs through the functional core in ``nn/functional.py``; this class owns
-state (params tree, updater state, keys) and the host-side loops. Greedy
-pretraining, finetuning and listeners wait for the solvers and listeners
-of ROADMAP slice 5 and raise ``NotImplementedError`` until then.
+state (params tree, updater state, keys) and the host-side loops:
+backprop, epochs, greedy layerwise pretraining and finetuning through
+``optimize.solver.Solver``, and iteration listeners (dispatched through
+``optimize.listeners.dispatch_listeners``, closed in a ``finally``).
 """
 
 from __future__ import annotations
@@ -28,15 +29,25 @@ from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.datasets.iterator import DataSetIterator, \
     ListDataSetIterator
 from deeplearning4j_tpu_torch.nn import functional as F
-from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.api import LayerType, OptimizationAlgorithm
+from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration, \
+    NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.gradient import flatten_params, num_params, \
     unflatten_params
+from deeplearning4j_tpu_torch.nn.layers import autoencoder as ae_ops
+from deeplearning4j_tpu_torch.nn.layers import output as output_ops
+from deeplearning4j_tpu_torch.nn.layers import rbm as rbm_ops
+from deeplearning4j_tpu_torch.nn.layers import \
+    recursive_autoencoder as rae_ops
 from deeplearning4j_tpu_torch.ops.rng import KeySequence
+from deeplearning4j_tpu_torch.optimize.listeners import close_listeners, \
+    dispatch_listeners
+from deeplearning4j_tpu_torch.optimize.solver import Solver
 
 DataLike = Union[DataSet, DataSetIterator]
 
-_SOLVERS_SLICE = ("ROADMAP slice 5, item 14 (solvers and listeners) with "
-                  "item 13 (pretraining layers)")
+_PRETRAIN_LAYERS = (LayerType.RBM, LayerType.AUTOENCODER,
+                    LayerType.RECURSIVE_AUTOENCODER)
 
 
 def _as_iterator(data, labels=None,
@@ -81,11 +92,7 @@ class MultiLayerNetwork:
         return self._params
 
     def set_listeners(self, listeners: Sequence) -> None:
-        if listeners:
-            raise NotImplementedError(
-                f"iteration listeners are not ported yet: they come with "
-                f"{_SOLVERS_SLICE}")
-        self.listeners = []
+        self.listeners = list(listeners)
 
     # ---- flat parameter vector API (ref: params/setParams :744-835) ----
     def params(self) -> torch.Tensor:
@@ -137,19 +144,20 @@ class MultiLayerNetwork:
     # ---- training ----
     def fit(self, data: DataLike, labels=None,
             batch_size: Optional[int] = None) -> None:
-        """Backprop over every batch, ``num_iterations`` steps each (ref:
-        MultiLayerNetwork.fit :936-956). A conf with ``pretrain=True``
-        needs the pretrain and finetune phases, which are not ported
-        yet."""
-        if self.conf.pretrain:
-            raise NotImplementedError(
-                f"fit() on a conf with pretrain=True runs pretrain() and "
-                f"finetune(), which come with {_SOLVERS_SLICE}")
+        """pretrain → finetune → backprop (ref: MultiLayerNetwork.fit
+        :936-956)."""
         it = _as_iterator(data, labels, batch_size)
-        if self.conf.backward:
-            it.reset()
-            for batch in it:
-                self._do_backward(batch.features, batch.labels)
+        try:
+            if self.conf.pretrain:
+                self.pretrain(it)
+                it.reset()
+                self.finetune(it)
+            if self.conf.backward:
+                it.reset()
+                for batch in it:
+                    self._do_backward(batch.features, batch.labels)
+        finally:
+            close_listeners(self.listeners)
 
     def _ensure_train_step(self):
         if self._train_step is None:
@@ -168,9 +176,16 @@ class MultiLayerNetwork:
         x, y = self._input(features), self._input(labels)
         params, state = self.params_tree, self._train_state
         for _ in range(self.conf.conf(0).num_iterations):
-            params, state, _ = self._train_step(
+            params, state, score = self._train_step(
                 params, state, self._iteration, x, y, self._keys.next())
             self._iteration += 1
+            if self.listeners:
+                # the facade holds this iteration's params and updater
+                # state before dispatch, so a listener that captures the
+                # net's state (CheckpointIterationListener) sees them
+                self._params, self._train_state = params, state
+                dispatch_listeners(self.listeners, self, self._iteration,
+                                   float(score))
         self._params, self._train_state = params, state
 
     def fit_epochs(self, data: DataLike, num_epochs: int = 1, labels=None,
@@ -180,25 +195,100 @@ class MultiLayerNetwork:
         self._ensure_train_step()
         it = _as_iterator(data, labels, batch_size)
         params, state = self.params_tree, self._train_state
-        for _ in range(num_epochs):
-            it.reset()
-            for batch in it:
-                params, state, _ = self._train_step(
-                    params, state, self._iteration,
-                    self._input(batch.features), self._input(batch.labels),
-                    self._keys.next())
-                self._iteration += 1
+        try:
+            for _ in range(num_epochs):
+                it.reset()
+                for batch in it:
+                    params, state, score = self._train_step(
+                        params, state, self._iteration,
+                        self._input(batch.features),
+                        self._input(batch.labels), self._keys.next())
+                    self._iteration += 1
+                    if self.listeners:
+                        # fresh state before dispatch: see _do_backward
+                        self._params, self._train_state = params, state
+                        dispatch_listeners(self.listeners, self,
+                                           self._iteration, float(score))
+        finally:
+            close_listeners(self.listeners)
         self._params, self._train_state = params, state
 
     def pretrain(self, data: DataLike, labels=None) -> None:
         """Greedy layerwise unsupervised pretraining
         (ref: MultiLayerNetwork.pretrain :150-191)."""
-        raise NotImplementedError(f"pretrain() comes with {_SOLVERS_SLICE}")
+        it = _as_iterator(data, labels)
+        params = list(self.params_tree)
+        for i in range(self.conf.n_layers):
+            conf_i = self.conf.conf(i)
+            if conf_i.layer_type not in _PRETRAIN_LAYERS:
+                continue
+            it.reset()
+            for batch in it:
+                with torch.no_grad():
+                    layer_input = F.hidden_activation(
+                        self.conf, tuple(params), self._input(batch.features),
+                        i)
+                params[i] = self._pretrain_layer(conf_i, params[i],
+                                                 layer_input)
+        self._params = tuple(params)
+
+    def _pretrain_layer(self, conf: NeuralNetConfiguration, layer_params,
+                        x: torch.Tensor):
+        if conf.layer_type == LayerType.RBM:
+            def score_fn(p, key):
+                return rbm_ops.reconstruction_error(conf, p, x)
+
+            def grad_fn(p, key):
+                return rbm_ops.contrastive_divergence(conf, p, x, key)
+
+            solver = Solver(conf, score_fn, grad_fn=grad_fn,
+                            listeners=self.listeners,
+                            num_iterations=conf.num_iterations)
+            # CD gradients do not come from the score surface, so a line
+            # search means nothing here: iteration GD, as the reference's
+            # RBM trains through its own gradient() (ref: RBM.java:391-419)
+            return solver.optimize(
+                layer_params, self._keys.next(),
+                algo=OptimizationAlgorithm.ITERATION_GRADIENT_DESCENT)
+        if conf.layer_type in (LayerType.AUTOENCODER,
+                               LayerType.RECURSIVE_AUTOENCODER):
+            # a fresh corruption mask each iteration for the denoising AE
+            # (ref: AutoEncoder.java getCorruptedInput per gradient call)
+            ops = (ae_ops if conf.layer_type == LayerType.AUTOENCODER
+                   else rae_ops)
+
+            def score_fn(p, key):
+                return ops.pretrain_loss(conf, p, x, key)
+
+            solver = Solver(conf, score_fn, listeners=self.listeners,
+                            num_iterations=conf.num_iterations)
+            return solver.optimize(layer_params, self._keys.next())
+        return layer_params
 
     def finetune(self, data: DataLike, labels=None) -> None:
         """Train the OUTPUT head on top-of-stack activations
         (ref: MultiLayerNetwork.finetune :1033-1084)."""
-        raise NotImplementedError(f"finetune() comes with {_SOLVERS_SLICE}")
+        it = _as_iterator(data, labels)
+        head_idx = self.conf.n_layers - 1
+        head_conf = self.conf.conf(head_idx)
+        if head_conf.layer_type != LayerType.OUTPUT:
+            return
+        params = list(self.params_tree)
+        for batch in it:
+            y = self._input(batch.labels)
+            with torch.no_grad():
+                top = F.hidden_activation(self.conf, tuple(params),
+                                          self._input(batch.features),
+                                          head_idx)
+
+            def score_fn(p, key):
+                return output_ops.output_loss(head_conf, p, top, y)
+
+            solver = Solver(head_conf, score_fn, listeners=self.listeners,
+                            num_iterations=head_conf.num_iterations)
+            params[head_idx] = solver.optimize(params[head_idx],
+                                               self._keys.next())
+        self._params = tuple(params)
 
     # ---- distributed parity ----
     def merge(self, other: "MultiLayerNetwork", batch_size: int) -> None:

@@ -3,9 +3,9 @@ initialization per layer type, with the same parameter keys (ref:
 nn/params/*.java), so flat parameter vectors and checkpoints line up
 between the two packages.
 
-DENSE, OUTPUT, LSTM and ATTENTION are ported; the other layer types come
-with their slices (ROADMAP Queue 1) and raise ``NotImplementedError``
-naming it.
+Every layer type of the JAX package is ported: DENSE, OUTPUT, the
+pretraining layers (RBM, AUTOENCODER, RECURSIVE_AUTOENCODER), CONVOLUTION,
+SUBSAMPLING, LSTM and ATTENTION.
 """
 
 from __future__ import annotations
@@ -30,22 +30,6 @@ RECURRENT_WEIGHT_KEY = "recurrentweights"
 DECODER_WEIGHT_KEY = "decoderweights"
 DECODER_BIAS_KEY = "decoderbias"
 
-# the ROADMAP slice that ports each layer type not ported yet
-UNPORTED_LAYERS = {
-    LayerType.RBM: "slice 5, item 13 (pretraining)",
-    LayerType.AUTOENCODER: "slice 5, item 13 (pretraining)",
-    LayerType.RECURSIVE_AUTOENCODER: "slice 5, item 13 (pretraining)",
-    LayerType.CONVOLUTION: "slice 5, item 12 (LeNet)",
-    LayerType.SUBSAMPLING: "slice 5, item 12 (LeNet)",
-}
-
-
-def unported(layer_type: LayerType, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} for layer type {layer_type.value} is not ported yet: it "
-        f"comes with ROADMAP {UNPORTED_LAYERS[layer_type]}")
-
-
 def _dense_params(key: int, conf: NeuralNetConfiguration,
                   dev: torch.device) -> Dict[str, torch.Tensor]:
     wkey, _ = split(key)
@@ -53,6 +37,42 @@ def _dense_params(key: int, conf: NeuralNetConfiguration,
         WEIGHT_KEY: init_weights(wkey, (conf.n_in, conf.n_out),
                                  conf.weight_init, conf.dist, device=dev),
         BIAS_KEY: torch.zeros((conf.n_out,), device=dev),
+    }
+
+
+def _pretrain_params(key: int, conf: NeuralNetConfiguration,
+                     dev: torch.device) -> Dict[str, torch.Tensor]:
+    p = _dense_params(key, conf, dev)
+    p[VISIBLE_BIAS_KEY] = torch.zeros((conf.n_in,), device=dev)
+    return p
+
+
+def _recursive_ae_params(key: int, conf: NeuralNetConfiguration,
+                         dev: torch.device) -> Dict[str, torch.Tensor]:
+    # combine matrix maps [x_i; parent] (n_in + n_out) -> n_out, decoded with
+    # the transpose (ref: RecursiveAutoEncoder.java / RecursiveParamInitializer)
+    in_dim = conf.n_in + conf.n_out
+    wkey, _ = split(key)
+    return {
+        WEIGHT_KEY: init_weights(wkey, (in_dim, conf.n_out),
+                                 conf.weight_init, conf.dist, device=dev),
+        BIAS_KEY: torch.zeros((conf.n_out,), device=dev),
+        VISIBLE_BIAS_KEY: torch.zeros((in_dim,), device=dev),
+    }
+
+
+def _conv_params(key: int, conf: NeuralNetConfiguration,
+                 dev: torch.device) -> Dict[str, torch.Tensor]:
+    # OIHW filters: (out_channels, in_channels, kh, kw); one batched conv
+    # where the reference loops convn over feature maps (ref:
+    # ConvolutionLayer.java:115-128)
+    kh, kw = conf.filter_size[-2], conf.filter_size[-1]
+    wkey, _ = split(key)
+    return {
+        CONV_WEIGHT_KEY: init_weights(wkey, (conf.n_out, conf.n_in, kh, kw),
+                                      conf.weight_init, conf.dist,
+                                      device=dev),
+        CONV_BIAS_KEY: torch.zeros((conf.n_out,), device=dev),
     }
 
 
@@ -108,12 +128,19 @@ def init_layer_params(key: int, conf: NeuralNetConfiguration,
     """conf → named params on ``device`` (CUDA unless ``device="cpu"``);
     dispatch replaces ref LayerFactories.getFactory."""
     t = conf.layer_type
+    dev = resolve_device(device)
     if t in (LayerType.DENSE, LayerType.OUTPUT):
-        return _dense_params(key, conf, resolve_device(device))
+        return _dense_params(key, conf, dev)
+    if t in (LayerType.RBM, LayerType.AUTOENCODER):
+        return _pretrain_params(key, conf, dev)
+    if t == LayerType.RECURSIVE_AUTOENCODER:
+        return _recursive_ae_params(key, conf, dev)
+    if t == LayerType.CONVOLUTION:
+        return _conv_params(key, conf, dev)
+    if t == LayerType.SUBSAMPLING:
+        return {}  # pooling has no params (ref: SubsampleParamInitializer)
     if t == LayerType.LSTM:
-        return _lstm_params(key, conf, resolve_device(device))
+        return _lstm_params(key, conf, dev)
     if t == LayerType.ATTENTION:
-        return _attention_params(key, conf, resolve_device(device))
-    if t in UNPORTED_LAYERS:
-        raise unported(t, "param init")
+        return _attention_params(key, conf, dev)
     raise ValueError(f"No param initializer for layer type {t}")

@@ -8,7 +8,8 @@ The negative variants flip descent into ascent for maximization objectives;
 the gradient variants ignore the line-search step size (raw gradient step).
 
 The conf's ``step_function`` field selects by name (the conf checks the name
-when it is built); the solvers that apply them come with a later slice.
+when it is built); the line-search solvers (``optimize.solver``) apply
+them.
 Each is a pure function of (x, direction, step) over tensors."""
 
 from __future__ import annotations

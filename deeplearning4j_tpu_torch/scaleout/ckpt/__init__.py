@@ -9,11 +9,14 @@ checkpoints in the JAX package's format, onto one device.
   including one the JAX package saved sharded over a mesh, onto one device:
   each leaf is assembled from its covering chunks via the manifest offsets.
 - ``checkpointer.Checkpointer`` — save, retention GC, ``latest_step()`` /
-  ``restore()`` resume entry points, and telemetry in the port's registry.
+  ``restore()`` resume entry points, ``save_net``/``restore_net`` of a
+  ``MultiLayerNetwork``'s training state (``net_state``), and telemetry in
+  the port's registry; ``CheckpointIterationListener`` saves through the
+  listener chain.
 
 A checkpoint written by either package restores in the other. The live
-redistribution plans, the async writer, ``net_state`` and the listener
-come with later slices (ROADMAP Queue 1).
+redistribution plans and the async writer come with later slices
+(ROADMAP Queue 1).
 """
 
 from deeplearning4j_tpu_torch.scaleout.ckpt.manifest import (  # noqa: F401
@@ -37,4 +40,11 @@ from deeplearning4j_tpu_torch.scaleout.ckpt.reshard import (  # noqa: F401
 )
 from deeplearning4j_tpu_torch.scaleout.ckpt.checkpointer import (  # noqa: F401
     Checkpointer,
+    CheckpointIterationListener,
+)
+from deeplearning4j_tpu_torch.scaleout.ckpt.net_state import (  # noqa: F401
+    capture_net_state,
+    net_state_template,
+    rebuild_net,
+    restore_net_state,
 )

@@ -10,10 +10,14 @@ metrics registry under the JAX package's names (``ckpt_saves_total``,
 ``restore()`` reads a step back onto one device, CUDA unless the caller
 passes ``device="cpu"``.
 
+``save_net``/``restore_net`` write and read a ``MultiLayerNetwork``'s
+full training state (``net_state``), and ``CheckpointIterationListener``
+saves it every ``save_every`` iterations through the listener chain
+(``optimize/listeners.dispatch_listeners``): a raising save is logged and
+skipped, never killing the run.
+
 Not ported yet: the ``ckpt.save``/``ckpt.restore`` trace spans (the port's
-``telemetry/trace``, ROADMAP slice 9); ``restore_net``/``save_net`` and
-``CheckpointIterationListener`` (``net_state`` and the listener chain,
-ROADMAP slice 5, item 14); the multi-process ``save_process``/
+``telemetry/trace``, ROADMAP slice 9); the multi-process ``save_process``/
 ``merge_save`` and ``shardings=`` (ROADMAP slices 7 and 8).
 """
 
@@ -28,6 +32,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 from deeplearning4j_tpu_torch._device import DeviceLike
 from deeplearning4j_tpu_torch.scaleout.ckpt import manifest as mf
+from deeplearning4j_tpu_torch.scaleout.ckpt import net_state as ns
 from deeplearning4j_tpu_torch.scaleout.ckpt.reshard import (
     latest_step,
     latest_step_dir,
@@ -35,10 +40,6 @@ from deeplearning4j_tpu_torch.scaleout.ckpt.reshard import (
     verify_checksums,
 )
 from deeplearning4j_tpu_torch.scaleout.ckpt.sharded_io import save_sharded
-
-_NET_STATE_SLICE = ("ROADMAP slice 5, item 14 (net_state and the listener "
-                    "chain)")
-
 
 class Checkpointer:
     """Checkpoint store with retention and telemetry.
@@ -170,15 +171,32 @@ class Checkpointer:
         reg.counter(f"{p}_restores_total").inc()
         return state, manifest.step, dict(manifest.meta or {})
 
-    def restore_net(self, step: Optional[int] = None):
-        """Rebuild a MultiLayerNetwork from a net-state checkpoint (not
-        ported yet)."""
-        raise NotImplementedError(f"restore_net comes with {_NET_STATE_SLICE}")
+    def restore_net(self, step: Optional[int] = None,
+                    device: DeviceLike = None):
+        """Rebuild a MultiLayerNetwork on ``device`` (CUDA unless
+        ``device="cpu"``) from a net-state checkpoint, one saved by
+        ``CheckpointIterationListener`` or ``save_net`` in either package:
+        returns ``(net, iteration)``."""
+        from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
+        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+        step_dir = self._dir_for(step)
+        manifest = mf.read_manifest(step_dir)
+        meta = dict(manifest.meta or {})
+        net = MultiLayerNetwork(
+            MultiLayerConfiguration.from_json(meta["conf"]),
+            device=device).init()
+        if any(e.path.startswith("['state']") for e in manifest.leaves):
+            net._ensure_train_step()
+        template = ns.net_state_template(net)
+        state, _step, meta = self.restore(template, step=manifest.step,
+                                          device=net.device)
+        ns.restore_net_state(net, state, meta)
+        return net, net._iteration
 
     def save_net(self, net, iteration: Optional[int] = None) -> str:
-        """Save a MultiLayerNetwork's full training state (not ported
-        yet)."""
-        raise NotImplementedError(f"save_net comes with {_NET_STATE_SLICE}")
+        tree, meta = ns.capture_net_state(net, iteration=iteration)
+        return self.save(meta["iteration"], tree, meta=meta)
 
     # --------------------------------------------------------- retention ----
     def gc(self) -> None:
@@ -205,3 +223,34 @@ class Checkpointer:
         for step, step_dir in mf.uncommitted_dirs(self.root):
             if step is not None and step <= newest:
                 shutil.rmtree(step_dir, ignore_errors=True)
+
+
+class CheckpointIterationListener:
+    """Periodic checkpointing through the exception-safe listener chain.
+
+    ``state_fn(model, iteration) -> (tree, meta)`` defaults to
+    ``capture_net_state``: params, updater state, key and iteration. The
+    chain logs and skips a raising listener, so an unwritable disk turns a
+    run checkpoint-less instead of killing it; a partial save is never
+    visible (the manifest commits last).
+    """
+
+    def __init__(self, checkpointer: Checkpointer, save_every: int = 10,
+                 state_fn: Optional[Callable] = None, mesh=None):
+        self.checkpointer = checkpointer
+        self.save_every = max(1, int(save_every))
+        self.state_fn = state_fn
+        self.mesh = mesh
+        self.saved_steps = []
+
+    def __call__(self, model, iteration: int, score: float) -> None:
+        if iteration <= 0 or iteration % self.save_every:
+            return
+        if self.state_fn is not None:
+            tree, meta = self.state_fn(model, iteration)
+        else:
+            tree, meta = ns.capture_net_state(model, iteration=iteration)
+        meta = dict(meta)
+        meta.setdefault("score", float(score))
+        self.checkpointer.save(iteration, tree, meta=meta, mesh=self.mesh)
+        self.saved_steps.append(iteration)

@@ -20,6 +20,7 @@ import torch
 from deeplearning4j_tpu.models import zoo as jzoo
 from deeplearning4j_tpu.nn import conf as jconf
 from deeplearning4j_tpu.nn import gradient as jgrad
+from deeplearning4j_tpu.nn import layers as jlayers
 from deeplearning4j_tpu.nn import params as jparams
 from deeplearning4j_tpu.ops import activations as jact
 from deeplearning4j_tpu.ops import dtypes as jdt
@@ -184,7 +185,9 @@ def test_conf_json_loads_across_packages_both_ways(make):
     assert tconf.NeuralNetConfiguration.from_json(single).to_json() == single
 
 
-@pytest.mark.parametrize("make", ["mnist_mlp", "digits_mlp"])
+@pytest.mark.parametrize("make", ["mnist_mlp", "digits_mlp", "lenet",
+                                  "digits_conv", "conv_wide",
+                                  "stacked_denoising_autoencoder"])
 def test_zoo_confs_equal_field_for_field(make):
     jc, tc = getattr(jzoo, make)(), getattr(tzoo, make)()
     assert json.loads(tc.to_json()) == json.loads(jc.to_json())
@@ -363,7 +366,7 @@ def test_apply_updater_matches_jax(case):
         tparams_ = {k: tparams_[k] - tup[k] for k in tparams_}
 
 
-# ------------------------------------------------ dropout, unported ----
+# ------------------------------------------- dropout, slice 5 layers ----
 
 def test_dropout_keeps_rate_scales_and_is_identity_at_eval():
     x = torch.ones(400, 500)
@@ -397,16 +400,42 @@ def test_drop_connect_masks_weights_at_half_and_scales_by_two():
     assert abs(float((out != 0).float().mean()) - 0.5) < 0.01
 
 
+# the layer types slice 5 ported; their inputs as the layer takes them
+_SLICE5_LAYERS = {
+    "RBM": dict(n_in=4, n_out=3),
+    "AUTOENCODER": dict(n_in=4, n_out=3),
+    "RECURSIVE_AUTOENCODER": dict(n_in=4, n_out=3),
+    "CONVOLUTION": dict(n_in=2, n_out=3, filter_size=(3, 3)),
+    "SUBSAMPLING": dict(stride=(2, 2)),
+}
+
+
 @pytest.mark.parametrize("layer_type", ["RBM", "AUTOENCODER",
                                         "RECURSIVE_AUTOENCODER",
                                         "CONVOLUTION", "SUBSAMPLING"])
 def test_unported_layer_types_name_their_slice(layer_type):
-    conf = tconf.NeuralNetConfiguration(layer_type=layer_type, n_in=4,
-                                        n_out=4)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tparams.init_layer_params(0, conf, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tlayers.forward(conf, {}, torch.ones(2, 4))
+    """The five layer types that raised naming slice 5 until it ported
+    them: each inits with the JAX package's keys, shapes and dtypes, and
+    its forward runs and agrees with JAX's on the same params."""
+    kw = dict(layer_type=layer_type, activation_function="tanh",
+              **_SLICE5_LAYERS[layer_type])
+    tc, jc = tconf.NeuralNetConfiguration(**kw), \
+        jconf.NeuralNetConfiguration(**kw)
+    tp = tparams.init_layer_params(0, tc, device="cpu")
+    jp = jparams.init_layer_params(jax.random.PRNGKey(0), jc)
+    assert sorted(tp) == sorted(jp)
+    for k in jp:
+        assert tuple(tp[k].shape) == jp[k].shape, k
+        assert str(tp[k].dtype).split(".")[1] == str(jp[k].dtype), k
+    shape = ((2, 2, 6, 7) if layer_type in ("CONVOLUTION", "SUBSAMPLING")
+             else (5, 4))
+    x = np.random.RandomState(1).rand(*shape).astype(np.float32)
+    jp = {k: jnp.asarray(interop.tree_to_numpy(v)) for k, v in tp.items()}
+    got = tlayers.forward(tc, tp, torch.from_numpy(x))
+    want = jlayers.forward(jc, jp, jnp.asarray(x))
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6,
+                               rtol=0)
 
 
 @pytest.mark.parametrize("layer_type", ["LSTM", "ATTENTION"])

@@ -482,8 +482,12 @@ def test_interop_rejects_other_key_sets(jax_params, case):
         with pytest.raises(ValueError, match="ported layer type"):
             interop.mln_params_from_numpy((layer,), device="cpu")
     elif case == "conv":
-        conv = {"convweights": np.zeros((2, 1, 3, 3)),
-                "convbias": np.zeros(2)}
+        # a conv layer carries across whole (slice 5), not without its
+        # bias
+        conv = {"convweights": np.zeros((2, 1, 3, 3), np.float32),
+                "convbias": np.zeros(2, np.float32)}
+        assert interop.mln_params_from_numpy((conv,), device="cpu")
+        del conv["convbias"]
         with pytest.raises(ValueError, match="ported layer type"):
             interop.mln_params_from_numpy((conv,), device="cpu")
     elif case == "extra_key":
