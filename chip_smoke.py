@@ -178,7 +178,28 @@ Phases, each fatal on failure:
    CheckpointIterationListener saving every 50 iterations, and
    restore_net of step 50 equal (torch.equal, on the card) to the
    params, updater state and key the live net held at that iteration;
-10. output: the card's name and power limit from nvidia-smi, one JSON line
+10. slice 6 (no kernel of the port runs on its path but K1 in the last
+   step): the native host library's g++ build time (built beside the
+   nvcc builds of phase 1); Word2Vec's build_vocab on bench.py's
+   word2vec_large corpus (20,000 sentences of 100 words, zipf over
+   50,000 words, numpy seed 0) through the native path (its
+   corpus_index call counted) and the Python path, both wall times, equal
+   vocab and index arrays; at word2vec_large's width (D 256, window 5,
+   negative 5 shared in groups, sample 1e-3, batch 65,536) a warm fit,
+   a fit timed to block_until_ready (words/s: corpus words over wall;
+   last_fit_timings) and a profiled fit (busy share, device operations a
+   step, the top ones); the same at bench.py's toy word2vec scale (V
+   5,000, D 100, 200k words, batch 8,192) with shared and per-pair
+   negatives and with hierarchical softmax; one SGNS (shared, per-pair)
+   and one HS epoch of the device functions on the card against the CPU
+   from the same draws (W2V_CARD_TOL); the tests' learning checks of
+   Word2Vec, GloVe and ParagraphVectors on the card; the toy model's
+   vectors through the text and the binary serializer and back; and
+   NativeCSVDataSetIterator over a CSV of synthetic_mnist feeding two
+   epochs of MultiLayerNetwork.fit_epochs of the MNIST MLP (native, K1
+   exactly 2 launches a step, the score falling); each number beside the
+   card's name and power limit;
+11. output: the card's name and power limit from nvidia-smi, one JSON line
    listing each kernel (K3f at the serving shape; K3f, K3k, K3q at the
    training shape in f32 and bf16 with their launches over the timed f32
    training run; K1 at both MLP layer shapes in f32 and bf16 with its
@@ -199,7 +220,8 @@ Phases, each fatal on failure:
 Parity phases run with TF32 off (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 False), so f32 products are full f32.
 Without CUDA, or outside a checkout of the repository, the script fails
-before printing any result.
+before printing any result. The last log line before the output gives the
+whole script's time.
 """
 
 from __future__ import annotations
@@ -347,19 +369,31 @@ TENSOR_CORE_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv",
 
 
 def build_kernels() -> None:
+    from deeplearning4j_tpu_torch.native import lib as nlib
     from deeplearning4j_tpu_torch.ops import _kernels
+
+    def native_build():
+        t = time.perf_counter()
+        fresh = not nlib.library_path().exists()
+        path = nlib.build()
+        return {"path": path.name, "built": fresh,
+                "build_s": time.perf_counter() - t}
 
     names = sorted(_kernels.LAUNCHES)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+    with ThreadPoolExecutor(max_workers=len(names) + 1) as pool:
+        native = pool.submit(native_build)  # g++ beside the nvcc builds
         for name, path in zip(names, pool.map(_kernels.build, names)):
             log(f"[build] {name}: {path.name}")
             for line in _kernels.build_logs.get(name, "").splitlines():
                 if any(w in line for w in ("registers", "spill", "error",
                                            "warning")):
                     log(f"[build]   {line.strip()}")
+        NATIVE_BUILD.update(native.result())
     log(f"[build] {len(names)} kernel(s) built in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{time.perf_counter() - t0:.2f} s; the native library "
+        f"{NATIVE_BUILD['path']} by g++ in {NATIVE_BUILD['build_s']:.2f} s"
+        f"{'' if NATIVE_BUILD['built'] else ' (found built)'}")
     cuobjdump = _cuda_tool("cuobjdump")
     if cuobjdump is None:
         log("[build] cuobjdump not found: tensor-core instruction counts "
@@ -3324,10 +3358,399 @@ def slice5() -> list:
     return entries
 
 
+# ------------------------------------------------------------ phase 10 ----
+
+# word2vec at bench.py's two scales (measure_word2vec, bench.py:529-558,
+# :3061-3067): the zipf corpus of numpy seed 0, window 5, negative 5,
+# sample 1e-3, one iteration, seed 1; words/s is corpus words over the
+# fenced wall time of one warm fit
+W2V_LARGE = dict(n_sentences=20_000, sent_len=100, vocab=50_000,
+                 layer_size=256, batch_size=65_536)
+W2V_TOY = dict(n_sentences=2_000, sent_len=100, vocab=5_000,
+               layer_size=100, batch_size=8_192)
+# one SGNS (shared and per-pair) and one HS epoch on the card against the
+# port's CPU run from the same draws: max abs difference of every table
+# (values of a few tenths), and pair counts exactly. Both sides sum in f32
+# in other orders (the card's index_add_ with atomics)
+W2V_CARD_TOL = 1e-5
+# NativeCSVDataSetIterator feeding the MNIST MLP: CSV rows, batch
+NATIVE_CSV_ROWS, NATIVE_CSV_BATCH = 2048, 512
+NATIVE_BUILD = {}   # the native library's build, filled by build_kernels
+
+
+def _w2v_corpus(n_sentences, sent_len, vocab, **_) -> list:
+    """bench.py's word2vec corpus: zipf-ish word ids, numpy seed 0."""
+    rng = np.random.default_rng(0)
+    words = np.array([f"w{i}" for i in range(vocab)])
+    probs = 1.0 / np.arange(1, vocab + 1)
+    probs /= probs.sum()
+    ids = rng.choice(vocab, (n_sentences, sent_len), p=probs)
+    return [" ".join(row) for row in words[ids]]
+
+
+def _topic_corpus(n: int) -> list:
+    """The tests' two-topic corpus (fruit and machine words)."""
+    fruit = "apple banana cherry fruit sweet juice"
+    tech = "cpu gpu chip silicon compute memory"
+    rng = np.random.default_rng(0)
+    sents = []
+    for _ in range(n):
+        sents.append(" ".join(rng.permutation(fruit.split()).tolist()))
+        sents.append(" ".join(rng.permutation(tech.split()).tolist()))
+    return sents
+
+
+def _w2v(sents, device=None, **kw):
+    from deeplearning4j_tpu_torch.models.word2vec import Word2Vec
+    from deeplearning4j_tpu_torch.text.sentence_iterator import (
+        CollectionSentenceIterator,
+    )
+
+    opts = dict(window=5, negative=5, iterations=1, sample=1e-3, seed=1)
+    opts.update(kw)
+    return Word2Vec(sentence_iterator=CollectionSentenceIterator(sents),
+                    device=device or DEVICE, **opts)
+
+
+def w2v_vocab(sents, smi: str) -> dict:
+    """build_vocab on the word2vec_large corpus through the native path
+    (asserted by its call count) and through the Python path: wall time of
+    each, and equal vocab and index arrays."""
+    from deeplearning4j_tpu_torch.native import lib as nlib
+
+    runs = {}
+    for path in ("native", "python"):
+        vec = _w2v(sents, layer_size=8)
+        if path == "python":
+            vec._native_path_possible = lambda: False
+        nlib.reset_calls()
+        t0 = time.perf_counter()
+        vec.build_vocab()
+        runs[path] = (vec, time.perf_counter() - t0,
+                      nlib.CALLS["corpus_index"])
+    (nat, nat_s, nat_calls), (py, py_s, py_calls) = runs["native"], \
+        runs["python"]
+    if (nat_calls, py_calls) != (1, 0):
+        raise AssertionError(f"corpus_index calls: native path {nat_calls}, "
+                             f"python path {py_calls}; expected 1 and 0")
+    same = ([(w.word, w.count) for w in nat.vocab.words()]
+            == [(w.word, w.count) for w in py.vocab.words()]
+            and np.array_equal(nat._flat, py._flat)
+            and np.array_equal(nat._sid, py._sid))
+    if not same:
+        raise AssertionError("native and python vocab paths disagree")
+    out = {"words": len(sents) * len(sents[0].split()),
+           "vocab": nat.vocab.num_words(), "native_s": nat_s,
+           "python_s": py_s, "python_over_native": py_s / nat_s,
+           "native_corpus_index_calls": nat_calls, "card": smi}
+    log(f"[w2v] build_vocab {json.dumps(out)}")
+    return out
+
+
+def w2v_fit(name, sents, smi, profiled=True, **kw) -> dict:
+    """A warm fit, then one fit timed to the fence (block_until_ready):
+    words/s and last_fit_timings; with ``profiled`` one more fit under
+    torch.profiler for the busy share and the device operations a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.models.word2vec import neg_group_size
+
+    vec = _w2v(sents, **kw)
+    vec.build_vocab()
+    vec.fit()
+    vec.block_until_ready()
+    sync()
+    t0 = time.perf_counter()
+    vec.fit()
+    vec.block_until_ready()
+    wall = time.perf_counter() - t0
+    words = sum(len(s.split()) for s in sents)
+    block = max(-(-vec.batch_size // (2 * vec.window)), 1)
+    n_steps = -(-int(vec._flat.size) // block)
+    bsz = block * 2 * vec.window
+    out = {"run": name, "words": words, "vocab": vec.vocab.num_words(),
+           "layer_size": vec.layer_size, "batch_pairs": bsz,
+           "neg_group": (neg_group_size(bsz, vec.shared_negatives)
+                         if vec.shared_negatives and vec.negative else 0),
+           "hs": vec.use_hs, "steps_per_epoch": n_steps, "wall_s": wall,
+           "words_per_s": words / wall, "ms_per_step": wall * 1e3 / n_steps,
+           "last_fit_timings": vec.last_fit_timings, "card": smi}
+    table = vec.lookup_table
+    if not np.isfinite(table.syn0).all() or vec.total_words_trained <= 0:
+        raise AssertionError(f"{name}: non-finite table or no pairs trained")
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            vec.fit()
+            vec.block_until_ready()
+            pwall = time.perf_counter() - t0
+        busy = device_busy(prof, pwall)
+        counts = _by_name(prof, lambda e: e.count)
+        out["profiled"] = {
+            "busy_share": busy["busy_share"],
+            "device_busy_ms": busy["device_busy_ms"],
+            "wall_ms": busy["wall_ms"],
+            "device_ops_per_step": sum(counts.values()) / n_steps,
+            "top_device_ms": busy["top_kernels_ms"],
+            "top_device_ops_per_step": {
+                k: n / n_steps for k, n in list(counts.items())[:8]}}
+    log(f"[w2v] fit {json.dumps(out)}")
+    return out
+
+
+def w2v_card_parity() -> dict:
+    """One SGNS epoch (shared and per-pair negatives) and one HS epoch of
+    the device functions on the card and on the CPU, the draws made on the
+    CPU and moved to the card: every table within W2V_CARD_TOL, pair counts
+    equal."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import word2vec as w2v
+
+    vec = _w2v(_w2v_corpus(60, 50, 300), device="cpu", layer_size=32,
+               batch_size=256, use_hierarchic_softmax=True, sample=1e-2)
+    vec.build_vocab()
+    flat, sid = (torch.from_numpy(a.astype(np.int64))
+                 for a in (vec._flat, vec._sid))
+    keep = torch.from_numpy(vec._keep_probs().astype(np.float32))
+    table = vec.lookup_table
+    syn0 = torch.from_numpy(np.array(table.syn0))
+    rng = np.random.default_rng(5)
+    syn1 = torch.from_numpy(
+        (rng.normal(size=table.syn1.shape) * 0.1).astype(np.float32))
+    syn1neg = torch.from_numpy(
+        (rng.normal(size=table.syn1neg.shape) * 0.1).astype(np.float32))
+    neg_table = w2v.build_neg_table(table.unigram_probs(), device="cpu")
+    hs = [t.cpu() for t in vec._huffman_tables()]
+    window, block = vec.window, 64
+    n_steps = -(-flat.numel() // block)
+    lrs = torch.linspace(0.05, 0.01, n_steps)
+    orig = (w2v._keep_uniforms, w2v._window_draws, w2v._neg_slots)
+    w2v._keep_uniforms = lambda k, n, d: orig[0](k, n, "cpu").to(d)
+    w2v._window_draws = lambda k, n, win, d: orig[1](k, n, win, "cpu").to(d)
+    w2v._neg_slots = lambda k, s, slots, d: orig[2](k, s, slots, "cpu").to(d)
+
+    def on(dev, tensors):
+        return [t.to(dev).clone() for t in tensors]
+
+    out = {}
+    try:
+        for run in ("sgns shared", "sgns per-pair", "hs"):
+            res = {}
+            for dev in ("cpu", DEVICE):
+                if run == "hs":
+                    a = on(dev, [syn0, syn1, flat, sid, keep, *hs, lrs])
+                    res[dev] = w2v._hs_device_epoch(
+                        *a, 7, window=window, block=block, n_steps=n_steps)
+                else:
+                    a = on(dev, [syn0, syn1neg, flat, sid, keep, neg_table,
+                                 lrs])
+                    res[dev] = w2v._sgns_device_epoch(
+                        *a, 7, window=window, negative=5, block=block,
+                        n_steps=n_steps,
+                        neg_group=8 if run == "sgns shared" else 0)
+            cpu, card = res["cpu"], res[DEVICE]
+            errs = [float((c.cpu() - h).abs().max())
+                    for c, h in zip(card[:2], cpu[:2])]
+            pairs = (float(card[3]), float(cpu[3]))
+            out[run] = {"max_abs_err": errs, "pairs": pairs[1],
+                        "moved": float((cpu[0] - syn0).abs().max())}
+            if max(errs) > W2V_CARD_TOL or pairs[0] != pairs[1] \
+                    or out[run]["moved"] == 0:
+                raise AssertionError(f"word2vec {run} epoch: card against "
+                                     f"CPU {out[run]}, card pairs "
+                                     f"{pairs[0]}")
+    finally:
+        w2v._keep_uniforms, w2v._window_draws, w2v._neg_slots = orig
+    log(f"[parity] word2vec epochs, card against CPU: {json.dumps(out)}")
+    return out
+
+
+def nlp_learning() -> dict:
+    """The tests' learning checks on the card: Word2Vec (shared and
+    per-pair SGNS, HS) separates the two topics, GloVe and
+    ParagraphVectors too."""
+    from deeplearning4j_tpu_torch.models import Glove, ParagraphVectors
+    from deeplearning4j_tpu_torch.text.sentence_iterator import (
+        CollectionSentenceIterator,
+    )
+
+    tech = {"gpu", "chip", "silicon", "compute", "memory"}
+    out = {}
+    for run, kw in (("sgns shared", dict(lr=0.05)),
+                    ("sgns per-pair", dict(lr=0.1, shared_negatives=0)),
+                    ("hs", dict(lr=0.1, negative=0,
+                                use_hierarchic_softmax=True))):
+        vec = _w2v(_topic_corpus(200), layer_size=16, window=3,
+                   iterations=10, sample=0, batch_size=128, **kw)
+        vec.fit()
+        near = vec.words_nearest("cpu", 5)
+        pair = (("banana", "cherry"), ("banana", "chip")) if run == "hs" \
+            else (("apple", "banana"), ("apple", "gpu"))
+        same, cross = (vec.similarity(*pair[0]), vec.similarity(*pair[1]))
+        out[run] = {"same": same, "cross": cross, "nearest_cpu": near}
+        # the checks of tests/test_torch_word2vec.py for each objective
+        ok = same > cross and (run != "sgns shared"
+                               or len(tech & set(near)) >= 3)
+        if not ok:
+            raise AssertionError(f"word2vec {run} did not learn the "
+                                 f"topics: {out[run]}")
+    glove = Glove(sentence_iterator=CollectionSentenceIterator(
+        _topic_corpus(150)), layer_size=16, window=5, lr=0.1,
+        iterations=25, x_max=10.0, seed=2, device=DEVICE)
+    glove.fit()
+    near = glove.words_nearest("cpu", 5)
+    out["glove"] = {"loss": [glove.losses[0], glove.losses[-1]],
+                    "same": glove.similarity("apple", "banana"),
+                    "cross": glove.similarity("apple", "gpu"),
+                    "nearest_cpu": near}
+    if not (glove.losses[-1] < glove.losses[0]
+            and out["glove"]["same"] > out["glove"]["cross"]
+            and len(tech & set(near)) >= 3):
+        raise AssertionError(f"GloVe did not learn: {out['glove']}")
+    docs = ([(f"fruit_{i}", "apple banana cherry sweet juice fruit banana "
+              "apple juice") for i in range(10)]
+            + [(f"tech_{i}", "cpu gpu chip silicon compute memory gpu cpu "
+                "compute") for i in range(10)])
+    pv = ParagraphVectors(documents=docs, layer_size=16, window=3,
+                          negative=5, iterations=30, lr=0.25, sample=0,
+                          batch_size=128, seed=3, min_word_frequency=1,
+                          device=DEVICE)
+    pv.fit()
+    near = pv.nearest_docs("tech_0", 5)
+    out["paragraph_vectors"] = {
+        "same": pv.similarity_docs("fruit_0", "fruit_1"),
+        "cross": pv.similarity_docs("fruit_0", "tech_0"),
+        "nearest_tech_0": near}
+    if not (out["paragraph_vectors"]["same"]
+            > out["paragraph_vectors"]["cross"]
+            and sum(lab.startswith("tech_") for lab in near) >= 4):
+        raise AssertionError(f"ParagraphVectors did not learn: "
+                             f"{out['paragraph_vectors']}")
+    log(f"[nlp] learning checks {json.dumps(out)}")
+    return out
+
+
+def w2v_serializers(vec, work) -> dict:
+    """The trained table through the text and the binary word2vec format
+    and back: same words in order, vectors within 1e-6 through the text
+    format (6 decimals, then f32) and equal through the binary one."""
+    from deeplearning4j_tpu_torch.models import embeddings as emb
+
+    table = vec.lookup_table
+    out = {}
+    for kind, write, load, tol in (
+            ("text", emb.write_word_vectors, emb.load_word_vectors, 1e-6),
+            ("binary", emb.write_word_vectors_binary,
+             emb.load_word_vectors_binary, 0.0)):
+        path = f"{work}/vectors.{kind}"
+        t0 = time.perf_counter()
+        write(table, path)
+        vocab, mat = load(path)
+        err = float(np.abs(mat - table.syn0).max())
+        out[kind] = {"s": time.perf_counter() - t0, "max_abs_err": err,
+                     "rows": mat.shape[0]}
+        if ([w.word for w in vocab.words()]
+                != [w.word for w in vec.vocab.words()] or err > tol):
+            raise AssertionError(f"{kind} serializer round trip: {out}")
+    log(f"[w2v] serializers {json.dumps(out)}")
+    return out
+
+
+def native_csv_mlp(work) -> dict:
+    """NativeCSVDataSetIterator over a CSV of synthetic_mnist feeding
+    MultiLayerNetwork.fit_epochs of the MNIST MLP: the loader is native,
+    K1 launches exactly 2 a step, the score falls."""
+    from deeplearning4j_tpu_torch.datasets.async_iterator import (
+        NativeCSVDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.zoo import mnist_mlp
+    from deeplearning4j_tpu_torch.native import lib as nlib
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import _kernels
+
+    path = f"{work}/mnist.csv"
+    x, labels = _write_csv(path, NATIVE_CSV_ROWS, seed=21)
+    it = NativeCSVDataSetIterator(path, NATIVE_CSV_BATCH,
+                                  num_possible_labels=10)
+    steps = -(-NATIVE_CSV_ROWS // NATIVE_CSV_BATCH)
+    net = MultiLayerNetwork(mnist_mlp(MLP_H1, MLP_H2), device=DEVICE).init()
+    probe = DataSet(x[:NATIVE_CSV_BATCH],
+                    np.eye(10, dtype=np.float32)[labels[:NATIVE_CSV_BATCH]])
+    score0 = net.score(probe)
+    nlib.reset_calls()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    net.fit_epochs(it, num_epochs=2)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = _kernels.LAUNCHES["fused_dense"]
+    score1 = net.score(probe)
+    out = {"rows": NATIVE_CSV_ROWS, "batch": NATIVE_CSV_BATCH,
+           "steps": 2 * steps, "native": it.native,
+           "loader_batches": nlib.CALLS["loader_batch"],
+           "launches": launches, "wall_s": wall,
+           "score": [score0, score1]}
+    it.close()
+    if not out["native"] or out["loader_batches"] != 2 * steps:
+        raise AssertionError(f"native CSV iterator did not run: {out}")
+    if launches != 2 * 2 * steps:
+        raise AssertionError(f"fused_dense launched {launches} times over "
+                             f"{2 * steps} steps, expected 2 per step")
+    if not (np.isfinite([score0, score1]).all() and score1 < score0):
+        raise AssertionError(f"native CSV MLP score not falling: {out}")
+    log(f"[native] csv iterator -> MLP {json.dumps(out)}")
+    return out
+
+
+def slice6(smi: str) -> dict:
+    """Phase 10: the text pipeline, the native library and the embedding
+    models (Word2Vec SGNS and HS, GloVe, ParagraphVectors) on the card.
+    No kernel of the port runs here; K1 runs in the CSV iterator's MLP."""
+    import shutil
+    import tempfile
+
+    log(f"[native] library {json.dumps(NATIVE_BUILD)}")
+    work = tempfile.mkdtemp(prefix="dl4j_torch_nlp_")
+    try:
+        large = _w2v_corpus(**W2V_LARGE)
+        out = {"vocab": w2v_vocab(large, smi)}
+        out["large"] = w2v_fit("word2vec_large", large, smi,
+                               layer_size=W2V_LARGE["layer_size"],
+                               batch_size=W2V_LARGE["batch_size"])
+        del large
+        toy = _w2v_corpus(**W2V_TOY)
+        kw = dict(layer_size=W2V_TOY["layer_size"],
+                  batch_size=W2V_TOY["batch_size"])
+        out["toy"] = w2v_fit("word2vec", toy, smi, **kw)
+        out["toy_per_pair"] = w2v_fit("word2vec per-pair", toy, smi,
+                                      profiled=False, shared_negatives=0,
+                                      **kw)
+        out["toy_hs"] = w2v_fit("word2vec hs", toy, smi, profiled=False,
+                                negative=0, use_hierarchic_softmax=True,
+                                **kw)
+        out["card_parity"] = w2v_card_parity()
+        out["learning"] = nlp_learning()
+        vec = _w2v(toy, **kw)
+        vec.fit()
+        out["serializers"] = w2v_serializers(vec, work)
+        out["native_csv"] = native_csv_mlp(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    summary = {k: out[k]["words_per_s"] for k in
+               ("large", "toy", "toy_per_pair", "toy_hs")}
+    log(f"[w2v] words/s {json.dumps(summary)} on {smi}")
+    return out
+
+
 # ---------------------------------------------------------------- main ----
 
 def main() -> int:
     import torch
+
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a GPU",
@@ -3384,6 +3807,8 @@ def main() -> int:
     for entry in mlp_entries:
         entry["cli_launches"] = cli_run["mlp"]["launches"]
     conv_entries = slice5()
+    slice6(smi)
+    log(f"[time] chip_smoke ran {time.perf_counter() - t_start:.1f} s")
 
     print(smi)
     print(json.dumps({"kernels": [serve_entry, *train_entries,

@@ -30,5 +30,14 @@ layers on the fused-dense kernel), the solvers and listeners
 (``scaleout.ckpt.net_state``, ``CheckpointIterationListener``), and the
 pretraining layers (``nn.layers.autoencoder``, ``rbm``,
 ``recursive_autoencoder``) behind ``MultiLayerNetwork.pretrain`` and
-``finetune``.
+``finetune``. Slice 6 adds the text pipeline (``text``), the native host
+library built from the repo's ``native/`` sources (``native``), and the
+embedding models on the device (``models.word2vec``, ``models.glove``,
+``models.paragraph_vectors``).
 """
+
+from deeplearning4j_tpu_torch.nn.conf import (  # noqa: F401
+    NeuralNetConfiguration,
+    MultiLayerConfiguration,
+)
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork  # noqa: F401

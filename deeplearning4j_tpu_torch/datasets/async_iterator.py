@@ -1,7 +1,7 @@
-"""Counterpart of ``deeplearning4j_tpu/datasets/async_iterator.py``:
-async prefetch wrappers feeding the device. ``AsyncDataSetIterator`` is
-copied whole; ``NativeCSVDataSetIterator`` waits for the binding of the
-native library (ROADMAP slice 6) and raises until then.
+"""Counterpart of ``deeplearning4j_tpu/datasets/async_iterator.py``,
+copied whole: async prefetch wrappers feeding the device;
+``NativeCSVDataSetIterator`` runs over the port's binding of the native
+library (``native.lib.NativeCSVLoader``).
 
 The reference feeds batches through an actor pipeline (BatchActor →
 WorkerActor); the TPU equivalent is host-side prefetch ahead of device
@@ -20,6 +20,7 @@ import queue
 import threading
 from typing import Optional
 
+import numpy as np
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.datasets.iterator import DataSetIterator
@@ -94,12 +95,68 @@ class AsyncDataSetIterator(DataSetIterator):
 
 
 class NativeCSVDataSetIterator(DataSetIterator):
-    """DataSet batches straight from the native CSV prefetch loader (not
-    ported yet)."""
+    """DataSet batches straight from the native CSV prefetch loader."""
 
-    def __init__(self, path: str, batch_size: int, **kwargs):
-        raise NotImplementedError(
-            "NativeCSVDataSetIterator comes with ROADMAP slice 6, item 17 "
-            "(the binding of the shared native/ library); "
-            "AsyncDataSetIterator over a RecordReaderDataSetIterator reads "
-            "the same CSV")
+    def __init__(self, path: str, batch_size: int,
+                 num_possible_labels: Optional[int] = None,
+                 label_index: int = -1, delimiter: str = ",",
+                 skip_lines: int = 0, shuffle_seed: int = 0,
+                 queue_capacity: int = 4):
+        from deeplearning4j_tpu_torch.native import NativeCSVLoader
+
+        self.path = path
+        self.batch_size = batch_size
+        self.num_possible_labels = num_possible_labels
+        self.label_index = label_index
+        self._mk = lambda: NativeCSVLoader(
+            path, batch_size, delimiter=delimiter, skip_lines=skip_lines,
+            shuffle_seed=shuffle_seed, queue_capacity=queue_capacity,
+        )
+        self._loader = self._mk()
+        self._iter = iter(self._loader)
+        self._pending: Optional[np.ndarray] = None
+
+    @property
+    def native(self) -> bool:
+        return self._loader.native
+
+    def reset(self) -> None:
+        self._loader.close()
+        self._loader = self._mk()
+        self._iter = iter(self._loader)
+        self._pending = None
+
+    def has_next(self) -> bool:
+        if self._pending is None:
+            self._pending = next(self._iter, None)
+        return self._pending is not None
+
+    def next(self, num=None) -> DataSet:
+        if not self.has_next():
+            raise StopIteration
+        mat, self._pending = self._pending, None
+        li = self.label_index if self.label_index >= 0 else mat.shape[1] - 1
+        labels_col = mat[:, li]
+        features = np.delete(mat, li, axis=1)
+        if self.num_possible_labels is None:
+            labels = labels_col[:, None]
+        else:
+            idx = labels_col.astype(int)
+            labels = np.zeros((len(mat), self.num_possible_labels), np.float32)
+            labels[np.arange(len(mat)), idx] = 1.0
+        return DataSet(features, labels)
+
+    def batch(self) -> int:
+        return self.batch_size
+
+    def total_examples(self) -> int:
+        return int(self._loader.rows)
+
+    def input_columns(self) -> int:
+        return int(self._loader.cols) - 1
+
+    def total_outcomes(self) -> int:
+        return self.num_possible_labels if self.num_possible_labels else 1
+
+    def close(self) -> None:
+        self._loader.close()

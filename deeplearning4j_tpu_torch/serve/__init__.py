@@ -1,7 +1,7 @@
 """The port's serving stack: the decode engine, its fast path (prefix
 cache, speculative decoding), the open-loop load generator and the
-serve_dtype seam. The fleet replica and router come with ROADMAP slice 7
-(the tracker protocol they speak)."""
+serve_dtype seam. The fleet replica and router come with ROADMAP slice 4c,
+after the tracker protocol they speak (item 19)."""
 
 from deeplearning4j_tpu_torch.serve.engine import DecodeEngine, ServeRequest
 from deeplearning4j_tpu_torch.serve.loadgen import (

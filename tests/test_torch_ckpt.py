@@ -8,8 +8,14 @@ shapes, dtypes, chunks, CRCs) and its npz members byte for byte. Every
 comparison here is exact (tolerance 0).
 """
 
-import json
 import os
+
+import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
+import json
 import subprocess
 import sys
 import zipfile
@@ -20,7 +26,6 @@ import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
 import pytest
-import torch
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from deeplearning4j_tpu.models.transformer_lm import (

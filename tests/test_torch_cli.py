@@ -11,6 +11,12 @@ tests/test_torch_multilayer.py's ATOL of the JAX CLI's).
 """
 
 import os
+
+import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 import subprocess
 import sys
 from pathlib import Path
@@ -18,7 +24,6 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
-import torch
 
 from deeplearning4j_tpu.cli.driver import main as jmain
 from deeplearning4j_tpu.models.transformer_lm import (

@@ -29,13 +29,19 @@ window (after a ReLU most ties are zeros, whose upstream gradient is zero
 anyway).
 """
 
+import os
+
+import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from deeplearning4j_tpu.datasets.dataset import DataSet as JDataSet
 from deeplearning4j_tpu.datasets.fetchers import synthetic_mnist as j_mnist

@@ -1,0 +1,105 @@
+"""The port's package-level exports held against the JAX package's: for
+each subpackage, the public names (``__all__`` where the package has one,
+else its non-module attributes without a leading underscore) equal JAX's,
+less the names of slices still to be ported and plus the few names only
+the port has, both listed here with the ROADMAP item that brings them.
+"""
+
+import os
+
+import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
+import importlib
+import types
+
+import pytest
+
+# names of unported slices, by subpackage (ROADMAP Queue 1)
+UNPORTED = {
+    "optimize": {"DivergenceWatchdog"},                       # item 20
+    "utils": {"Counter", "CounterMap",                        # item 19
+              "DiskBasedQueue", "Viterbi", "clamp", "entropy",
+              "information_gain", "normalize_to_range", "rounded",
+              "sigmoid", "sum_of_squares", "uniform"},         # item 21d
+    "scaleout": {"EarlyStopping", "InMemoryStateTracker", "Job",
+                 "LocalDistributedRunner"},                   # item 19
+    "telemetry": {                                            # item 21a
+        "AlertEngine", "AlertRule", "ClusterAggregator", "DEFAULT_INTERVAL",
+        "MemoryWatermarkSampler", "MetricsHistory", "MetricsPusher",
+        "PROMETHEUS_CONTENT_TYPE", "ProfileStore", "ProfiledStep",
+        "RunProfiledStep", "RunProfiler", "StepLogWriter", "StepProfile",
+        "StepTiming", "TrainTelemetry", "Watchtower", "arm_watchtower",
+        "attribute", "chrome_trace_events", "default_profile_store",
+        "default_rules", "default_runprof", "find_sessions", "get_engine",
+        "get_history", "get_runprof", "load_session", "maybe_runprof",
+        "merge_snapshots", "profile_compiled", "profile_lowered",
+        "read_spill", "read_step_log", "render_prometheus",
+        "render_snapshot", "replay_spill", "resolve_runprof",
+        "sanitize_name", "set_engine", "set_history", "set_runprof",
+        "summarize_session", "summarize_step_log"},
+    "serve": {"FleetReplica", "FleetRequest", "FleetRouter",
+              "pick_replica", "replica_main"},                 # slice 4c
+    "parallel": {"ParameterAveragingTrainer", "data_parallel_mesh",
+                 "mesh_2d",                                   # item 18
+                 "get_moe_impl", "moe_apply", "resolve_moe_impl",
+                 "set_moe_impl"},                             # item 20
+}
+
+# names only the port exports
+PORT_ONLY = {
+    "serve": {"activation_dtype"},  # the serve_dtype seam's activation dtype
+    "models": {"Glove", "ParagraphVectors", "Word2Vec"},
+}
+
+SUBPACKAGES = ["", "cli", "datasets", "eval", "models", "native", "nn",
+               "ops", "optimize", "parallel", "scaleout", "serve",
+               "telemetry", "text", "utils"]
+
+
+def _public(mod) -> set:
+    if hasattr(mod, "__all__"):
+        return set(mod.__all__)
+    return {name for name, value in vars(mod).items()
+            if not name.startswith("_")
+            and not isinstance(value, types.ModuleType)}
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES, ids=lambda s: s or "root")
+def test_public_names_equal_jax_less_unported(sub):
+    suffix = "." + sub if sub else ""
+    jmod = importlib.import_module("deeplearning4j_tpu" + suffix)
+    tmod = importlib.import_module("deeplearning4j_tpu_torch" + suffix)
+    unported = UNPORTED.get(sub, set())
+    assert unported <= _public(jmod), "listed as unported but not in JAX"
+    want = (_public(jmod) - unported) | PORT_ONLY.get(sub, set())
+    assert _public(tmod) == want
+    for name in _public(tmod):
+        # every export resolves, and never to the JAX package's object
+        owner = getattr(getattr(tmod, name), "__module__", None) or ""
+        assert owner.split(".")[0] != "deeplearning4j_tpu", (name, owner)
+
+
+def test_repaired_exports_are_present():
+    import deeplearning4j_tpu_torch as pkg
+    from deeplearning4j_tpu_torch import ops, optimize, scaleout, telemetry, \
+        utils
+
+    for mod, names in [
+            (pkg, ["NeuralNetConfiguration", "MultiLayerConfiguration",
+                   "MultiLayerNetwork"]),
+            (ops, ["activation", "activation_names", "LossFunction", "loss"]),
+            (optimize, ["UpdaterState", "init_updater_state",
+                        "apply_updater", "Solver", "GuardConfig",
+                        "guarded_sgd_update"]),
+            (utils, ["MovingWindowMatrix"]),
+            (scaleout, ["CheckpointIterationListener"]),
+            (telemetry, ["global_norm", "MetricsRegistry", "Tracer",
+                         "maybe_span"])]:
+        for name in names:
+            assert hasattr(mod, name), (mod.__name__, name)
+    from deeplearning4j_tpu_torch import serve
+
+    assert "slice 4c" in serve.__doc__ and "slice 7" not in serve.__doc__

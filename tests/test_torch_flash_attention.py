@@ -9,10 +9,16 @@ function. Tolerances: f32 atol 1e-5 (the two sum in different orders), bf16
 atol 3e-2 (inputs and outputs rounded to bf16, ~2^-8 relative).
 """
 
+import os
+
+import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from deeplearning4j_tpu.ops import flash_attention as jfa
 from deeplearning4j_tpu_torch.ops import flash_attention as tfa

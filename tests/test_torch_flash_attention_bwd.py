@@ -10,13 +10,19 @@ JAX (``jax.disable_jit()``: each op rounds to bf16 as torch's do; inputs
 and outputs are bf16, ~2^-8 relative).
 """
 
+import os
+
+import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 import contextlib
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from deeplearning4j_tpu.ops import flash_attention as jfa
 from deeplearning4j_tpu_torch.ops import _kernels

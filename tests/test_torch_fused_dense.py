@@ -18,11 +18,17 @@ Error: max abs error over the reference's max abs value.
   (2^-8 relative each) apart (see the bf16 test for the grads).
 """
 
+import os
+
+import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from deeplearning4j_tpu.ops import pallas_kernels as jpk
 from deeplearning4j_tpu_torch.ops import _kernels

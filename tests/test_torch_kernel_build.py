@@ -7,6 +7,13 @@ uses it instead of loading a stale library from ``_build/``.
 No nvcc is needed: the digest and the include scan run on the host.
 """
 
+import os
+
+import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 import re
 
 import pytest

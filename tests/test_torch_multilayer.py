@@ -16,11 +16,17 @@ sum in different orders); the bf16 policy 3e-2 against eager JAX
 the port rounds each dense forward once and JAX's fallback three times.
 """
 
+import os
+
+import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from deeplearning4j_tpu.datasets.dataset import DataSet as JDataSet
 from deeplearning4j_tpu.datasets.fetchers import synthetic_mnist as j_mnist

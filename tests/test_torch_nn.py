@@ -9,13 +9,19 @@ two libraries' transcendentals differ in the last ulp), updater outputs
 1e-6 absolute (O(1) values, a handful of f32 ops).
 """
 
+import os
+
+import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 import json
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from deeplearning4j_tpu.models import zoo as jzoo
 from deeplearning4j_tpu.nn import conf as jconf

@@ -19,11 +19,17 @@ absolute on params (the SdA trains with the conf's AdaGrad at lr 0.1 and
 momentum 0.5 from JAX's params, on data without near-zero gradients).
 """
 
+import os
+
+import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from deeplearning4j_tpu.datasets.dataset import DataSet as JDataSet
 from deeplearning4j_tpu.datasets.iterator import \

@@ -25,13 +25,19 @@ Tolerances:
 - layer forwards at f32: 1e-5 relative to the reference's max.
 """
 
+import os
+
+import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from deeplearning4j_tpu.datasets.dataset import DataSet as JDataSet
 from deeplearning4j_tpu.models import zoo as jzoo

@@ -7,10 +7,16 @@ package, must emit exactly the JAX engine's tokens from the same
 checkpoint, with more requests than slots.
 """
 
+import os
+
+import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 import jax
 import numpy as np
 import pytest
-import torch
 
 from deeplearning4j_tpu.models.transformer_lm import (
     init_lm_params as j_init_lm_params,

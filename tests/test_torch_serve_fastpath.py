@@ -13,6 +13,13 @@ held against JAX's at f32 atol 1e-4, the tolerance of
 ``tests/test_torch_transformer_lm.py``.
 """
 
+import os
+
+import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 import sys
 import threading
 
@@ -20,7 +27,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from deeplearning4j_tpu.models import transformer_lm as jlm
 from deeplearning4j_tpu.serve.engine import DecodeEngine as JaxEngine

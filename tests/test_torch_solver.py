@@ -15,13 +15,19 @@ search into ~7e-6 absolute after 10 iterations). Checkpoint round trips
 are exact (``torch.equal``, ``np.array_equal``).
 """
 
+import os
+
+import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 import logging
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from deeplearning4j_tpu.nn import conf as jconf
 from deeplearning4j_tpu.nn import params as jparams_mod

@@ -16,9 +16,15 @@ reference's max) for its dq, dk and dv. A single TF32 pass (a_hi*b_hi
 alone) misses them: the tests can tell the two apart.
 """
 
+import os
+
+import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 import numpy as np
 import pytest
-import torch
 
 import chip_smoke
 

@@ -10,8 +10,14 @@ port trace, including the open spans a ``kill -9`` leaves behind. The HTTP
 ``traceparent`` end-to-end test waits for ``ui/server.py`` (slice 9).
 """
 
-import json
 import os
+
+import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
+import json
 import subprocess
 import sys
 import threading

@@ -17,11 +17,17 @@ lr 0.1 reaches 2e-4 on one weight of 8192 while every gradient agrees to
 1e-7.
 """
 
+import os
+
+import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from deeplearning4j_tpu.models import transformer_lm as jlm
 from deeplearning4j_tpu.optimize import guardrails as jguard

@@ -12,13 +12,19 @@ JAX's ``lm_forward`` does not trace at bf16 (its scan carry widens to f32
 through the f32 MoE combine), so it is compared at f32 only.
 """
 
+import os
+
+import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 import contextlib
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from deeplearning4j_tpu.models import transformer_lm as jlm
 from deeplearning4j_tpu.nn.layers.attention import _layernorm as j_layernorm
