@@ -199,7 +199,27 @@ Phases, each fatal on failure:
    epochs of MultiLayerNetwork.fit_epochs of the MNIST MLP (native, K1
    exactly 2 launches a step, the score falling); each number beside the
    card's name and power limit;
-11. output: the card's name and power limit from nvidia-smi, one JSON line
+11. slice 7 (no kernel on the RNTN's path; K1 on the trainer's one
+   rank): the RNTN at Socher's width (num_hidden 25, 5 classes) on
+   8,544 trees (SST's training size) that TreeVectorizer builds from
+   seed-drawn sentences of SST-like length: a 1-iteration warm-up fit,
+   then a 3-iteration fit (trees/s, ms a bucket step, the loss falling),
+   one profiled step of the bucket with the most merges (device
+   operations a merge, busy share); the same fit on 512 trees of 8-40
+   words, and every bucket step of its first iteration
+   against the same step on the CPU from the card's state (RNTN_STEP_TOL,
+   RNTN_LOSS_TOL); then ParameterAveragingTrainer in a real one-rank NCCL
+   group (multihost.initialize on a free localhost port, destroyed in a
+   finally) on the MNIST MLP at batch 512 of synthetic_mnist: fit_epochs,
+   the trainer in both averaging modes, its sync step called directly
+   (no host read a step) with and without the all-reduce
+   (ablate_collectives), and with Adam replicated and ZeRO-sharded,
+   TRAINER_STEPS timed steps each after
+   TRAINER_WARMUP; K1 exactly 2 launches a step, exactly one all-reduce a
+   sync step (and one all-gather sharded), both modes within TRAINER_TOL
+   of fit_epochs from the same params, Adam's modes within ZERO_TOL;
+   samples/s of each beside fit_epochs';
+12. output: the card's name and power limit from nvidia-smi, one JSON line
    listing each kernel (K3f at the serving shape; K3f, K3k, K3q at the
    training shape in f32 and bf16 with their launches over the timed f32
    training run; K1 at both MLP layer shapes in f32 and bf16 with its
@@ -210,7 +230,8 @@ Phases, each fatal on failure:
    the launch floor beside them; K3f's and K1's rows also carry
    ``cli_launches``, their counts over phase 8's CLI runs, and K3f's
    ``fastpath_launches``, its count over each bf16 engine's run of phase
-   3b), and as the
+   3b, and K1's ``trainer_launches``, its counts over phase 11's timed
+   trainer runs), and as the
    last line {"ok": true, "device": {"platform": "gpu", "kind": ...,
    "count": ...}}. An f32 row's bound is that of f32-accurate products: the least
    of the CUDA cores' 67 TFLOP/s and three TF32 products at 495 (the
@@ -3745,6 +3766,441 @@ def slice6(smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 11 ----
+
+# the RNTN at Socher's width (models/rntn.py defaults): 512 trees from
+# TreeVectorizer over seed-drawn sentences of 8-40 words for the card
+# against the CPU and a small fit; the timed fit at the size of SST's
+# training split (8,544 sentences, Socher et al. 2013), lengths drawn
+# around SST-1's mean of 18 words (Kim 2014, Table 1), spread chosen here,
+# clipped to 2-56 words. The vocabulary stays this script's ~100 words
+# (SST's is ~17.8k): it sizes the embedding table, not the merge loop.
+RNTN_TREES, RNTN_MIN_WORDS, RNTN_MAX_WORDS = 512, 8, 40
+SST_TREES, SST_MEAN_WORDS, SST_SD_WORDS = 8544, 18, 8
+SST_MIN_WORDS, SST_MAX_WORDS = 2, 56
+RNTN_HIDDEN, RNTN_CLASSES, RNTN_ITERATIONS = 25, 5, 3
+# each bucket step of the first iteration, the card's against the CPU's
+# from the same state, params and AdaGrad history within this share of each
+# leaf's max: on the CPU an f32 step of this corpus is up to 1.2e-3 of a
+# leaf's max off a float64 step (V, the 64-merge bucket: a merge chain
+# 64 tanh deep, and AdaGrad divides by sqrt(h + 1e-8) where h is small),
+# so two f32 devices agree no closer. Over a whole iteration the
+# trajectory is chaotic (f32 against float64 parts by up to 93% of a
+# leaf's max on the CPU), so steps are held from a shared state.
+RNTN_STEP_TOL = 5e-3
+RNTN_LOSS_TOL = 1e-5  # a bucket step's loss, relative
+# the MNIST MLP through ParameterAveragingTrainer in a one-rank NCCL group
+TRAINER_WARMUP, TRAINER_STEPS = 2, 100
+TRAINER_TOL = 1e-5  # against fit_epochs on the same batches, of each leaf's max
+ZERO_TOL = 1e-6  # Adam sharded against replicated: the same math
+
+_RNTN_VOCAB = (
+    ("the", "a", "this", "that", "every", "some"),
+    ("movie", "film", "plot", "cast", "story", "acting", "scene", "script",
+     "ending", "director", "music", "actor", "camera", "dialogue", "house",
+     "river", "night", "city", "friend", "character", "performance", "show"),
+    ("is", "was", "seems", "feels", "looks", "became", "remains", "loved",
+     "hated", "liked", "enjoyed", "watched", "made", "told", "showed"),
+    ("very", "really", "quite", "quickly", "slowly", "truly", "rather"),
+    ("and", "but", "with", "of", "in", "about", "for", "on", "not", "never"),
+    ("excellent", "outstanding", "superb", "brilliant", "amazing",
+     "wonderful", "beautiful", "great", "good", "nice", "enjoyable",
+     "charming", "clever", "fine", "decent", "okay", "slow", "predictable",
+     "mediocre", "bland", "bad", "poor", "boring", "dull", "weak", "silly",
+     "terrible", "awful", "horrible", "dreadful", "painful", "old", "long",
+     "new", "young", "dark"),
+)
+# determiners, nouns, verbs, adverbs, function words, adjectives
+_RNTN_WEIGHTS = (0.18, 0.24, 0.14, 0.08, 0.14, 0.22)
+
+
+def _rntn_sentences(n: int, seed: int, sst: bool = False) -> str:
+    """``n`` sentences drawn from _RNTN_VOCAB's classes (numpy seed), each
+    ending in " .": RNTN_MIN_WORDS to RNTN_MAX_WORDS words, uniform, or
+    with ``sst`` SST-like lengths (SST_MEAN_WORDS, clipped)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        if sst:
+            k = int(np.clip(np.rint(rng.normal(SST_MEAN_WORDS,
+                                               SST_SD_WORDS)),
+                            SST_MIN_WORDS, SST_MAX_WORDS))
+        else:
+            k = int(rng.integers(RNTN_MIN_WORDS, RNTN_MAX_WORDS + 1))
+        groups = rng.choice(len(_RNTN_VOCAB), size=k, p=_RNTN_WEIGHTS)
+        out.append(" ".join(
+            _RNTN_VOCAB[g][int(rng.integers(len(_RNTN_VOCAB[g])))]
+            for g in groups) + " .")
+    return " ".join(out)
+
+
+def _rntn_tensors(bucket, device):
+    import torch
+
+    leaf, mrg, mmask, lbls, smask = bucket
+    return (torch.from_numpy(leaf).long().to(device),
+            torch.from_numpy(mrg).long().to(device),
+            torch.from_numpy(mmask).to(device),
+            torch.from_numpy(lbls).to(device),
+            torch.from_numpy(smask).to(device))
+
+
+def _leaf_rel_errs(got: dict, want: dict) -> dict:
+    return {k: float((got[k].cpu() - want[k]).abs().max()
+                     / want[k].abs().max().clamp_min(1e-30))
+            for k in want}
+
+
+def rntn_card_parity(trees) -> dict:
+    """Every bucket step of the first iteration on the card against the
+    same step on the CPU from the card's state before it: params and
+    AdaGrad history within RNTN_STEP_TOL of each leaf's max, the loss
+    within RNTN_LOSS_TOL."""
+    from deeplearning4j_tpu_torch.interop import rntn_params_from_numpy
+    from deeplearning4j_tpu_torch.models import rntn as R
+
+    model = R.RNTN(num_hidden=RNTN_HIDDEN, num_classes=RNTN_CLASSES,
+                   seed=0, device=DEVICE)
+    model._build_vocab(trees)
+    params = rntn_params_from_numpy(model._init_params(), DEVICE)
+    hist = {k: v.new_zeros(v.shape) for k, v in params.items()}
+    steps = []
+    for bucket in model._prepare(trees):
+        host_p = {k: v.cpu() for k, v in params.items()}
+        host_h = {k: v.cpu() for k, v in hist.items()}
+        params, hist, loss = R._rntn_batch_step(
+            params, hist, *_rntn_tensors(bucket, DEVICE), model.lr,
+            model.l2)
+        want_p, want_h, want_loss = R._rntn_batch_step(
+            host_p, host_h, *_rntn_tensors(bucket, "cpu"), model.lr,
+            model.l2)
+        step = {"trees": int(bucket[0].shape[0]),
+                "merges": int(bucket[1].shape[1]),
+                "params": _leaf_rel_errs(params, want_p),
+                "hist": _leaf_rel_errs(hist, want_h),
+                "loss": abs(float(loss) / float(want_loss) - 1.0)}
+        steps.append(step)
+        worst = max(max(step["params"].values()), max(step["hist"].values()))
+        if worst > RNTN_STEP_TOL or step["loss"] > RNTN_LOSS_TOL:
+            raise AssertionError(f"RNTN bucket step, card against CPU: "
+                                 f"{step}")
+    out = {"steps": steps, "worst_param_or_hist": max(
+        max(max(s["params"].values()), max(s["hist"].values()))
+        for s in steps), "worst_loss": max(s["loss"] for s in steps)}
+    log(f"[parity] rntn bucket steps, card against CPU {json.dumps(out)}")
+    return out
+
+
+def rntn_step_profile(model, trees) -> dict:
+    """One AdaGrad step on the bucket with the most merges, under
+    torch.profiler after a warm-up step: device operations, busy share,
+    the most frequent kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.interop import rntn_params_from_numpy
+    from deeplearning4j_tpu_torch.models import rntn as R
+
+    bucket = max(model._prepare(trees), key=lambda b: b[1].shape[1])
+    inputs = _rntn_tensors(bucket, DEVICE)
+    params = rntn_params_from_numpy(model.params, DEVICE)
+    hist = {k: torch.ones_like(v) for k, v in params.items()}
+    R._rntn_batch_step(params, hist, *inputs, model.lr, model.l2)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        R._rntn_batch_step(params, hist, *inputs, model.lr, model.l2)
+        sync()
+        wall = time.perf_counter() - t0
+    out = device_busy(prof, wall)
+    counts = _by_name(prof, lambda e: e.count)
+    merges = int(bucket[1].shape[1])
+    out.update({"trees": int(bucket[0].shape[0]), "merges": merges,
+                "device_ops": sum(counts.values()),
+                "device_ops_per_merge": sum(counts.values()) / merges,
+                "ops_by_kernel": dict(list(counts.items())[:10])})
+    return out
+
+
+def _rntn_fit(trees) -> dict:
+    """A 1-iteration warm-up fit (it pays cuBLAS's per-shape setup), then
+    the timed RNTN_ITERATIONS fit; the loss must fall."""
+    from deeplearning4j_tpu_torch.models.rntn import RNTN
+
+    walls = []
+    for iterations in (1, RNTN_ITERATIONS):  # a warm-up fit, the timed one
+        model = RNTN(num_hidden=RNTN_HIDDEN, num_classes=RNTN_CLASSES,
+                     iterations=iterations, seed=0, device=DEVICE)
+        sync()
+        t0 = time.perf_counter()
+        model.fit(trees)
+        sync()
+        walls.append(time.perf_counter() - t0)
+    warm_wall, wall = walls
+    t0 = time.perf_counter()
+    buckets = model._prepare(trees)
+    prepare_s = time.perf_counter() - t0
+    steps = RNTN_ITERATIONS * len(buckets)
+    losses = model.losses
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"RNTN losses not finite or not falling: "
+                             f"{losses}")
+    return {"model": model, "trees": len(trees),
+            "vocab": len(model.word_index),
+            "buckets": [[int(b[0].shape[0]), int(b[0].shape[1]),
+                         int(b[1].shape[1])] for b in buckets],
+            "prepare_s": prepare_s, "warmup_fit_wall_s": warm_wall,
+            "fit_wall_s": wall,
+            "trees_per_s": len(trees) * RNTN_ITERATIONS / wall,
+            "ms_per_bucket_step": wall * 1e3 / steps,
+            "merge_steps_per_iteration": sum(int(b[1].shape[1])
+                                             for b in buckets),
+            "losses": losses}
+
+
+def rntn_phase() -> dict:
+    """RNTN at Socher's width on the card: SST_TREES trees (SST's training
+    size) from raw sentences through TreeVectorizer, a 3-iteration fit
+    (trees/s, ms a bucket step, the loss falling) and one profiled bucket
+    step; the same fit on RNTN_TREES trees; and every bucket step of
+    the first iteration on those RNTN_TREES trees against the CPU."""
+    from deeplearning4j_tpu_torch.models.rntn import RNTNEval
+    from deeplearning4j_tpu_torch.text.corpora import TreeVectorizer
+
+    corpora = {}
+    for name, n, sst in (("sst", SST_TREES, True),
+                         ("small", RNTN_TREES, False)):
+        t0 = time.perf_counter()
+        trees = TreeVectorizer().get_trees_with_labels(
+            _rntn_sentences(n, seed=0, sst=sst))
+        corpora[name] = (trees, time.perf_counter() - t0)
+        if len(trees) != n:
+            raise AssertionError(f"TreeVectorizer gave {len(trees)} trees "
+                                 f"for {n} sentences")
+    sst_trees, parse_s = corpora["sst"]
+    out = {"hidden": RNTN_HIDDEN, "classes": RNTN_CLASSES,
+           "iterations": RNTN_ITERATIONS, "parse_s": parse_s}
+    fit = _rntn_fit(sst_trees)
+    model = fit.pop("model")
+    ev = RNTNEval()
+    ev.eval(model, sst_trees[:64])
+    out.update(fit, train_eval_64=ev.stats())
+    log(f"[rntn] fit at SST's size {json.dumps(out)}")
+    small = _rntn_fit(corpora["small"][0])
+    small.pop("model")
+    out["small"] = dict(small, parse_s=corpora["small"][1])
+    log(f"[rntn] fit on {RNTN_TREES} trees {json.dumps(out['small'])}")
+    out["profile"] = rntn_step_profile(model, sst_trees)
+    log(f"[rntn] profiled bucket step {json.dumps(out['profile'])}")
+    out["card_parity"] = rntn_card_parity(corpora["small"][0])
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _max_leaf_rel(got, want) -> float:
+    from deeplearning4j_tpu_torch._device import tree_leaves
+
+    return max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def trainer_phase() -> dict:
+    """ParameterAveragingTrainer on the MNIST MLP (batch MLP_BATCH of
+    synthetic_mnist) in a real one-rank process group (NCCL on the card),
+    against fit_epochs on the same batches from the same params: both
+    averaging modes, then the sync step with Adam replicated and
+    ZeRO-sharded. K1 launches exactly 2 a step; a sync step makes exactly
+    one all-reduce (and, sharded, one all-gather)."""
+    import torch
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch._device import tree_map
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.models.zoo import mnist_mlp
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.optimize.updaters import OptimizerConfig
+    from deeplearning4j_tpu_torch.parallel import mesh as pmesh
+    from deeplearning4j_tpu_torch.parallel import multihost
+    from deeplearning4j_tpu_torch.parallel import trainer as T
+
+    b, w, n = MLP_BATCH, TRAINER_WARMUP, TRAINER_STEPS
+    x, y = _mnist(b * (w + n), seed=31)
+    conf = mnist_mlp(MLP_H1, MLP_H2)
+    init = MultiLayerNetwork(conf, device=DEVICE).init().params_tree
+
+    def fresh():
+        return MultiLayerNetwork(
+            conf, params=tree_map(lambda _, a: a.clone(), init),
+            device=DEVICE)
+
+    def batches(lo, hi):
+        return ListDataSetIterator(DataSet(x[lo * b:hi * b],
+                                           y[lo * b:hi * b]), b)
+
+    def timed(label, fit_warm, fit_timed, want_reduce, want_gather):
+        fit_warm()
+        sync()
+        _kernels.reset_launches()
+        pmesh.reset_collectives()
+        t0 = time.perf_counter()
+        fit_timed()
+        sync()
+        wall = time.perf_counter() - t0
+        run = {"steps": n, "wall_s": wall, "ms_per_step": wall * 1e3 / n,
+               "samples_per_s": b * n / wall,
+               "launches": _kernels.LAUNCHES["fused_dense"],
+               "all_reduce": pmesh.COLLECTIVES["all_reduce"],
+               "all_gather": pmesh.COLLECTIVES["all_gather"]}
+        if run["launches"] != 2 * n:
+            raise AssertionError(f"{label}: fused_dense launched "
+                                 f"{run['launches']} times over {n} steps, "
+                                 "expected 2 a step")
+        if (run["all_reduce"], run["all_gather"]) != (want_reduce,
+                                                      want_gather):
+            raise AssertionError(f"{label}: {run['all_reduce']} all-reduces"
+                                 f" and {run['all_gather']} all-gathers over "
+                                 f"{n} steps, expected {want_reduce} and "
+                                 f"{want_gather}")
+        return run
+
+    multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device=DEVICE)
+    try:
+        mesh = pmesh.data_parallel_mesh()
+        backend = dist.get_backend()
+        if backend != ("nccl" if DEVICE == "cuda" else "gloo"):
+            raise AssertionError(f"process group backend {backend}")
+        out = {"backend": backend, "world_size": dist.get_world_size(),
+               "batch": b}
+        plain = fresh()
+        out["fit_epochs"] = timed(
+            "fit_epochs", lambda: plain.fit_epochs(batches(0, w)),
+            lambda: plain.fit_epochs(batches(w, w + n)), 0, 0)
+        for mode, each in (("sync", True), ("local", False)):
+            net = fresh()
+            trainer = T.ParameterAveragingTrainer(
+                net, mesh, average_each_iteration=each)
+            run = timed(f"trainer {mode}",
+                        lambda: trainer.fit_data_set(batches(0, w)),
+                        lambda: trainer.fit_data_set(batches(w, w + n)),
+                        n, 0)
+            run["max_rel_err_vs_fit_epochs"] = _max_leaf_rel(
+                net.params_tree, plain.params_tree)
+            if run["max_rel_err_vs_fit_epochs"] > TRAINER_TOL:
+                raise AssertionError(f"trainer {mode} against fit_epochs: "
+                                     f"{run}")
+            out[mode] = run
+        ones = np.ones((b,), np.float32)
+
+        def stepped(label, step, states, want_reduce, want_gather):
+            """The sync step called directly, no host read a step."""
+            state = {"p": tree_map(lambda _, a: a.clone(), init),
+                     "s": states}
+
+            def run_steps(lo, hi):
+                for i in range(lo, hi):
+                    state["p"], state["s"], score = step(
+                        state["p"], state["s"], i, x[i * b:(i + 1) * b],
+                        y[i * b:(i + 1) * b], ones, i)
+                state["score"] = float(score)
+
+            run = timed(label, lambda: run_steps(0, w),
+                        lambda: run_steps(w, w + n), want_reduce,
+                        want_gather)
+            run["final_score"] = state["score"]
+            run["params"] = state["p"]
+            return run
+
+        # the one all-reduce alone, on a buffer of the sync step's size
+        # (every grad, the loss sum and the weight sum)
+        from deeplearning4j_tpu_torch._device import tree_leaves
+
+        flat = torch.zeros(sum(t.numel() for t in tree_leaves(init)) + 2,
+                           device=DEVICE)
+        calls = 50
+        mesh.all_reduce(flat)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            mesh.all_reduce(flat)
+        host_ms = (time.perf_counter() - t0) * 1e3 / calls
+        sync()
+        out["all_reduce_alone"] = {
+            "floats": flat.numel(), "calls": calls,
+            "wall_ms_per_call": (time.perf_counter() - t0) * 1e3 / calls,
+            "host_enqueue_ms_per_call": host_ms,
+            "device_ms": (device_ms(lambda: mesh.all_reduce(flat))
+                          if DEVICE == "cuda" else None)}
+        from deeplearning4j_tpu_torch.nn import functional as F
+
+        # where the trainer's time goes: its step without the per-batch
+        # host read, and again with the all-reduce ablated
+        for label, ablate in (("sync_step", False),
+                              ("sync_step_no_collective", True)):
+            run = stepped(label, T.make_sync_train_step(
+                conf, mesh, ablate_collectives=ablate),
+                F.init_train_state(conf, init), 0 if ablate else n, 0)
+            run.pop("params")
+            out[label] = run
+        adam = {}
+        for mode in ("replicated", "sharded"):
+            cfg = OptimizerConfig(name="adam", lr=ADAM_LR,
+                                  update_sharding=mode)
+            adam[mode] = stepped(
+                f"adam {mode}", T.make_sync_train_step(conf, mesh,
+                                                       optimizer=cfg),
+                T.init_sync_opt_state(cfg, init, mesh), n,
+                n if mode == "sharded" else 0)
+        err = max(float((a - c).abs().max()) for a, c in zip(
+            tree_leaves(adam["sharded"].pop("params")),
+            tree_leaves(adam["replicated"].pop("params"))))
+        adam["sharded_vs_replicated_max_abs"] = err
+        if err > ZERO_TOL:
+            raise AssertionError(f"Adam sharded against replicated: {err}")
+        out["adam"] = adam
+    finally:
+        multihost.shutdown()
+    log(f"[trainer] {json.dumps(out)}")
+    return out
+
+
+def slice7(smi: str) -> dict:
+    """Phase 11: the RNTN (no kernel on its path) and the data-parallel
+    trainer (K1 on its one rank) on the card."""
+    out = {"rntn": rntn_phase(), "trainer": trainer_phase()}
+    r, t = out["rntn"], out["trainer"]
+    summary = {"rntn_trees": r["trees"],
+               "rntn_trees_per_s": r["trees_per_s"],
+               "rntn_small_trees_per_s": r["small"]["trees_per_s"],
+               "rntn_ms_per_bucket_step": r["ms_per_bucket_step"],
+               "rntn_device_ops_per_merge":
+                   r["profile"]["device_ops_per_merge"],
+               "rntn_busy_share": r["profile"]["busy_share"],
+               "fit_epochs_samples_per_s": t["fit_epochs"]["samples_per_s"],
+               "trainer_sync_samples_per_s": t["sync"]["samples_per_s"],
+               "trainer_local_samples_per_s": t["local"]["samples_per_s"],
+               "sync_step_samples_per_s": t["sync_step"]["samples_per_s"],
+               "sync_step_no_collective_samples_per_s":
+                   t["sync_step_no_collective"]["samples_per_s"],
+               "adam_replicated_samples_per_s":
+                   t["adam"]["replicated"]["samples_per_s"],
+               "adam_sharded_samples_per_s":
+                   t["adam"]["sharded"]["samples_per_s"]}
+    log(f"[slice7] {json.dumps(summary)} on {smi}")
+    return out
+
+
 # ---------------------------------------------------------------- main ----
 
 def main() -> int:
@@ -3808,6 +4264,13 @@ def main() -> int:
         entry["cli_launches"] = cli_run["mlp"]["launches"]
     conv_entries = slice5()
     slice6(smi)
+    trainer = slice7(smi)["trainer"]
+    for entry in mlp_entries:
+        entry["trainer_launches"] = {
+            run: trainer[run]["launches"] for run in ("sync", "local")}
+        entry["trainer_launches"].update({
+            f"adam_{mode}": trainer["adam"][mode]["launches"]
+            for mode in ("replicated", "sharded")})
     log(f"[time] chip_smoke ran {time.perf_counter() - t_start:.1f} s")
 
     print(smi)

@@ -12,10 +12,12 @@ package's order, so a model trained by either CLI loads in the other.
     python -m deeplearning4j_tpu_torch.cli.driver train --conf c.json \\
         --input train.csv --model params.npz --labels 10
 
+``train --runtime parallel`` trains through
+``parallel.ParameterAveragingTrainer`` over the process group's ranks.
+
 Not ported yet, each raising ``SystemExit`` that names its slice:
-``train --runtime parallel`` (ROADMAP slice 7), ``train --profile``
-(slice 9) and the ``fleet`` subcommand (slice 4c, after slice 7's tracker
-protocol).
+``train --profile`` (slice 9) and the ``fleet`` subcommand (slice 4c,
+after slice 7's tracker protocol).
 """
 
 from __future__ import annotations
@@ -108,9 +110,7 @@ def train(args) -> int:
                          "comes with ROADMAP slice 9 (telemetry and "
                          "profiling)")
     if args.runtime == "parallel":
-        raise SystemExit("train --runtime parallel (data-parallel "
-                         "ParameterAveragingTrainer) comes with ROADMAP "
-                         "slice 7")
+        return _train_parallel(args)
     net = _load_model(args.conf, None, args.device)
     it = _make_iterator(args.input, args.batch, args.labels,
                         args.features, args.label_index)
@@ -120,6 +120,40 @@ def train(args) -> int:
     _save_model(net, args.model)
     if args.verbose:
         print(f"saved params to {args.model}")
+    return 0
+
+
+def _train_parallel(args) -> int:
+    """Data-parallel over the process group's ranks (ref
+    Train.execOnSpark dispatch → the mesh trainer with averaging). Each
+    process joins the group named by DL4J_COORDINATOR /
+    DL4J_NUM_PROCESSES / DL4J_PROCESS_ID (none set: one rank), trains on
+    its own device, and only the coordinator writes ``--model``."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel import multihost
+    from deeplearning4j_tpu_torch.parallel.mesh import data_parallel_mesh
+    from deeplearning4j_tpu_torch.parallel.trainer import (
+        ParameterAveragingTrainer,
+    )
+
+    joined = not dist.is_initialized()
+    multihost.initialize(device=args.device)
+    try:
+        net = _load_model(args.conf, None, args.device)
+        it = _make_iterator(args.input, args.batch, args.labels,
+                            args.features, args.label_index)
+        trainer = ParameterAveragingTrainer(net, data_parallel_mesh())
+        for _ in range(args.epochs):
+            it.reset()
+            trainer.fit_data_set(it)
+        if multihost.is_coordinator():
+            _save_model(net, args.model)
+            if args.verbose:
+                print(f"saved params to {args.model}")
+    finally:
+        if joined:
+            multihost.shutdown()
     return 0
 
 
@@ -285,8 +319,9 @@ def build_parser() -> argparse.ArgumentParser:
                               "(not ported yet: ROADMAP slice 9)")
     p_train.add_argument("--runtime", choices=["local", "parallel"],
                          default="local",
-                         help="'parallel' = data-parallel over all devices "
-                              "(not ported yet: ROADMAP slice 7)")
+                         help="'parallel' = data-parallel over the ranks of "
+                              "the torch.distributed process group (one "
+                              "rank when none is initialised)")
     p_train.set_defaults(func=train)
 
     p_test = sub.add_parser("test", help="evaluate a saved model")

@@ -16,6 +16,10 @@ SUBSAMPLING ``{}``, LSTM ``{"recurrentweights", "decoderweights",
 "decoderbias"}``, ATTENTION ``{"ln_g", "ln_b", "wq", "wk", "wv", "wo",
 "decoderweights", "decoderbias"}``; dense weights (n_in, n_out)), and ``updater_state_from_numpy`` for its updater state (a tuple
 of ``{"hist", "v"}`` trees over the same keys).
+
+``rntn_params_from_numpy`` takes ``models/rntn``'s ``RNTN.params``
+(``emb, V, W, b, Ws, bs``), so a port model evaluates a JAX model's
+weights.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ _LAYER_KEY_SETS = (
      "decoderbias"),
 )
 _UPDATER_KEYS = ("hist", "v")
+_RNTN_KEYS = ("emb", "V", "W", "b", "Ws", "bs")
 
 
 def _check_keys(tree: dict, keys: tuple, where: str) -> None:
@@ -142,6 +147,16 @@ def updater_state_from_numpy(states, device: DeviceLike = None) -> tuple:
         _check_keys(st["v"], tuple(st["hist"]), f"states[{i}]['v']")
     return tuple(tree_map(lambda _, x: _to_tensor(x, dev, None), st)
                  for st in states)
+
+
+def rntn_params_from_numpy(params: dict, device: DeviceLike = None) -> dict:
+    """An RNTN's params (``{"emb", "V", "W", "b", "Ws", "bs"}`` with numpy
+    leaves, as ``RNTN.params`` holds them in either package) as f32
+    tensors on ``device`` (CUDA unless ``device="cpu"``). Raises on
+    another key set."""
+    dev = resolve_device(device)
+    _check_keys(params, _RNTN_KEYS, "the RNTN params")
+    return {k: _to_tensor(params[k], dev, torch.float32) for k in _RNTN_KEYS}
 
 
 def tree_to_numpy(tree):

@@ -50,7 +50,7 @@ from deeplearning4j_tpu_torch.text.vocab import VocabCache, build_huffman
 
 _EPS = 1e-7
 _MESH_MSG = ("data-parallel Word2Vec (mesh=, the sharded SGNS and HS steps) "
-             "comes with ROADMAP item 18")
+             "comes with ROADMAP item 18b")
 
 
 # ------------------------------------------------------------ draw points ----

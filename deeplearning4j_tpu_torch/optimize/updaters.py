@@ -1,6 +1,7 @@
-"""Counterpart of ``deeplearning4j_tpu/optimize/updaters.py``, the
-replicated half: Adam, LAMB, AdaGrad, momentum and SGD as update transforms
-on nested dicts of tensors behind the train step's ``optimizer=`` seam.
+"""Counterpart of ``deeplearning4j_tpu/optimize/updaters.py``: Adam, LAMB,
+AdaGrad, momentum and SGD as update transforms on nested dicts of tensors
+behind the train step's ``optimizer=`` seam, and the ZeRO-style update
+sharded over the data-parallel ranks.
 
 The state is ``{"m": tree, "v": tree, "count": int32 0-dim tensor}``, the
 moments shaped like the params. Scalar constants are rounded to f32 before
@@ -8,22 +9,28 @@ use (``np.float32``), as the JAX code's ``jnp.float32`` constants are, so
 the two packages compute the same update. A guarded step selects params
 AND the whole state against the incoming trees on a non-finite step.
 
-The ZeRO-style sharded update (``ZeroSharding``, the functions' ``zero=``
-argument, ``opt_update_shardmap``) comes with the data-parallel slice;
-``update_sharding="sharded"`` resolves here but has no single-device step
-to run on.
+ZeRO mode (``update_sharding="sharded"``, arXiv:2004.13336) runs in the
+data-parallel trainer (parallel/trainer.py): each rank stores and updates
+only its ``1/dp`` chunk of every moment leaf and the updated params are
+all-gathered. A leaf of shape ``S`` lives in the JAX package's layout
+``(dp, ceil(prod(S) / dp))`` (flattened and zero-padded); each rank holds
+its row of it, ``(1, chunk)``. ``canonical_opt_state`` gathers the param-shaped
+layout for a checkpoint, ``partition_opt_state`` takes a rank's rows back
+out of it, so an optimizer checkpoint of either package restores in the
+other. Single-device steps reject ``"sharded"``: they have no dp axis.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch._device import tree_leaves, tree_unflatten
+from deeplearning4j_tpu_torch._device import DeviceLike, resolve_device, \
+    tree_leaves, tree_map, tree_unflatten
 
 UPDATE_SHARDING_ENV = "DL4J_TPU_UPDATE_SHARDING"
 _MODES = ("replicated", "sharded")
@@ -101,6 +108,48 @@ class OptimizerConfig:
         return resolve_update_sharding(self.update_sharding) == "sharded"
 
 
+# ------------------------------------------------------------ ZeRO layout ----
+
+class ZeroSharding:
+    """Where the dp-sharded update lives: the mesh (parallel/mesh.py) and
+    its dp axis. Every leaf is flattened, padded to a dp multiple and
+    split over ``axis``; this rank holds row ``index``."""
+
+    def __init__(self, mesh, axis: str = "data"):
+        if axis not in mesh.axis_names:
+            raise ValueError(
+                f"update-sharding axis {axis!r} is not on the mesh "
+                f"{mesh.axis_names} — ZeRO mode needs the dp axis")
+        self.mesh = mesh
+        self.axis = axis
+        self.n = int(mesh.shape[axis])
+        self.index = int(mesh.coords[axis])
+
+    def layout(self, shape: Tuple[int, ...]):
+        """(chunk, pad) for one leaf of ``shape``."""
+        size = int(np.prod(shape, dtype=np.int64))
+        chunk = -(-size // self.n)
+        return chunk, self.n * chunk - size
+
+
+def _partition(x, n: int, chunk: int, pad: int):
+    """param-shaped → ``(n, chunk)`` (flatten, pad with zeros to an ``n``
+    multiple, fold the shard axis out). Host numpy and tensors alike."""
+    flat = x.reshape(-1)
+    if pad:
+        if isinstance(x, np.ndarray):
+            flat = np.pad(flat, (0, pad))
+        else:
+            flat = torch.nn.functional.pad(flat, (0, pad))
+    return flat.reshape(n, chunk)
+
+
+def _unpartition(y, shape: Tuple[int, ...]):
+    """Inverse of ``_partition`` (drops the zero padding)."""
+    size = int(np.prod(shape, dtype=np.int64))
+    return y.reshape(-1)[:size].reshape(shape)
+
+
 def _f32(x) -> float:
     """``x`` rounded to f32, as a Python float torch takes exactly."""
     return float(np.float32(x))
@@ -110,11 +159,14 @@ def _sumsq(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.square(x))
 
 
-def _leaf_update(cfg: OptimizerConfig, p, g, m, v, t, lr: float):
+def _leaf_update(cfg: OptimizerConfig, p, g, m, v, t, lr: float,
+                 sumsq=_sumsq):
     """One leaf's update: ``(update, new_m, new_v, trust)`` where
     ``update`` is what to SUBTRACT from the param (lr, bias correction,
     weight decay and, for LAMB, the trust ratio applied) and ``trust`` is
-    LAMB's per-leaf trust ratio (None for the other names)."""
+    LAMB's per-leaf trust ratio (None for the other names). LAMB's norms
+    go through ``sumsq(x) -> Σx²``, so a sharded caller sums over the
+    ranks."""
     lr_eff = np.float32(cfg.lr if cfg.lr is not None else lr)
     wd = np.float32(cfg.weight_decay)
     if cfg.name in ("adam", "lamb"):
@@ -128,8 +180,8 @@ def _leaf_update(cfg: OptimizerConfig, p, g, m, v, t, lr: float):
         if wd:
             r = r + float(wd) * p
         if cfg.name == "lamb":
-            pn = torch.sqrt(_sumsq(p))
-            rn = torch.sqrt(_sumsq(r))
+            pn = torch.sqrt(sumsq(p))
+            rn = torch.sqrt(sumsq(r))
             trust = torch.where((pn > 0.0) & (rn > 0.0), pn / rn,
                                 torch.ones_like(pn))
             return float(lr_eff) * trust * r, new_m, new_v, trust
@@ -194,6 +246,70 @@ def opt_update(cfg: OptimizerConfig, params, grads, opt_state, lr: float,
     return new_params, new_state, metrics
 
 
+def opt_update_shardmap(cfg: OptimizerConfig, params, grads, opt_state,
+                        lr: float, zero: Optional[ZeroSharding],
+                        with_metrics: bool = False):
+    """The update inside the data-parallel step, where collectives are
+    explicit; ``zero`` (None in replicated mode) takes the place of the
+    JAX package's axis name and decides each leaf's chunk and padding.
+    Replicated mode is :func:`opt_update`. Sharded mode takes this rank's
+    row of each (all-reduced) grad and param, updates it against the
+    rank's ``(1, chunk)`` moment rows, and all-gathers only the params —
+    every leaf's row in one buffer, one ``all_gather`` a step. LAMB's
+    norms sum over the ranks (an all-reduce per norm), and the metrics
+    block's sums make one more."""
+    if not cfg.sharded:
+        return opt_update(cfg, params, grads, opt_state, lr,
+                          with_metrics=with_metrics)
+    t = opt_state["count"] + 1
+    mesh, n, my = zero.mesh, zero.n, zero.index
+
+    def sumsq(x):
+        return mesh.all_reduce(_sumsq(x))
+
+    shapes, rows, new_m, new_v, trusts = [], [], [], [], []
+    upd_sq = m_sq = v_sq = p_sq = 0.0
+    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+                          tree_leaves(opt_state["m"]),
+                          tree_leaves(opt_state["v"])):
+        shape = tuple(p.shape)
+        chunk, pad = zero.layout(shape)
+        p_row = _partition(p, n, chunk, pad)[my:my + 1]
+        g_row = _partition(g, n, chunk, pad)[my:my + 1]
+        upd, m2, v2, trust = _leaf_update(cfg, p_row, g_row, m, v, t, lr,
+                                          sumsq)
+        shapes.append((shape, chunk))
+        rows.append(p_row - upd)
+        new_m.append(m2)
+        new_v.append(v2)
+        if with_metrics:
+            upd_sq = upd_sq + _sumsq(upd.float())
+            p_sq = p_sq + _sumsq(p.float())
+            m_sq = m_sq + _sumsq(m2.float())
+            v_sq = v_sq + _sumsq(v2.float())
+            if trust is not None:
+                trusts.append(trust)
+    gathered = mesh.all_gather(torch.cat(rows, dim=1))  # (n, Σ chunk)
+    new_p, col = [], 0
+    for shape, chunk in shapes:
+        new_p.append(_unpartition(gathered[:, col:col + chunk], shape))
+        col += chunk
+    new_params = tree_unflatten(params, new_p)
+    new_state = {"m": tree_unflatten(params, new_m),
+                 "v": tree_unflatten(params, new_v), "count": t}
+    if not with_metrics:
+        return new_params, new_state
+    upd_sq, m_sq, v_sq = mesh.all_reduce(torch.stack([upd_sq, m_sq, v_sq]))
+    metrics = {
+        "moment_norm_m": torch.sqrt(m_sq),
+        "moment_norm_v": torch.sqrt(v_sq),
+        "update_ratio": torch.sqrt(upd_sq) / (torch.sqrt(p_sq) + 1e-12),
+    }
+    if trusts:
+        metrics["lamb_trust_ratio"] = torch.mean(torch.stack(trusts))
+    return new_params, new_state, metrics
+
+
 def guarded_opt_update(params, grads, opt_state, loss, lr: float,
                        cfg: OptimizerConfig, guard,
                        with_metrics: bool = False):
@@ -229,16 +345,88 @@ def guarded_opt_update(params, grads, opt_state, loss, lr: float,
     return new_params, new_state, metrics
 
 
-def init_opt_state(cfg: Optional[OptimizerConfig], params):
+def init_opt_state(cfg: Optional[OptimizerConfig], params,
+                   zero: Optional[ZeroSharding] = None):
     """``{"m", "v", "count"}`` with zero moments shaped, typed and placed
-    like their params and an int32 step count on the params' device.
-    Stateless names still get zero moments, so the step signature and the
-    guard select are shape-uniform."""
+    like their params (replicated mode) or as this rank's ``(1, chunk)``
+    rows of the ZeRO layout (sharded mode), and an int32 step
+    count on the params' device. Stateless names still get zero moments,
+    so the step signature and the guard select are shape-uniform."""
     if cfg is None:
         raise ValueError("init_opt_state needs an OptimizerConfig "
                          "(use OptimizerConfig.coerce first)")
     leaves = tree_leaves(params)
-    m = tree_unflatten(params, [torch.zeros_like(x) for x in leaves])
-    v = tree_unflatten(params, [torch.zeros_like(x) for x in leaves])
     count = torch.zeros((), dtype=torch.int32, device=leaves[0].device)
-    return {"m": m, "v": v, "count": count}
+    if zero is None:
+        m = tree_unflatten(params, [torch.zeros_like(x) for x in leaves])
+        v = tree_unflatten(params, [torch.zeros_like(x) for x in leaves])
+        return {"m": m, "v": v, "count": count}
+
+    def one(_path, leaf):
+        chunk, _pad = zero.layout(tuple(leaf.shape))
+        return leaf.new_zeros((1, chunk))
+
+    return {"m": tree_map(one, params), "v": tree_map(one, params),
+            "count": count}
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def canonical_opt_state(opt_state, params_like,
+                        zero: Optional[ZeroSharding] = None):
+    """The checkpoint boundary: the moments in the PARAM-SHAPED canonical
+    layout as host numpy trees, mesh-independent, equal to the JAX
+    package's. In sharded mode every rank's rows are all-gathered, so
+    every rank must call it; replicated states pass through as host
+    arrays."""
+    if zero is None:
+        return {"m": tree_map(lambda _, x: _host(x), opt_state["m"]),
+                "v": tree_map(lambda _, x: _host(x), opt_state["v"]),
+                "count": _host(opt_state["count"])}
+
+    def gather(path, leaf):
+        shape = tuple(leaf_of(params_like, path).shape)
+        return _unpartition(_host(zero.mesh.all_gather(leaf)), shape)
+
+    return {"m": tree_map(gather, opt_state["m"]),
+            "v": tree_map(gather, opt_state["v"]),
+            "count": _host(opt_state["count"])}
+
+
+def leaf_of(tree, path):
+    """Follow a key path (dict keys and sequence indices, as
+    ``_device.tree_map`` gives them) into ``tree``."""
+    node = tree
+    for k in path:
+        node = node[k]
+    return node
+
+
+def partition_opt_state(canonical, zero: ZeroSharding,
+                        device: DeviceLike = None):
+    """Inverse of :func:`canonical_opt_state`: this rank's rows of the
+    ZeRO layout, from a param-shaped canonical state (numpy or tensors),
+    on the mesh's device (``device`` when the mesh has none: CUDA unless
+    ``device="cpu"``)."""
+    dev = zero.mesh.device or resolve_device(device)
+
+    def one(_path, leaf):
+        arr = _host(leaf)
+        chunk, pad = zero.layout(tuple(arr.shape))
+        row = _partition(arr, zero.n, chunk, pad)[zero.index:zero.index + 1]
+        return torch.from_numpy(np.ascontiguousarray(row)).to(dev)
+
+    count = int(_host(canonical["count"]))
+    return {"m": tree_map(one, canonical["m"]),
+            "v": tree_map(one, canonical["v"]),
+            "count": torch.tensor(count, dtype=torch.int32, device=dev)}
+
+
+def opt_state_shardings(param_shardings):
+    """Restore-time shardings for a CANONICAL optimizer state: the moment
+    trees reshard exactly like their params; the step count stays
+    unsharded."""
+    return {"m": param_shardings, "v": param_shardings, "count": None}

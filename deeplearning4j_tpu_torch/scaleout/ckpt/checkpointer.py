@@ -233,6 +233,10 @@ class CheckpointIterationListener:
     chain logs and skips a raising listener, so an unwritable disk turns a
     run checkpoint-less instead of killing it; a partial save is never
     visible (the manifest commits last).
+
+    With ``mesh`` (parallel/mesh.py) the state is the data-parallel
+    trainer's, replicated on every rank: rank 0 alone saves, and the
+    manifest records the mesh's axes.
     """
 
     def __init__(self, checkpointer: Checkpointer, save_every: int = 10,
@@ -245,6 +249,10 @@ class CheckpointIterationListener:
 
     def __call__(self, model, iteration: int, score: float) -> None:
         if iteration <= 0 or iteration % self.save_every:
+            return
+        if self.mesh is not None and self.mesh.rank != 0:
+            # every rank holds the same replicated state: the coordinator
+            # alone writes it
             return
         if self.state_fn is not None:
             tree, meta = self.state_fn(model, iteration)

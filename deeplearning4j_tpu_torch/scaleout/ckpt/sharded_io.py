@@ -12,8 +12,9 @@ as 2-byte void records (npy descr ``'<V2'``, which ``ml_dtypes`` arrays
 get from ``np.savez``) named ``"bfloat16"`` in the manifest.
 
 The multi-process writer (``save_process_shards``,
-``merge_process_manifests``) and saves sharded over a mesh come with
-ROADMAP slice 8.
+``merge_process_manifests``) and saves of state sharded over a mesh come
+with ROADMAP slice 8; a state replicated over the data-parallel ranks
+saves from one rank, with the mesh recorded in the manifest.
 """
 
 from __future__ import annotations
@@ -95,8 +96,13 @@ def save_sharded(root: str, step: int, state, meta: Optional[Dict] = None,
     """Write ``state`` (a tree of tensors or arrays, on any device) as the
     checkpoint for ``step`` under ``root``; returns the committed step
     directory. Every leaf is one chunk in ``shard_00000.npz``; the manifest
-    commits last."""
-    if mesh is not None:
+    commits last. ``mesh`` (parallel/mesh.py), for a state replicated
+    over its ranks, is recorded in the manifest as the JAX package
+    records its mesh; a sharded state is not: its saves come with
+    ROADMAP slice 8, and any other mesh raises."""
+    from deeplearning4j_tpu_torch.parallel.mesh import Mesh
+
+    if mesh is not None and not isinstance(mesh, Mesh):
         raise NotImplementedError(
             f"saves sharded over a mesh come with {_MULTI_WRITER_SLICE}")
     step_dir = os.path.join(root, step_dir_name(step))
@@ -119,8 +125,11 @@ def save_sharded(root: str, step: int, state, meta: Optional[Dict] = None,
         f.flush()
         os.fsync(f.fileno())
 
-    manifest = Manifest(step=int(step), leaves=tuple(entries), mesh=None,
-                        meta=dict(meta or {}))
+    topology = None if mesh is None else {
+        "axis_names": [str(a) for a in mesh.axis_names],
+        "shape": [int(mesh.shape[a]) for a in mesh.axis_names]}
+    manifest = Manifest(step=int(step), leaves=tuple(entries),
+                        mesh=topology, meta=dict(meta or {}))
     write_manifest(step_dir, manifest)
     return step_dir
 

@@ -388,11 +388,108 @@ def test_device_cuda_is_the_default_and_raises_without_cuda(conf_path,
 ])
 def test_unported_train_options_exit_naming_their_slice(conf_path, iris_csv,
                                                         tmp_path, extra,
-                                                        slice_):
-    with pytest.raises(SystemExit, match=slice_):
-        main(["train", "--conf", conf_path, "--input", iris_csv, "--model",
-              str(tmp_path / "m.npz"), "--labels", "3", *extra])
-    assert not (tmp_path / "m.npz").exists()
+                                                        slice_, monkeypatch):
+    """``--profile`` exits naming slice 9. ``--runtime parallel``, which
+    slice 7 brought, now trains through the port's
+    ParameterAveragingTrainer on a one-rank mesh: from the JAX net's
+    initial params it saves the params of JAX's trainer on
+    ``data_parallel_mesh(1)`` (the JAX CLI's, with its mesh cut to one
+    device) within ATOL, after 3 batches of 60 local iterations."""
+    args = ["train", "--conf", conf_path, "--input", iris_csv, "--labels",
+            "3", *extra]
+    if extra[:2] != ["--runtime", "parallel"]:
+        with pytest.raises(SystemExit, match=slice_):
+            main(args + ["--model", str(tmp_path / "m.npz")])
+        assert not (tmp_path / "m.npz").exists()
+        return
+    from deeplearning4j_tpu.parallel import mesh as jmesh
+
+    init = np.array(JNet(JConfiguration.from_json(_conf().to_json()))
+                    .init().params())
+    load, one_device = driver._load_model, jmesh.data_parallel_mesh
+
+    def from_jax_init(path, params_path, device):
+        net = load(path, params_path, device)
+        if params_path is None:
+            net.set_params(init)
+        return net
+
+    monkeypatch.setattr(driver, "_load_model", from_jax_init)
+    monkeypatch.setattr(jmesh, "data_parallel_mesh",
+                        lambda n_devices=None, devices=None: one_device(1))
+    args += ["--batch", "50"]
+    assert jmain(args + ["--model", str(tmp_path / "jax.npz")]) == 0
+    assert main(args + ["--model", str(tmp_path / "port.npz")]) == 0
+    want = np.load(tmp_path / "jax.npz")["params"]
+    got = np.load(tmp_path / "port.npz")["params"]
+    assert got.shape == want.shape and not np.allclose(want, init)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_train_runtime_parallel_two_gloo_ranks_match_jax(conf_path, iris_csv,
+                                                         tmp_path,
+                                                         monkeypatch):
+    """``train --runtime parallel`` under a launcher: two processes join
+    one gloo group through DL4J_COORDINATOR / DL4J_NUM_PROCESSES /
+    DL4J_PROCESS_ID, train one network over both ranks, and only the
+    coordinator writes ``--model``. From the same initial params its
+    params equal the JAX CLI's on ``data_parallel_mesh(2)`` within ATOL
+    (batches of 45 rows: the last batch of 15 pads one row)."""
+    from deeplearning4j_tpu.cli import driver as jdriver
+    from deeplearning4j_tpu.parallel import mesh as jmesh
+
+    init = driver._load_model(conf_path, None, "cpu").params().numpy()
+    args = ["train", "--conf", conf_path, "--input", iris_csv, "--labels",
+            "3", "--batch", "45", "--runtime", "parallel"]
+    port = _free_port()
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1",
+                   DL4J_COORDINATOR=f"127.0.0.1:{port}",
+                   DL4J_NUM_PROCESSES="2", DL4J_PROCESS_ID=str(rank))
+        env.pop("JAX_PLATFORMS", None)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "deeplearning4j_tpu_torch.cli.driver",
+             *args, *CPU, "--model", str(tmp_path / f"rank{rank}.npz")],
+            env=env, cwd=str(tmp_path), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=180)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {rank}:\n{logs[rank]}"
+    assert not (tmp_path / "rank1.npz").exists()
+
+    load, two_devices = jdriver._load_model, jmesh.data_parallel_mesh
+
+    def from_port_init(path, params_path):
+        net = load(path, params_path)
+        if params_path is None:
+            net.set_params(init)
+        return net
+
+    monkeypatch.setattr(jdriver, "_load_model", from_port_init)
+    monkeypatch.setattr(jmesh, "data_parallel_mesh",
+                        lambda n_devices=None, devices=None: two_devices(2))
+    assert jmain(args + ["--model", str(tmp_path / "jax.npz")]) == 0
+    want = np.load(tmp_path / "jax.npz")["params"]
+    got = np.load(tmp_path / "rank0.npz")["params"]
+    assert got.shape == want.shape and not np.allclose(want, init)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
 def test_fleet_subcommand_exits_naming_its_slice():

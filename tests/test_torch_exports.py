@@ -42,21 +42,20 @@ UNPORTED = {
         "summarize_session", "summarize_step_log"},
     "serve": {"FleetReplica", "FleetRequest", "FleetRouter",
               "pick_replica", "replica_main"},                 # slice 4c
-    "parallel": {"ParameterAveragingTrainer", "data_parallel_mesh",
-                 "mesh_2d",                                   # item 18
-                 "get_moe_impl", "moe_apply", "resolve_moe_impl",
+    "parallel": {"get_moe_impl", "moe_apply", "resolve_moe_impl",
                  "set_moe_impl"},                             # item 20
 }
 
 # names only the port exports
 PORT_ONLY = {
     "serve": {"activation_dtype"},  # the serve_dtype seam's activation dtype
-    "models": {"Glove", "ParagraphVectors", "Word2Vec"},
+    "models": {"Glove", "ParagraphVectors", "RNTN", "RNTNEval",
+               "Word2Vec"},
 }
 
 SUBPACKAGES = ["", "cli", "datasets", "eval", "models", "native", "nn",
                "ops", "optimize", "parallel", "scaleout", "serve",
-               "telemetry", "text", "utils"]
+               "telemetry", "text", "text.corpora", "utils"]
 
 
 def _public(mod) -> set:
@@ -103,3 +102,21 @@ def test_repaired_exports_are_present():
     from deeplearning4j_tpu_torch import serve
 
     assert "slice 4c" in serve.__doc__ and "slice 7" not in serve.__doc__
+
+
+@pytest.mark.parametrize("sub,names", [
+    ("text.corpora", ["PosTagger", "SWN3", "ConstituencyTree",
+                      "HeadWordFinder", "PennTreeReader", "TreeIterator",
+                      "TreeParser", "TreeVectorizer", "binarize",
+                      "collapse_unaries", "to_rntn_tree"]),
+    ("models", ["RNTN", "RNTNEval"]),
+    ("parallel", ["data_parallel_mesh", "mesh_2d",
+                  "ParameterAveragingTrainer"]),
+])
+def test_slice_7_exports_resolve_in_the_port(sub, names):
+    """RNTN, trees and corpora, and the data-parallel trainer: each name
+    resolves to the port's own object."""
+    mod = importlib.import_module("deeplearning4j_tpu_torch." + sub)
+    for name in names:
+        owner = getattr(mod, name).__module__
+        assert owner.startswith("deeplearning4j_tpu_torch."), (name, owner)
