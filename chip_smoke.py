@@ -219,7 +219,32 @@ Phases, each fatal on failure:
    sync step (and one all-gather sharded), both modes within TRAINER_TOL
    of fit_epochs from the same params, Adam's modes within ZERO_TOL;
    samples/s of each beside fit_epochs';
-12. output: the card's name and power limit from nvidia-smi, one JSON line
+12. slice 8, in a one-rank NCCL group (world size 1: one card, no
+   multi-card figure): (a) make_composed_train_step on data_parallel_mesh
+   at the flagship's full width and training shape (B=4, T=2048, f32)
+   with SGD, Adam replicated and Adam ZeRO-sharded, DP_STEPS steps each
+   against make_single_device_train_step from the same params and batch
+   (params of each leaf's max and losses within DP_TOL), K3f, K3k and K3q
+   exactly n_layers x steps, exactly 2 all-reduces a step (and 1
+   all-gather sharded), ms a step and tokens/s of both; (b) Word2Vec's
+   sharded SGNS step (shared and per-pair negatives) and HS step at
+   word2vec_large's width (V 50,000, D 256, 65,536 pairs) on the card
+   against the same step on the CPU from the same state and draws
+   (W2V_CARD_TOL), and a Word2Vec(mesh=...) fit of the word2vec_large
+   corpus timed beside phase 10's device-epoch fit (the mesh step
+   all-reduces two dense V x D tables); (c) LocalDistributedRunner on the
+   MNIST MLP (RUNNER_JOBS batch-512 jobs, RUNNER_WORKERS threads,
+   MultiLayerNetworkWorkPerformer on the card): the sync run from one
+   draw of params put in through update(), each round's average against
+   the CPU's round from the same incoming params (RUNNER_TOL of each
+   leaf's max, or for a leaf a ReLU kink flip moves, MLP_GRAD_TOL of the
+   round's update's max: phase 5's K1-vs-plain limit), K1 exactly
+   2 x iterations x jobs, samples/s beside fit_epochs'; a HogWild run that
+   finishes with its score falling; the trained net through
+   save_checkpoint / load_checkpoint and save_checkpoint_to_store over
+   mem://, torch.equal; (d) Word2VecWorkPerformer jobs on the card against
+   the CPU's from the same draws (W2V_CARD_TOL);
+13. output: the card's name and power limit from nvidia-smi, one JSON line
    listing each kernel (K3f at the serving shape; K3f, K3k, K3q at the
    training shape in f32 and bf16 with their launches over the timed f32
    training run; K1 at both MLP layer shapes in f32 and bf16 with its
@@ -231,7 +256,9 @@ Phases, each fatal on failure:
    ``cli_launches``, their counts over phase 8's CLI runs, and K3f's
    ``fastpath_launches``, its count over each bf16 engine's run of phase
    3b, and K1's ``trainer_launches``, its counts over phase 11's timed
-   trainer runs), and as the
+   trainer runs, and ``runner_launches``, its count over phase 12's sync
+   runner; K3f's, K3k's and K3q's training rows ``dp_launches``, their
+   counts over phase 12's data-parallel runs), and as the
    last line {"ok": true, "device": {"platform": "gpu", "kind": ...,
    "count": ...}}. An f32 row's bound is that of f32-accurate products: the least
    of the CUDA cores' 67 TFLOP/s and three TF32 products at 495 (the
@@ -3520,6 +3547,17 @@ def w2v_fit(name, sents, smi, profiled=True, **kw) -> dict:
     return out
 
 
+def _cpu_draws(w2v):
+    """Make ``w2v``'s draw points draw on the CPU and move the draws to
+    the tensor's device: the card and the CPU then draw the same numbers
+    from a key. Returns the originals, to put back."""
+    orig = (w2v._keep_uniforms, w2v._window_draws, w2v._neg_slots)
+    w2v._keep_uniforms = lambda k, n, d: orig[0](k, n, "cpu").to(d)
+    w2v._window_draws = lambda k, n, win, d: orig[1](k, n, win, "cpu").to(d)
+    w2v._neg_slots = lambda k, s, slots, d: orig[2](k, s, slots, "cpu").to(d)
+    return orig
+
+
 def w2v_card_parity() -> dict:
     """One SGNS epoch (shared and per-pair negatives) and one HS epoch of
     the device functions on the card and on the CPU, the draws made on the
@@ -3547,10 +3585,7 @@ def w2v_card_parity() -> dict:
     window, block = vec.window, 64
     n_steps = -(-flat.numel() // block)
     lrs = torch.linspace(0.05, 0.01, n_steps)
-    orig = (w2v._keep_uniforms, w2v._window_draws, w2v._neg_slots)
-    w2v._keep_uniforms = lambda k, n, d: orig[0](k, n, "cpu").to(d)
-    w2v._window_draws = lambda k, n, win, d: orig[1](k, n, win, "cpu").to(d)
-    w2v._neg_slots = lambda k, s, slots, d: orig[2](k, s, slots, "cpu").to(d)
+    orig = _cpu_draws(w2v)
 
     def on(dev, tensors):
         return [t.to(dev).clone() for t in tensors]
@@ -4201,6 +4236,527 @@ def slice7(smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 12 ----
+
+# the data-parallel halves of the LM and Word2Vec and the in-process
+# scaleout plane, in a one-rank NCCL group (the card is one H100: world
+# size 1 throughout, no multi-card figure)
+DP_STEPS = 3          # composed steps held against the single-device step
+DP_TIMED = 5          # more steps of each, timed
+DP_TOL = 1e-6         # params of each leaf's max, and losses, relative
+RUNNER_JOBS, RUNNER_WORKERS = 12, 4   # batch-512 synthetic_mnist jobs
+# a round's average against the CPU's round from the same incoming params,
+# of each leaf's max; a leaf over it (a ReLU unit flipping at its kink
+# between K1 and the CPU) is held to MLP_GRAD_TOL of the round's update
+RUNNER_TOL = 1e-5
+W2V_PERF_JOBS, W2V_PERF_PAIRS = 3, 8192
+
+
+class _IdentityMesh:
+    """A one-rank ("data",) mesh with no group: the CPU side of a card
+    step's parity, whose collectives are the identity."""
+    axis_names = ("data",)
+    shape = {"data": 1}
+    coords = {"data": 0}
+    size, rank, device, grouped = 1, 0, None, False
+
+    def all_reduce(self, t):
+        return t
+
+    def all_gather(self, t):
+        return t
+
+
+def _timed_steps(step, carry, batch, n):
+    """``n`` steps of ``step`` from ``carry`` (params, or params and
+    state), fenced: (carry, losses, ms a step)."""
+    sync()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(n):
+        out = step(*carry, *batch)
+        carry = out[:len(carry)]
+        losses.append(out[len(carry)])
+    sync()
+    return carry, [float(x) for x in losses], \
+        (time.perf_counter() - t0) * 1e3 / n
+
+
+def lm_dp_phase(mesh) -> dict:
+    """(a) make_composed_train_step on the one-rank ("data",) mesh at the
+    flagship's full width and training shape, with SGD, Adam replicated
+    and Adam ZeRO-sharded, against make_single_device_train_step from the
+    same params and batch: DP_STEPS steps each, params and losses within
+    DP_TOL; K3f, K3k and K3q exactly n_layers x steps on the composed
+    run; 2 all-reduces a step (and 1 all-gather sharded); ms a step and
+    tokens/s of both."""
+    from deeplearning4j_tpu_torch._device import tree_map
+    from deeplearning4j_tpu_torch.models import transformer_lm as T
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.optimize.updaters import OptimizerConfig
+    from deeplearning4j_tpu_torch.parallel import mesh as pmesh
+
+    params, tokens, targets = _train_setup()
+    tk, tg = T.shard_lm_batch(tokens, targets, mesh, device=DEVICE)
+
+    def clone(tree):
+        return tree_map(lambda _, a: a.clone(), tree)
+
+    out = {"world_size": mesh.size, "batch": [TRAIN_B, TRAIN_T],
+           "steps": DP_STEPS}
+    for mode in ("sgd", "adam_replicated", "adam_sharded"):
+        opt = (None if mode == "sgd" else OptimizerConfig(
+            name="adam", lr=ADAM_LR, update_sharding=mode.split("_")[1]))
+        single = T.make_single_device_train_step(
+            N_HEADS, optimizer=None if opt is None else
+            OptimizerConfig(name="adam", lr=ADAM_LR), device=DEVICE)
+        dp = T.make_composed_train_step(mesh, N_HEADS, 0, optimizer=opt,
+                                        device=DEVICE)
+        p1 = clone(params)
+        c1 = (p1,) if opt is None else (
+            p1, T.init_lm_opt_state("adam", p1, device=DEVICE))
+        p2 = T.shard_lm_params(clone(params), mesh, device=DEVICE)
+        c2 = (p2,) if opt is None else (
+            p2, T.init_lm_opt_state(opt, p2, mesh, device=DEVICE))
+        c1, l1, ms1 = _timed_steps(single, c1, (tokens, targets), DP_STEPS)
+        _kernels.reset_launches()
+        pmesh.reset_collectives()
+        c2, l2, ms2 = _timed_steps(dp, c2, (tk, tg), DP_STEPS)
+        launches = _check_launches(f"data-parallel {mode}", DP_STEPS)
+        coll = dict(pmesh.COLLECTIVES)
+        want = {"all_reduce": 2 * DP_STEPS,
+                "all_gather": DP_STEPS if mode == "adam_sharded" else 0}
+        if coll != want:
+            raise AssertionError(f"data-parallel {mode}: collectives {coll},"
+                                 f" expected {want}")
+        err = _max_leaf_rel(c2[0], c1[0])
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(l2, l1))
+        run = {"max_leaf_rel_err": err, "max_loss_rel_err": loss_err,
+               "losses": l2, "launches": {k: launches[k] for k in
+                                          TRAIN_KERNELS},
+               "collectives": coll}
+        if err > DP_TOL or loss_err > DP_TOL or not l2[-1] < l2[0]:
+            raise AssertionError(f"data-parallel {mode} against the single-"
+                                 f"device step: {run}")
+        # timed: more steps of each from where they are
+        c1, _, ms1 = _timed_steps(single, c1, (tokens, targets), DP_TIMED)
+        c2, _, ms2 = _timed_steps(dp, c2, (tk, tg), DP_TIMED)
+        run.update({
+            "ms_per_step": ms2, "single_device_ms_per_step": ms1,
+            "tokens_per_s": TRAIN_B * TRAIN_T * 1e3 / ms2,
+            "single_device_tokens_per_s": TRAIN_B * TRAIN_T * 1e3 / ms1})
+        out[mode] = run
+    log(f"[lm dp] {json.dumps(out)}")
+    return out
+
+
+def _w2v_step_inputs(v, d, b, seed=3):
+    """Random tables and a global pair batch at (V, D, batch), zipf-drawn
+    words, a unigram^0.75 sampling table and random Huffman-like paths of
+    up to 20 nodes."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models.word2vec import build_neg_table
+
+    rng = np.random.default_rng(seed)
+    probs = 1.0 / np.arange(1, v + 1)
+    probs /= probs.sum()
+    lmax = 20
+    lens = rng.integers(1, lmax + 1, v)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    return {
+        "syn0": t(((rng.random((v, d)) - 0.5) / d).astype(np.float32)),
+        "syn1": t((rng.normal(size=(v, d)) * 0.1).astype(np.float32)),
+        "centers": t(rng.choice(v, b, p=probs).astype(np.int64)),
+        "contexts": t(rng.choice(v, b, p=probs).astype(np.int64)),
+        "weights": t(np.ones(b, np.float32)),
+        "neg_table": build_neg_table(probs ** 0.75, device="cpu"),
+        "pts": t(rng.integers(0, v - 1, (v, lmax)).astype(np.int64)),
+        "cds": t(rng.integers(0, 2, (v, lmax)).astype(np.float32)),
+        "msk": t((np.arange(lmax)[None, :] < lens[:, None])
+                 .astype(np.float32)),
+    }
+
+
+def w2v_mesh_phase(mesh, device_epoch_words_per_s) -> dict:
+    """(b) Word2Vec's sharded steps at word2vec_large's width: one SGNS
+    step (shared and per-pair negatives) and one HS step on the card
+    against the same step on the CPU from the same state and draws
+    (W2V_CARD_TOL); then a Word2Vec(mesh=...) fit timed, words/s beside
+    the device-epoch path's (phase 10)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import word2vec as w2v
+
+    v, d, b = W2V_LARGE["vocab"], W2V_LARGE["layer_size"], \
+        W2V_LARGE["batch_size"]
+    inp = _w2v_step_inputs(v, d, b)
+    orig = _cpu_draws(w2v)
+    out = {"vocab": v, "layer_size": d, "batch_pairs": b}
+    try:
+        for run in ("sgns shared", "sgns per-pair", "hs"):
+            res = {}
+            for dev, m in (("cpu", _IdentityMesh()), (DEVICE, mesh)):
+                a = {k: x.to(dev).clone() for k, x in inp.items()}
+                t0 = time.perf_counter()
+                if run == "hs":
+                    step = w2v.make_sharded_hs_step(m)
+                    c = a["contexts"]
+                    s0, s1, loss = step(a["syn0"], a["syn1"][:v - 1],
+                                        a["centers"], a["pts"][c],
+                                        a["cds"][c], a["msk"][c],
+                                        a["weights"], 0.025)
+                else:
+                    ng = 64 if run == "sgns shared" else 0
+                    step = w2v.make_sharded_sgns_step(m, 5, ng)
+                    s0, s1, loss = step(a["syn0"], a["syn1"], a["centers"],
+                                        a["contexts"], a["weights"],
+                                        a["neg_table"], 0.025, 7)
+                loss = float(loss)
+                res[dev] = (s0.cpu(), s1.cpu(), loss,
+                            (time.perf_counter() - t0) * 1e3)
+            cpu, card = res["cpu"], res[DEVICE]
+            errs = [float((g - w).abs().max()) for g, w in
+                    zip(card[:2], cpu[:2])]
+            moved = float((cpu[0] - inp["syn0"]).abs().max())
+            out[run] = {"max_abs_err": errs,
+                        "loss_rel_err": abs(card[2] - cpu[2]) / abs(cpu[2]),
+                        "moved": moved, "card_ms_first_call": card[3],
+                        "cpu_ms": cpu[3]}
+            if max(errs) > W2V_CARD_TOL or moved == 0 \
+                    or out[run]["loss_rel_err"] > 1e-5:
+                raise AssertionError(f"word2vec sharded {run} step: card "
+                                     f"against CPU {out[run]}")
+    finally:
+        w2v._keep_uniforms, w2v._window_draws, w2v._neg_slots = orig
+    del inp
+    # the mesh fit at word2vec_large: host pairs, 2 dense V x D
+    # all-reduces a step
+    large = _w2v_corpus(**W2V_LARGE)
+    vec = w2v.Word2Vec(sentence_iterator=_sentences(large), mesh=mesh,
+                       window=5, negative=5, iterations=1, sample=1e-3,
+                       seed=1, layer_size=d, batch_size=b)
+    vec.build_vocab()
+    vec.fit()           # warm
+    vec.block_until_ready()
+    sync()
+    t0 = time.perf_counter()
+    vec.fit()
+    vec.block_until_ready()
+    wall = time.perf_counter() - t0
+    words = sum(len(s.split()) for s in large)
+    steps = vec.last_fit_timings["n_dispatches"]
+    table = vec.lookup_table
+    if not np.isfinite(table.syn0).all() or vec.total_words_trained <= 0:
+        raise AssertionError("word2vec mesh fit: non-finite table or no "
+                             "pairs trained")
+    out["mesh_fit"] = {
+        "words": words, "wall_s": wall, "words_per_s": words / wall,
+        "device_epoch_words_per_s": device_epoch_words_per_s,
+        "steps": steps, "ms_per_step": wall * 1e3 / max(steps, 1),
+        "all_reduce_bytes_per_step": 2 * v * d * 4,
+        "last_fit_timings": vec.last_fit_timings,
+        "note": ("each mesh step all-reduces the dense V x D gradient "
+                 "tables of syn0 and syn1neg (with their counts) even on "
+                 "one rank")}
+    log(f"[w2v mesh] {json.dumps(out)}")
+    return out
+
+
+def _sentences(sents):
+    from deeplearning4j_tpu_torch.text.sentence_iterator import (
+        CollectionSentenceIterator,
+    )
+
+    return CollectionSentenceIterator(sents)
+
+
+def runner_phase() -> dict:
+    """(c) LocalDistributedRunner on the MNIST MLP: RUNNER_JOBS batch-512
+    synthetic_mnist jobs, MultiLayerNetworkWorkPerformer on the card,
+    RUNNER_WORKERS worker threads. The sync run (IterativeReduceWorkRouter)
+    from one seed's params put in through update(): each round's average
+    against the CPU's round from the same incoming params (RUNNER_TOL of
+    each leaf's max; a leaf a ReLU kink flip moves, MLP_GRAD_TOL of the
+    round's update), K1 exactly 2 x iterations x jobs, samples/s beside
+    fit_epochs' on the
+    same batches. A HogWild run finishes and its score falls. The trained
+    net through save_checkpoint / load_checkpoint and
+    save_checkpoint_to_store over mem://, torch.equal."""
+    import torch
+
+    from deeplearning4j_tpu_torch._device import tree_leaves
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.models.zoo import mnist_mlp
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.scaleout import (
+        InMemoryStateTracker,
+        LocalDistributedRunner,
+    )
+    from deeplearning4j_tpu_torch.scaleout import blobstore
+    from deeplearning4j_tpu_torch.scaleout.aggregator import (
+        ParameterAveragingAggregator,
+    )
+    from deeplearning4j_tpu_torch.scaleout.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from deeplearning4j_tpu_torch.scaleout.job import DataSetJobIterator
+    from deeplearning4j_tpu_torch.scaleout.perform import (
+        MultiLayerNetworkWorkPerformer,
+    )
+    from deeplearning4j_tpu_torch.scaleout.workrouter import (
+        HogWildWorkRouter,
+    )
+
+    b, jobs = MLP_BATCH, RUNNER_JOBS
+    x, y = _mnist(b * jobs, seed=37)
+    conf = mnist_mlp(MLP_H1, MLP_H2)
+    conf_json = conf.to_json()
+    iters = conf.conf(0).num_iterations
+    # the initial params, drawn once (the conf's seed, on the CPU)
+    init = MultiLayerNetwork(conf, device="cpu").init().params().numpy()
+
+    def job_iter():
+        return DataSetJobIterator(ListDataSetIterator(DataSet(x, y), b))
+
+    class Rounds:
+        """A ModelSaver the sync runner calls after every aggregation:
+        it keeps each round's average."""
+        def __init__(self):
+            self.saved = []
+
+        def save(self, model):
+            self.saved.append(np.array(model))
+
+    def factory():
+        performer = MultiLayerNetworkWorkPerformer(conf_json, device=DEVICE)
+        performer.update(init)
+        return performer
+
+    rounds = Rounds()
+    tracker = InMemoryStateTracker()
+    runner = LocalDistributedRunner(factory, job_iter(),
+                                    num_workers=RUNNER_WORKERS,
+                                    tracker=tracker, model_saver=rounds)
+    sync()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    final = runner.train()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = _kernels.LAUNCHES["fused_dense"]
+    if launches != 2 * iters * jobs:
+        raise AssertionError(f"runner: fused_dense launched {launches} "
+                             f"times, expected 2 x {iters} x {jobs}")
+    n_rounds = jobs // RUNNER_WORKERS
+    if len(rounds.saved) != n_rounds or tracker.count("jobs_done") != jobs:
+        raise AssertionError(f"runner: {len(rounds.saved)} rounds, "
+                             f"{tracker.count('jobs_done')} jobs")
+    # each round on the CPU from the same incoming params, per leaf
+    shape_net = MultiLayerNetwork(conf, device="cpu").init()
+
+    def leaves(flat):
+        shape_net.set_params(flat)
+        return [a.numpy().copy() for a in tree_leaves(shape_net.params_tree)]
+
+    errs, kinks, incoming = [], [], init
+    for r in range(n_rounds):
+        results = []
+        for j in range(r * RUNNER_WORKERS, (r + 1) * RUNNER_WORKERS):
+            net = MultiLayerNetwork(conf, device="cpu").init()
+            net.set_params(incoming)
+            net.fit(DataSet(x[j * b:(j + 1) * b], y[j * b:(j + 1) * b]))
+            results.append(net.params().numpy())
+        want = leaves(np.mean(results, axis=0))
+        got, start = leaves(rounds.saved[r]), leaves(incoming)
+        for i, (g, w, s) in enumerate(zip(got, want, start)):
+            err = float(np.abs(g - w).max())
+            rel = err / float(np.abs(w).max())
+            errs.append(rel)
+            if rel > RUNNER_TOL:
+                # a ReLU unit within f32 noise of its kink switches between
+                # K1 and the CPU (phase 5): the round's update is then held
+                # to phase 5's K1-vs-plain grad limit, of the update's max
+                upd = float(np.abs(w - s).max())
+                kinks.append({"round": r, "leaf": i, "rel_err": rel,
+                              "of_update_max": err / upd})
+                if err > MLP_GRAD_TOL * upd:
+                    raise AssertionError(
+                        f"runner round {r} leaf {i} against the CPU: "
+                        f"{rel} of the leaf's max, {err / upd} of the "
+                        "update's max")
+        incoming = rounds.saved[r]
+    # fit_epochs on the same batches, for speed
+    plain = MultiLayerNetwork(conf, device=DEVICE).init()
+    plain.set_params(init)
+    plain.fit_epochs(ListDataSetIterator(DataSet(x[:2 * b], y[:2 * b]), b))
+    sync()
+    t0 = time.perf_counter()
+    plain.fit_epochs(ListDataSetIterator(DataSet(x, y), b))
+    sync()
+    fit_wall = time.perf_counter() - t0
+    out = {"sync": {"jobs": jobs, "workers": RUNNER_WORKERS,
+                    "rounds": n_rounds, "wall_s": wall,
+                    "samples_per_s": b * jobs / wall,
+                    "launches": launches,
+                    "max_leaf_rel_err_vs_cpu": max(errs),
+                    "leaves_over_runner_tol": kinks},
+           "fit_epochs_samples_per_s": b * jobs / fit_wall}
+    # HogWild: finishes, the score falls
+    scores = []
+
+    class Recording(MultiLayerNetworkWorkPerformer):
+        def perform(self, job):
+            super().perform(job)
+            scores.append(job.score)
+
+    tracker = InMemoryStateTracker()
+
+    def hog_factory():
+        performer = Recording(conf_json, device=DEVICE)
+        performer.update(init)
+        return performer
+
+    hog = LocalDistributedRunner(
+        hog_factory, job_iter(), num_workers=RUNNER_WORKERS,
+        tracker=tracker,
+        router=HogWildWorkRouter(tracker, ParameterAveragingAggregator()))
+    t0 = time.perf_counter()
+    hog_final = hog.train()
+    sync()
+    hwall = time.perf_counter() - t0
+    first, last = np.mean(scores[:2]), np.mean(scores[-2:])
+    out["hogwild"] = {"jobs": int(tracker.count("jobs_done")),
+                      "aggregations": int(tracker.count("aggregations")),
+                      "wall_s": hwall, "samples_per_s": b * jobs / hwall,
+                      "first_scores": first, "last_scores": last}
+    if hog_final is None or tracker.count("jobs_done") != jobs \
+            or not last < first:
+        raise AssertionError(f"hogwild run: {out['hogwild']}")
+    # the trained net through the single-file checkpoint and the blob seam
+    net = MultiLayerNetwork(conf, device=DEVICE).init()
+    net.set_params(final)
+    net.fit(DataSet(x[:b], y[:b]))
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as work:
+        path = save_checkpoint(f"{work}/ckpt", net)
+        back, it = load_checkpoint(path, device=DEVICE)
+    store = blobstore.open_store("mem://chip-smoke")
+    key = blobstore.save_checkpoint_to_store(store, "ckpt.npz", net)
+    back2, it2 = blobstore.load_checkpoint_from_store(store, key,
+                                                      device=DEVICE)
+    for label, other, i in (("file", back, it), ("mem://", back2, it2)):
+        same = all(torch.equal(a, c) for a, c in zip(
+            tree_leaves((net.params_tree, net._train_state)),
+            tree_leaves((other.params_tree, other._train_state))))
+        if not same or i != net._iteration or \
+                other.params().device.type != DEVICE:
+            raise AssertionError(f"checkpoint round trip ({label}) differs")
+    out["checkpoint"] = {"iteration": it, "equal": True}
+    log(f"[runner] {json.dumps(out)}")
+    return out
+
+
+def w2v_performer_phase() -> dict:
+    """(d) Word2VecWorkPerformer: W2V_PERF_JOBS jobs of W2V_PERF_PAIRS
+    pairs at word2vec_large's width (D 256) over the vocab of a
+    2,000-sentence draw of its corpus, on the card and on the CPU from the
+    same tables and draws (W2V_CARD_TOL)."""
+    from deeplearning4j_tpu_torch.models import word2vec as w2v
+    from deeplearning4j_tpu_torch.scaleout.job import Job
+    from deeplearning4j_tpu_torch.scaleout.nlp_perform import (
+        Word2VecWorkPerformer,
+    )
+
+    vec = w2v.Word2Vec(sentence_iterator=_sentences(
+        _w2v_corpus(2_000, 100, W2V_LARGE["vocab"])), device="cpu",
+        layer_size=W2V_LARGE["layer_size"])
+    vec.build_vocab()
+    rng = np.random.default_rng(1)
+    centers, contexts = vec._pairs_from_flat(vec._flat, vec._sid, rng)
+    perm = rng.permutation(len(centers))
+    centers, contexts = centers[perm], contexts[perm]
+    orig = _cpu_draws(w2v)
+    try:
+        perf = {dev: Word2VecWorkPerformer(
+            vec.vocab, layer_size=W2V_LARGE["layer_size"], negative=5,
+            lr=0.025, total_pairs=W2V_PERF_JOBS * W2V_PERF_PAIRS, seed=1,
+            device=dev) for dev in ("cpu", DEVICE)}
+        errs = []
+        for j in range(W2V_PERF_JOBS):
+            lo = j * W2V_PERF_PAIRS
+            work = (centers[lo:lo + W2V_PERF_PAIRS],
+                    contexts[lo:lo + W2V_PERF_PAIRS])
+            res = {}
+            for dev, p in perf.items():
+                job = Job(work)
+                p.perform(job)
+                res[dev] = job.result
+            errs.append(float(np.abs(res[DEVICE] - res["cpu"]).max()))
+    finally:
+        w2v._keep_uniforms, w2v._window_draws, w2v._neg_slots = orig
+    out = {"vocab": vec.vocab.num_words(), "jobs": W2V_PERF_JOBS,
+           "pairs_per_job": W2V_PERF_PAIRS, "max_abs_err": errs}
+    if max(errs) > W2V_CARD_TOL:
+        raise AssertionError(f"Word2VecWorkPerformer card against CPU: "
+                             f"{out}")
+    log(f"[w2v performer] {json.dumps(out)}")
+    return out
+
+
+def slice8(smi: str, device_epoch_words_per_s) -> dict:
+    """Phase 12: the LM's data-parallel step (K3f, K3k, K3q on the rank),
+    Word2Vec's sharded steps and mesh fit, LocalDistributedRunner (K1 in
+    every worker's fit) and the NLP performer, in a one-rank NCCL group."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel import mesh as pmesh
+    from deeplearning4j_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device=DEVICE)
+    try:
+        mesh = pmesh.data_parallel_mesh()
+        backend = dist.get_backend()
+        if backend != ("nccl" if DEVICE == "cuda" else "gloo"):
+            raise AssertionError(f"process group backend {backend}")
+        log(f"[slice8] {backend} group of world size {mesh.size}: one card, "
+            "no multi-card figure")
+        out = {"backend": backend, "world_size": mesh.size,
+               "lm_dp": lm_dp_phase(mesh),
+               "w2v_mesh": w2v_mesh_phase(mesh, device_epoch_words_per_s)}
+    finally:
+        multihost.shutdown()
+    out["runner"] = runner_phase()
+    out["w2v_performer"] = w2v_performer_phase()
+    out["wall_s"] = time.perf_counter() - t0
+    lm, w, r = out["lm_dp"], out["w2v_mesh"]["mesh_fit"], out["runner"]
+    summary = {
+        "lm_dp_ms_per_step": {m: lm[m]["ms_per_step"] for m in
+                              ("sgd", "adam_replicated", "adam_sharded")},
+        "lm_single_device_ms_per_step": {
+            m: lm[m]["single_device_ms_per_step"] for m in
+            ("sgd", "adam_replicated", "adam_sharded")},
+        "lm_dp_tokens_per_s": lm["sgd"]["tokens_per_s"],
+        "w2v_mesh_words_per_s": w["words_per_s"],
+        "w2v_device_epoch_words_per_s": w["device_epoch_words_per_s"],
+        "runner_samples_per_s": r["sync"]["samples_per_s"],
+        "hogwild_samples_per_s": r["hogwild"]["samples_per_s"],
+        "fit_epochs_samples_per_s": r["fit_epochs_samples_per_s"],
+        "wall_s": out["wall_s"]}
+    log(f"[slice8] {json.dumps(summary)} on {smi}")
+    return out
+
+
 # ---------------------------------------------------------------- main ----
 
 def main() -> int:
@@ -4263,14 +4819,21 @@ def main() -> int:
     for entry in mlp_entries:
         entry["cli_launches"] = cli_run["mlp"]["launches"]
     conv_entries = slice5()
-    slice6(smi)
+    nlp = slice6(smi)
     trainer = slice7(smi)["trainer"]
+    s8 = slice8(smi, nlp["large"]["words_per_s"])
+    for entry in train_entries:
+        # the data-parallel step's f32 runs (phase 12)
+        entry["dp_launches"] = {
+            mode: s8["lm_dp"][mode]["launches"][entry["name"]]
+            for mode in ("sgd", "adam_replicated", "adam_sharded")}
     for entry in mlp_entries:
         entry["trainer_launches"] = {
             run: trainer[run]["launches"] for run in ("sync", "local")}
         entry["trainer_launches"].update({
             f"adam_{mode}": trainer["adam"][mode]["launches"]
             for mode in ("replicated", "sharded")})
+        entry["runner_launches"] = s8["runner"]["sync"]["launches"]
     log(f"[time] chip_smoke ran {time.perf_counter() - t_start:.1f} s")
 
     print(smi)

@@ -38,8 +38,18 @@ update, with the ``guard=`` and ``with_metrics=`` seams). Gradients come
 from ``torch.autograd``; on a CUDA tensor the attention's backward runs on
 the flash backward kernels through ``ops.flash_attention.FlashAttention``.
 
-The mesh, sharding, pipeline and composed step factories, and the
-``profile=``/``runprof=``/``tuned=`` seams, come with later slices.
+Data parallelism: on a mesh whose only axis is "data" (``parallel.mesh``,
+one rank per device over ``torch.distributed``),
+``make_composed_train_step`` runs JAX's composed step: each rank computes
+the loss and grads of its rows (``shard_lm_batch``) through the same
+single-device path (on the card the flash kernels K3f, K3k, K3q), one
+all-reduce carries the router statistics after the forward, and one flat
+all-reduce sums the grads. ``lm_param_shardings``, ``shard_lm_params``,
+``lm_update_sharding`` and ``init_lm_opt_state(mesh=)`` place the params and
+the (ZeRO-sharded) optimizer state. The "sp" and "expert" axes (ring
+attention, expert-parallel MoE), the pipeline factories and the
+``profile=``/``runprof=``/``tuned=`` seams come with later slices (ROADMAP
+items 20 and slice 9) and raise.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from __future__ import annotations
 from functools import partial
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -77,8 +88,9 @@ from deeplearning4j_tpu_torch.optimize.updaters import (
     OptimizerConfig,
     guarded_opt_update,
     init_opt_state,
-    opt_update,
+    opt_update_shardmap,
 )
+from deeplearning4j_tpu_torch.parallel.mesh import flat_all_reduce
 from deeplearning4j_tpu_torch.parallel.moe import (
     _routing,
     load_balance_loss,
@@ -306,22 +318,27 @@ def lm_value_and_grad(loss_fn, params: dict, tokens, targets,
     return value, tree_unflatten(params, list(grads))
 
 
-def init_lm_opt_state(optimizer, params: dict, *,
+def init_lm_opt_state(optimizer, params: dict, mesh=None, *,
                       device: DeviceLike = None) -> dict:
-    """The optimizer state the optimizer-threaded step expects: ``{"m",
-    "v", "count"}`` with zero moments like the params, on ``device`` (CUDA
-    unless ``device="cpu"``). There is no mesh here: the sharded (ZeRO)
-    mode is rejected."""
-    dev = resolve_device(device)
+    """The optimizer state the optimizer-threaded steps expect: ``{"m",
+    "v", "count"}`` with zero moments like the params (replicated mode),
+    or this rank's ``(1, chunk)`` rows of the dp-partitioned ZeRO layout
+    (sharded mode, ``mesh`` required), on the mesh's device or ``device``
+    (CUDA unless ``device="cpu"``)."""
     cfg = OptimizerConfig.coerce(optimizer)
     if cfg is None:
         raise ValueError("init_lm_opt_state needs an optimizer "
                          "(name or OptimizerConfig)")
+    zero = None
     if cfg.sharded:
-        raise ValueError(
-            "update_sharding='sharded' needs a mesh with a dp axis — "
-            "single-device steps run the replicated update")
-    return init_opt_state(cfg, tree_map(lambda _, x: x.to(dev), params))
+        if mesh is None:
+            raise ValueError(
+                "update_sharding='sharded' needs a mesh with a dp axis — "
+                "single-device steps run the replicated update")
+        zero = lm_update_sharding(mesh)
+    dev = _mesh_device(mesh, device)
+    return init_opt_state(cfg, tree_map(lambda _, x: x.to(dev), params),
+                          zero)
 
 
 def _loss_and_grads(loss_fn, params, tokens, targets, dev,
@@ -335,13 +352,16 @@ def _loss_and_grads(loss_fn, params, tokens, targets, dev,
 
 
 def _make_sgd_step(loss_fn, lr: float, with_metrics: bool, dev,
-                   donate: bool = False, guard=None):
+                   donate: bool = False, guard=None,
+                   loss_and_grads=_loss_and_grads):
     """The SGD step: ``step(params, tokens, targets) -> (new_params, loss)``,
     plus the guard block (``guard``) or the metrics dict
-    (``with_metrics``, guard block merged in) as a third output."""
+    (``with_metrics``, guard block merged in) as a third output.
+    ``loss_and_grads`` is ``_loss_and_grads``' contract (the data-parallel
+    step passes its own)."""
     def step(params, tokens, targets):
-        loss, metrics, grads = _loss_and_grads(loss_fn, params, tokens,
-                                               targets, dev, with_metrics)
+        loss, metrics, grads = loss_and_grads(loss_fn, params, tokens,
+                                              targets, dev, with_metrics)
         with torch.no_grad():
             if guard is None:
                 new_params = tree_zip_map(lambda p, g: p - lr * g, params,
@@ -364,23 +384,25 @@ def _make_sgd_step(loss_fn, lr: float, with_metrics: bool, dev,
 
 def _make_opt_step(loss_fn, lr: float, with_metrics: bool,
                    optimizer: OptimizerConfig, dev, donate: bool = False,
-                   guard=None):
+                   guard=None, zero=None, loss_and_grads=_loss_and_grads):
     """The optimizer-threaded step: ``step(params, opt_state, tokens,
     targets) -> (new_params, new_opt_state, loss[, metrics/guard
     block])``. The loss and grads are the SGD step's; only the update
-    differs. With ``donate`` the params and moments are updated in
-    place."""
+    differs (``zero``: the ZeRO-sharded update). With ``donate`` the
+    params and moments are updated in place."""
     def step(params, opt_state, tokens, targets):
-        loss, metrics, grads = _loss_and_grads(loss_fn, params, tokens,
-                                               targets, dev, with_metrics)
+        loss, metrics, grads = loss_and_grads(loss_fn, params, tokens,
+                                              targets, dev, with_metrics)
         with torch.no_grad():
             if guard is None:
-                out = opt_update(optimizer, params, grads, opt_state, lr,
-                                 with_metrics=with_metrics)
+                out = opt_update_shardmap(optimizer, params, grads,
+                                          opt_state, lr, zero,
+                                          with_metrics=with_metrics)
             else:
                 out = guarded_opt_update(params, grads, opt_state, loss, lr,
                                          optimizer, guard,
-                                         with_metrics=with_metrics)
+                                         with_metrics=with_metrics,
+                                         zero=zero)
             new_params, new_state = out[0], out[1]
             block = out[2] if len(out) == 3 else None
             if with_metrics:
@@ -437,6 +459,268 @@ def make_single_device_train_step(n_heads: int, lr: float = 0.1,
             "single-device step has no replicas to shard the update over")
     return _make_opt_step(loss_fn, lr, with_metrics, opt_cfg.resolved(), dev,
                           donate=donate, guard=guard_cfg)
+
+
+# ------------------------------------------------------ data parallelism ----
+
+DATA_AXIS = "data"
+SEQ_AXIS = "sp"
+EXPERT_AXIS = "expert"
+_ITEM_20 = ("the {} mesh axis (ring attention over 'sp', expert-parallel MoE "
+            "over 'expert') comes with ROADMAP item 20: the port's composed "
+            "step runs ('data',) meshes only")
+_SLICE_9 = ("{} comes with ROADMAP slice 9 (telemetry, profiling and "
+            "tuning)")
+
+
+def _check_data_mesh(mesh) -> None:
+    """A mesh the port's composed step runs: "data" is its only axis."""
+    names = tuple(mesh.axis_names)
+    for axis in (SEQ_AXIS, EXPERT_AXIS):
+        if axis in names:
+            raise NotImplementedError(_ITEM_20.format(repr(axis)))
+    other = [a for a in names if a != DATA_AXIS]
+    if other or DATA_AXIS not in names:
+        raise NotImplementedError(_ITEM_20.format(
+            "/".join(map(repr, other)) or "missing 'data'"))
+
+
+def _mesh_device(mesh, device: DeviceLike) -> torch.device:
+    """The rank's device: the mesh's (a process group's rank) when it has
+    one, else ``device`` (CUDA unless ``device="cpu"``)."""
+    if mesh is not None and getattr(mesh, "device", None) is not None:
+        dev = mesh.device
+        if device is not None and resolve_device(device).type != dev.type:
+            raise ValueError(
+                f"this rank's mesh device is {dev}, not {device}: the "
+                "process group's backend decides the device")
+        return dev
+    return resolve_device(device)
+
+
+def lm_param_shardings(params: dict, mesh) -> dict:
+    """Per-leaf sharding specs (``parallel/sharding.py``'s tuples, ``()``
+    = replicated) for the flagship params on ``mesh``. On a ("data",) mesh
+    every leaf is replicated; an "expert" axis (experts on axis 1 of the
+    block leaves) is ROADMAP item 20 and raises."""
+    from deeplearning4j_tpu_torch.parallel.sharding import replicated
+
+    if EXPERT_AXIS in mesh.axis_names:
+        raise NotImplementedError(_ITEM_20.format(repr(EXPERT_AXIS)))
+    rep = replicated(mesh)
+    return tree_map(lambda _, x: rep, params)
+
+
+def shard_lm_params(params: dict, mesh, *, device: DeviceLike = None) -> dict:
+    """Place the params per ``lm_param_shardings``: every leaf replicated,
+    moved to this rank's device. Nothing is broadcast (as in JAX, where
+    ``device_put`` copies the caller's values): every rank passes the same
+    params."""
+    lm_param_shardings(params, mesh)
+    dev = _mesh_device(mesh, device)
+    return tree_map(lambda _, x: torch.as_tensor(x).to(dev), params)
+
+
+def shard_lm_batch(tokens, targets, mesh, *,
+                   device: DeviceLike = None) -> tuple:
+    """This rank's contiguous rows ``[r·B/R, (r+1)·B/R)`` of the global
+    (B, T) ``tokens`` and ``targets`` (arrays or tensors), on its device:
+    what ``P("data")`` places on device r. ``B % R != 0`` raises
+    ``ValueError``, as JAX's ``device_put`` does; an "sp" axis (the
+    sequence split) is ROADMAP item 20 and raises."""
+    if SEQ_AXIS in mesh.axis_names:
+        raise NotImplementedError(_ITEM_20.format(repr(SEQ_AXIS)))
+    dev = _mesh_device(mesh, device)
+    n = int(mesh.shape[DATA_AXIS]) if DATA_AXIS in mesh.axis_names else 1
+    r = int(mesh.coords[DATA_AXIS]) if DATA_AXIS in mesh.axis_names else 0
+    out = []
+    for a in (tokens, targets):
+        rows = a.shape[0]
+        if rows % n:
+            raise ValueError(
+                f"a batch of {rows} rows does not split over the {n} ranks "
+                f"of the {DATA_AXIS!r} axis")
+        b = rows // n
+        part = a[r * b:(r + 1) * b]
+        out.append(torch.as_tensor(np.asarray(part) if not isinstance(
+            part, torch.Tensor) else part).to(dev))
+    return tuple(out)
+
+
+def lm_update_sharding(mesh):
+    """The flagship's ZeRO update-sharding descriptor on ``mesh``
+    (optimize/updaters.ZeroSharding): moments shard over the "data" axis.
+    With no expert axis no leaf needs a prefix."""
+    from deeplearning4j_tpu_torch.optimize.updaters import ZeroSharding
+
+    names = mesh.axis_names
+    if DATA_AXIS not in names:
+        raise ValueError(
+            f"update_sharding='sharded' needs the {DATA_AXIS!r} axis on "
+            f"the mesh (got {names}) — there is no dp axis to shard the "
+            "update over")
+    if EXPERT_AXIS in names:
+        raise NotImplementedError(_ITEM_20.format(repr(EXPERT_AXIS)))
+    return ZeroSharding(mesh, DATA_AXIS)
+
+
+def _router_stats(router_w: torch.Tensor, x: torch.Tensor, top_k: int):
+    """One layer's (f, P, load) over this rank's tokens: the top-1
+    fractions (no gradient through the argmax), the mean router
+    probability (differentiable) and the top-k route fractions."""
+    logits = x @ router_w
+    n_experts = router_w.shape[1]
+    f = F.one_hot(logits.argmax(-1), n_experts).to(
+        torch.promote_types(logits.dtype, torch.float32)).mean(0)
+    load = router_load_fraction(router_w, x, top_k)
+    return f, softmax(logits).mean(0), load
+
+
+def composed_loss_fn(mesh, n_heads: int, capacity: int = 0, top_k: int = 2,
+                     aux_weight: float = 1e-2,
+                     attn_impl: Optional[str] = None,
+                     moe_impl: Optional[str] = None,
+                     with_metrics: bool = False,
+                     ring_prefetch: bool = True):
+    """The loss of JAX's composed step on a ("data",) mesh, computed from
+    this rank's rows: ``loss_fn(params, tokens, targets) -> (loss_r,
+    info)``.
+
+    JAX's load-balance aux is global: under GSPMD its means run over the
+    WHOLE batch. The mean over ranks of per-rank aux losses differs
+    whenever routing differs across shards, so each rank's forward ends
+    with ONE all-reduce of every layer's top-1 fractions ``f`` and mean
+    router probabilities ``P`` (and the task loss and router load), and
+    the rank differentiates the surrogate
+    ``loss_r = task_r + w·mean_l E·Σ_e f̄_e·P_e^(r)`` with ``f̄`` the
+    ranks' mean fractions (no gradient, like JAX's argmax). The mean over
+    ranks of ``loss_r`` is JAX's loss, and so is the mean of its
+    gradients. ``info["loss"]`` is the global loss itself; with
+    ``with_metrics`` ``info`` also holds the global ``task_loss``,
+    ``aux_loss`` and ``router_load``.
+
+    ``capacity``, ``moe_impl`` and ``ring_prefetch`` act only on the
+    "expert"/"sp" axes (ROADMAP item 20): they are accepted and inert
+    here, as in JAX on a ("data",) mesh."""
+    _check_data_mesh(mesh)
+    n_ranks = int(mesh.size)
+
+    def attn_core(q, k, v):
+        return attention_core(q, k, v, causal=True, impl=attn_impl)
+
+    def moe_fn(rw, ex, x):
+        return dense_moe(rw, ex, x, top_k)
+
+    def loss_fn(params, tokens, targets):
+        logits, moe_ins = lm_forward(params, tokens, n_heads, attn_core,
+                                     moe_fn)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+        task = nll.mean()
+        routers = params["blocks"]["router"]
+        stats = [_router_stats(routers[i], moe_ins[i], top_k)
+                 for i in range(moe_ins.shape[0])]
+        f = torch.stack([s[0] for s in stats])          # (L, E)
+        p_mean = torch.stack([s[1] for s in stats])     # (L, E)
+        load = torch.stack([s[2] for s in stats]).mean(0)
+        f_sum, p_sum, load_sum, task_sum = flat_all_reduce(
+            mesh, [f, p_mean.detach(), load, task.detach()])
+        f_bar, p_bar = f_sum / n_ranks, p_sum / n_ranks
+        n_experts = f.shape[1]
+        aux_r = (n_experts * (f_bar * p_mean).sum(-1)).mean()
+        loss_r = task + aux_weight * aux_r
+        with torch.no_grad():
+            task_g = task_sum / n_ranks
+            aux_g = (n_experts * (f_bar * p_bar).sum(-1)).mean()
+            info = {"loss": task_g + aux_weight * aux_g}
+            if with_metrics:
+                info.update(task_loss=task_g, aux_loss=aux_g,
+                            router_load=load_sum / n_ranks)
+        return loss_r, info
+
+    return loss_fn
+
+
+def _dp_loss_and_grads(loss_fn, params, tokens, targets, dev,
+                       with_metrics: bool, mesh=None) -> tuple:
+    """``_loss_and_grads``' contract for ``composed_loss_fn``: this rank's
+    surrogate differentiated, then the grads summed over the ranks in one
+    flat all-reduce and divided by their number — the global batch's
+    gradient on every rank — with the global loss and metrics."""
+    leaves = [x.detach().requires_grad_() for x in tree_leaves(params)]
+    with torch.enable_grad():
+        loss_r, info = loss_fn(tree_unflatten(params, leaves),
+                               torch.as_tensor(tokens, device=dev),
+                               torch.as_tensor(targets, device=dev))
+        grads = torch.autograd.grad(loss_r, leaves)
+    n_ranks = int(mesh.size)
+    grads = [g / n_ranks for g in flat_all_reduce(mesh, list(grads))]
+    loss = info.pop("loss")
+    return loss, (info if with_metrics else None), \
+        tree_unflatten(params, grads)
+
+
+def make_composed_train_step(mesh, n_heads: int, capacity: int = 0,
+                             lr: float = 0.1, top_k: int = 2,
+                             aux_weight: float = 1e-2,
+                             attn_impl: Optional[str] = None,
+                             moe_impl: Optional[str] = None,
+                             with_metrics: bool = False,
+                             donate: bool = False, guard=None,
+                             profile=None, optimizer=None,
+                             ring_prefetch: bool = True, runprof=None,
+                             tuned=None, tune_context=None, *,
+                             device: DeviceLike = None):
+    """JAX's composed train step on a ("data",) mesh: plain data
+    parallelism over the ranks of the process group.
+
+    ``step(params, tokens, targets) -> (new_params, loss)`` with SGD, or
+    ``step(params, opt_state, tokens, targets) -> (new_params,
+    new_opt_state, loss)`` with ``optimizer=`` (state from
+    ``init_lm_opt_state``; ``update_sharding="sharded"`` runs the ZeRO
+    update, each rank its ``1/dp`` chunk, and all-gathers the params).
+    ``tokens``/``targets`` are this rank's rows, as ``shard_lm_batch``
+    returns them; ``params`` are replicated (``shard_lm_params``). The
+    outputs match ``make_single_device_train_step``'s, and the loss, the
+    metrics (``with_metrics``: the global task/aux split and router load,
+    and the norms of the all-reduced grads) and the guard's decision
+    (``guard=``: finiteness of the global loss and the reduced grads) are
+    the same on every rank.
+
+    Collectives a step (``parallel.mesh.COLLECTIVES``): SGD and the
+    replicated optimizer make 2 all-reduces (the forward's router
+    statistics and the grads); the ZeRO-sharded update adds 1 all-gather,
+    LAMB's norms an all-reduce each and the sharded metrics block one.
+
+    On the card each rank's attention runs the flash kernels for T >= the
+    auto gate (``attn_impl=None``). ``device`` (CUDA unless
+    ``device="cpu"``) is the rank's device when the mesh has none. A mesh
+    with an "sp" or "expert" axis raises (ROADMAP item 20); ``capacity``,
+    ``moe_impl`` and ``ring_prefetch`` are inert here, as in JAX on this
+    mesh; ``profile=``, ``runprof=`` and ``tuned=`` raise (ROADMAP slice
+    9)."""
+    _check_data_mesh(mesh)
+    if profile or runprof:
+        raise NotImplementedError(_SLICE_9.format(
+            "a compiled-step profile (profile=, runprof=)"))
+    if tuned or tune_context is not None:
+        raise NotImplementedError(_SLICE_9.format("tuned="))
+    dev = _mesh_device(mesh, device)
+    loss_fn = composed_loss_fn(mesh, n_heads, capacity, top_k, aux_weight,
+                               attn_impl=attn_impl, moe_impl=moe_impl,
+                               with_metrics=with_metrics,
+                               ring_prefetch=ring_prefetch)
+    grads_fn = partial(_dp_loss_and_grads, mesh=mesh)
+    guard_cfg = GuardConfig.coerce(guard)
+    opt_cfg = OptimizerConfig.coerce(optimizer)
+    if opt_cfg is None:
+        return _make_sgd_step(loss_fn, lr, with_metrics, dev, donate=donate,
+                              guard=guard_cfg, loss_and_grads=grads_fn)
+    opt_cfg = opt_cfg.resolved()
+    zero = lm_update_sharding(mesh) if opt_cfg.sharded else None
+    return _make_opt_step(loss_fn, lr, with_metrics, opt_cfg, dev,
+                          donate=donate, guard=guard_cfg, zero=zero,
+                          loss_and_grads=grads_fn)
 
 
 # --------------------------------------------------------------- serving ----

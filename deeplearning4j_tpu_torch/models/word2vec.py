@@ -1,6 +1,7 @@
 """Counterpart of ``deeplearning4j_tpu/models/word2vec.py``: Word2Vec
 skip-gram with negative sampling (SGNS, per-pair or group-shared
-negatives) and hierarchical softmax (HS), on one device.
+negatives) and hierarchical softmax (HS), on one device or data-parallel
+over the ranks of a ``parallel.mesh`` mesh.
 
 Parity surface: ref models/word2vec/Word2Vec.java — fit() builds the vocab
 (Huffman coding via Word2Vec.java:353), then trains skip-gram with
@@ -25,6 +26,15 @@ in at those points. Collisions between duplicate indices in one step
 resolve by addition; on the card ``index_add_`` sums them with atomics in
 no fixed order, so results there agree with the CPU to a tolerance, not
 bit for bit.
+
+With ``mesh=`` (``Word2Vec(mesh=...)``, ``make_sharded_sgns_step``,
+``make_sharded_hs_step``) every rank runs the same loop over the same
+host-generated global pair batches and takes its contiguous rows; it
+builds its scatter-added gradients and collision counts, ONE flat
+all-reduce sums them over the ranks, and every rank applies the identical
+collision-normalized update. Each rank draws its negatives from the step
+key folded with its shard index (``rng.fold_in``), as JAX's ``shard_map``
+step does.
 """
 
 from __future__ import annotations
@@ -49,8 +59,7 @@ from deeplearning4j_tpu_torch.text.tokenization import DefaultTokenizerFactory, 
 from deeplearning4j_tpu_torch.text.vocab import VocabCache, build_huffman
 
 _EPS = 1e-7
-_MESH_MSG = ("data-parallel Word2Vec (mesh=, the sharded SGNS and HS steps) "
-             "comes with ROADMAP item 18b")
+DATA_AXIS = "data"
 
 
 # ------------------------------------------------------------ draw points ----
@@ -334,19 +343,137 @@ def _hs_device_epoch(syn0, syn1, flat, sid, keep, pts, cds, msk, lrs, key,
     return syn0, syn1, torch.stack(losses), torch.stack(wsums).sum()
 
 
+# ----------------------------------------------------- sharded (DP) steps ----
+
+def _data_axis(mesh) -> Tuple[int, int]:
+    """(ranks, this rank's index) on the mesh's "data" axis."""
+    if DATA_AXIS not in mesh.axis_names:
+        raise ValueError(f"data-parallel Word2Vec needs a {DATA_AXIS!r} mesh "
+                         f"axis; the mesh has {tuple(mesh.axis_names)}")
+    return int(mesh.shape[DATA_AXIS]), int(mesh.coords[DATA_AXIS])
+
+
+def _rows(a, n: int, r: int, device) -> Tensor:
+    """Rank ``r``'s contiguous block of the global batch ``a`` (rows a
+    multiple of ``n``), on ``device``."""
+    if a.shape[0] % n:
+        raise ValueError(f"a batch of {a.shape[0]} rows does not split over "
+                         f"the {n} ranks of the {DATA_AXIS!r} axis")
+    b = a.shape[0] // n
+    part = a[r * b:(r + 1) * b]
+    if not isinstance(part, Tensor):
+        part = torch.from_numpy(np.ascontiguousarray(part))
+    return part.to(device)
+
+
+def _reduce_and_apply(mesh, tables, grads, counts, loss, lr):
+    """One flat all-reduce of every (grad, count) pair and the loss, then
+    the collision-normalized update of each table, in place."""
+    from deeplearning4j_tpu_torch.parallel.mesh import flat_all_reduce
+
+    k = len(tables)
+    out = flat_all_reduce(mesh, list(grads) + list(counts) + [loss])
+    for table, g, c in zip(tables, out[:k], out[k:2 * k]):
+        table.sub_(lr * g / c.clamp(min=1.0)[:, None])
+    return out[-1]
+
+
 def make_sharded_sgns_step(mesh, negative: int, neg_group: int = 0):
-    raise NotImplementedError(_MESH_MSG)
+    """Data-parallel SGNS step over the mesh's "data" axis:
+    ``step(syn0, syn1neg, centers, contexts, weights, neg_table, lr, key)
+    -> (syn0, syn1neg, loss)``, the tables updated in place.
+
+    ``centers``/``contexts``/``weights`` are the GLOBAL pair batch, the
+    same on every rank; each rank takes its rows, draws its negatives with
+    the step key folded with its shard index, builds its scatter-added
+    gradients and collision counts ``(g0, c0, g1, c1, loss)``, and one flat
+    all-reduce sums them; every rank then applies the identical
+    collision-normalized update — numerically the single-device
+    ``_sgns_step`` on the concatenated global batch (negatives drawn per
+    shard). ``neg_group``: pairs per shared-negative group within each
+    shard (must divide the per-shard pair count; 0 = per-pair draws)."""
+    n, r = _data_axis(mesh)
+
+    def step(syn0, syn1neg, centers, contexts, weights, neg_table, lr, key):
+        dev = syn0.device
+        centers, contexts, weights = (_rows(a, n, r, dev) for a in
+                                      (centers, contexts, weights))
+        key = rng.fold_in(key, r)
+        b_local = centers.shape[0]
+        if neg_group:
+            negs_g = _sample_negs(key, neg_table, b_local // neg_group,
+                                  negative)
+            grad_v, u_idx, u_grad, u_w, loss = _sgns_grads_shared(
+                syn0, syn1neg, centers, contexts, weights, negs_g)
+        else:
+            negs = _sample_negs(key, neg_table, b_local, negative)
+            grad_v, u_idx, u_grad, u_w, loss = _sgns_grads(
+                syn0, syn1neg, centers, contexts, weights, negs)
+        g0 = torch.zeros_like(syn0).index_add_(0, centers, grad_v)
+        c0 = syn0.new_zeros(syn0.shape[0]).index_add_(0, centers, weights)
+        g1 = torch.zeros_like(syn1neg).index_add_(0, u_idx, u_grad)
+        c1 = syn0.new_zeros(syn1neg.shape[0]).index_add_(0, u_idx, u_w)
+        loss = _reduce_and_apply(mesh, (syn0, syn1neg), (g0, g1), (c0, c1),
+                                 loss, lr)
+        return syn0, syn1neg, loss
+
+    return step
 
 
 def make_sharded_hs_step(mesh):
-    raise NotImplementedError(_MESH_MSG)
+    """Data-parallel hierarchical-softmax step (see
+    ``make_sharded_sgns_step``): ``step(syn0, syn1, centers, points,
+    codes, mask, weights, lr) -> (syn0, syn1, loss)``, the global batch's
+    Huffman paths given per pair.
+
+    A copy of the JAX package's step AS IT IS: syn1's collision counts
+    add the path mask alone (``p_msk = mask.reshape(-1)``), where the
+    single-device ``_hs_update`` weights them by the pair weight. So a
+    padded pair (weight 0) still counts toward its path nodes'
+    denominators, and a padded tail's updates of those nodes come out
+    smaller than ``_hs_update``'s. tests/test_torch_word2vec_mesh.py pins
+    the difference; ROADMAP Queue 3 carries it."""
+    n, r = _data_axis(mesh)
+
+    def step(syn0, syn1, centers, points, codes, mask, weights, lr):
+        dev = syn0.device
+        centers, points, codes, mask, weights = (
+            _rows(a, n, r, dev) for a in (centers, points, codes, mask,
+                                          weights))
+        v = syn0[centers]
+        u = syn1[points]
+        score = torch.sigmoid(torch.bmm(u, v[:, :, None])[..., 0])
+        labels = 1.0 - codes
+        g = (score - labels) * mask * weights[:, None]
+        grad_v = torch.bmm(g[:, None, :], u)[:, 0]
+        grad_u = g[..., None] * v[:, None, :]
+        p_idx = points.reshape(-1)
+        p_msk = mask.reshape(-1)
+        g0 = torch.zeros_like(syn0).index_add_(0, centers, grad_v)
+        c0 = syn0.new_zeros(syn0.shape[0]).index_add_(0, centers, weights)
+        g1 = torch.zeros_like(syn1).index_add_(
+            0, p_idx, grad_u.reshape(-1, grad_u.shape[-1]))
+        c1 = syn0.new_zeros(syn1.shape[0]).index_add_(0, p_idx, p_msk)
+        loss = -(
+            (labels * torch.log(score + _EPS)
+             + (1 - labels) * torch.log(1 - score + _EPS))
+            * mask * weights[:, None]
+        ).sum()
+        loss = _reduce_and_apply(mesh, (syn0, syn1), (g0, g1), (c0, c1),
+                                 loss, lr)
+        return syn0, syn1, loss
+
+    return step
 
 
 # ----------------------------------------------------------------- model ----
 
 class Word2Vec:
     """Word2Vec on one device: CUDA unless ``device="cpu"``; without a card
-    it raises."""
+    it raises. With ``mesh=`` (a ``parallel.mesh`` mesh with a "data"
+    axis) it trains data-parallel over the mesh's ranks on each rank's
+    device (``_fit_host_pairs``); ``batch_size`` rounds up to a multiple
+    of the data axis."""
 
     def __init__(
         self,
@@ -367,9 +494,10 @@ class Word2Vec:
         shared_negatives: int = 25,
         device: DeviceLike = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(_MESH_MSG)
-        self.device = resolve_device(device)
+        if mesh is not None and getattr(mesh, "device", None) is not None:
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device)
         self.sentence_iterator = sentence_iterator
         self.tokenizer_factory = tokenizer_factory or DefaultTokenizerFactory()
         self.layer_size = layer_size
@@ -388,6 +516,13 @@ class Word2Vec:
         # pairs per shared-negative group on the device-epoch path (0 =
         # classic per-pair draws, the reference's posture)
         self.shared_negatives = shared_negatives
+        # data-parallel training: pair batches split over the mesh's data
+        # axis, embedding updates all-reduced (make_sharded_sgns_step)
+        self.mesh = mesh
+        if mesh is not None:
+            d = _data_axis(mesh)[0]
+            if self.batch_size % d:
+                self.batch_size += d - self.batch_size % d  # round up to shard evenly
         self.vocab = VocabCache()
         self._lookup_table: Optional[InMemoryLookupTable] = None
         self.total_words_trained = 0
@@ -624,11 +759,12 @@ class Word2Vec:
     # ---- training ----
     def fit(self) -> None:
         """Train. Fills ``last_fit_timings`` with the host-vs-device split:
-        host_pairgen_s (0: pairs are generated on the device),
+        host_pairgen_s (host pair generation: 0 on one device, where pairs
+        are generated on the device; the mesh path's numpy pair stream),
         host_batch_prep_s (uploads + enqueueing the epochs' device work),
         device_drain_s (time blocked on the final pair count — device work
         not already overlapped with host prep), total_s, n_pairs,
-        n_dispatches (device epochs)."""
+        n_dispatches (device epochs; mesh steps)."""
         if self._lookup_table is None:
             self.build_vocab()
         table = self._lookup_table  # raw: a stale host table must NOT sync
@@ -654,8 +790,12 @@ class Word2Vec:
         # sync/upload — becomes authoritative again
         self._syn_dev = None
         self._table_stale = False
-        syn0, syn1, syn1neg, pairs_seen = self._fit_device(
-            syn0, syn1, syn1neg, key)
+        if self.mesh is None:
+            syn0, syn1, syn1neg, pairs_seen = self._fit_device(
+                syn0, syn1, syn1neg, key)
+        else:
+            syn0, syn1, syn1neg, pairs_seen = self._fit_host_pairs(
+                syn0, syn1, syn1neg, key)
 
         t0 = time.perf_counter()
         pairs_seen = int(pairs_seen)  # the fit's one host read: drains the queue
@@ -735,8 +875,83 @@ class Word2Vec:
             self._timings["prep"] += time.perf_counter() - t0
         return syn0, syn1, syn1neg, (0 if pairs_total is None else pairs_total)
 
+    def _subsampled_flat(self, rng_: np.random.Generator) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-epoch frequent-word subsampling, vectorized over the cached
+        corpus index (ref: Word2Vec.java:224)."""
+        flat, sid = self._flat, self._sid
+        if self.sample > 0 and flat.size:
+            keep = self._keep_probs()
+            m = rng_.random(flat.size) < keep[flat]
+            flat, sid = flat[m], sid[m]
+        return flat, sid
+
     def _fit_host_pairs(self, syn0, syn1, syn1neg, key):
-        raise NotImplementedError(_MESH_MSG)
+        """Mesh-sharded training: host-side numpy pair generation from
+        ``np.random.default_rng(self.seed)`` (the same stream in both
+        packages), the same global batches on every rank, each split over
+        the data axis, and the all-reduced updates of
+        ``make_sharded_sgns_step`` / ``make_sharded_hs_step``. The tail
+        batch is padded with weight 0; lr decays linearly in pairs over
+        the whole run; the key splits once per SGNS step."""
+        rng_ = np.random.default_rng(self.seed)
+        b_local = self.batch_size // _data_axis(self.mesh)[0]
+        ng = (neg_group_size(b_local, self.shared_negatives)
+              if (self.shared_negatives and self.negative > 0 and b_local)
+              else 0)
+        sgns_step = make_sharded_sgns_step(self.mesh, self.negative,
+                                           neg_group=ng)
+        hs_step = make_sharded_hs_step(self.mesh)
+        neg_table = self._neg_table() if self.negative > 0 else None
+        if self.use_hs:
+            pts_d, cds_d, msk_d = self._huffman_tables()
+
+        total_pairs = None  # set from the first epoch's pair count so the
+        pairs_seen = 0      # linear decay spans the whole run in PAIR units
+        bsz = self.batch_size
+
+        for _ in range(max(self.iterations, 1)):
+            t0 = time.perf_counter()
+            flat, sid = self._subsampled_flat(rng_)
+            centers, contexts = self._pairs_from_flat(flat, sid, rng_)
+            n_pairs = centers.shape[0]
+            if n_pairs:
+                perm = rng_.permutation(n_pairs)
+                centers, contexts = centers[perm], contexts[perm]
+            self._timings["pairgen"] += time.perf_counter() - t0
+            if total_pairs is None:
+                total_pairs = max(n_pairs, 1) * max(self.iterations, 1)
+
+            for start in range(0, max(n_pairs, 1), bsz):
+                t0 = time.perf_counter()
+                c = centers[start:start + bsz]
+                t = contexts[start:start + bsz]
+                n_real = c.shape[0]
+                if n_real == 0:
+                    break
+                w = np.ones(n_real, np.float32)
+                if n_real < bsz:  # pad the tail, mask the padding
+                    pad = bsz - n_real
+                    c = np.concatenate([c, np.zeros(pad, np.int32)])
+                    t = np.concatenate([t, np.zeros(pad, np.int32)])
+                    w = np.concatenate([w, np.zeros(pad, np.float32)])
+                frac = min(pairs_seen / max(total_pairs, 1), 1.0)
+                lr = float(np.float32(max(self.min_lr,
+                                          self.lr * (1.0 - frac))))
+                cd, td, wd = (torch.from_numpy(a).to(self.device)
+                              for a in (c.astype(np.int64),
+                                        t.astype(np.int64), w))
+                if self.negative > 0:
+                    key, sub = rng.split(key)
+                    syn0, syn1neg, _ = sgns_step(
+                        syn0, syn1neg, cd, td, wd, neg_table, lr, sub)
+                if self.use_hs:
+                    syn0, syn1, _ = hs_step(
+                        syn0, syn1, cd, pts_d[td], cds_d[td], msk_d[td], wd,
+                        lr)
+                pairs_seen += n_real
+                self._timings["prep"] += time.perf_counter() - t0
+                self._timings["dispatches"] += 1
+        return syn0, syn1, syn1neg, pairs_seen
 
     # ---- query API (ref: WordVectors interface) ----
     def word_vector(self, word: str) -> Optional[np.ndarray]:

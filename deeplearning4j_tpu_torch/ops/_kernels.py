@@ -77,8 +77,15 @@ _SIGNATURES = {
 }
 
 
+_count_lock = threading.Lock()
+
+
 def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+    """Count one launch of ``name``'s kernel. Under a lock: ``+=`` on a
+    dict entry is not atomic, and the scaleout runner's worker threads
+    launch kernels concurrently."""
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:

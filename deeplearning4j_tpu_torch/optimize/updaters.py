@@ -312,12 +312,15 @@ def opt_update_shardmap(cfg: OptimizerConfig, params, grads, opt_state,
 
 def guarded_opt_update(params, grads, opt_state, loss, lr: float,
                        cfg: OptimizerConfig, guard,
-                       with_metrics: bool = False):
+                       with_metrics: bool = False,
+                       zero: Optional[ZeroSharding] = None):
     """The optimizer update with the guardrails: finiteness of loss and
     grad global-norm, optional global-norm clip, and the skip-on-nonfinite
     select over params AND the whole optimizer state (moments and step
-    count). Returns ``(new_params, new_opt_state, metrics)``: the guard
-    block, plus the optimizer block when ``with_metrics``."""
+    count). ``zero`` runs the ZeRO update of :func:`opt_update_shardmap`
+    (None: the replicated one). Returns ``(new_params, new_opt_state,
+    metrics)``: the guard block, plus the optimizer block when
+    ``with_metrics``."""
     from deeplearning4j_tpu_torch.optimize.guardrails import (
         clip_by_global_norm,
         guard_select,
@@ -329,8 +332,8 @@ def guarded_opt_update(params, grads, opt_state, loss, lr: float,
     if guard.clip_norm is not None:
         grads, was_clipped = clip_by_global_norm(grads, gn, guard.clip_norm)
         clipped = (was_clipped & finite).to(torch.float32)
-    out = opt_update(cfg, params, grads, opt_state, lr,
-                     with_metrics=with_metrics)
+    out = opt_update_shardmap(cfg, params, grads, opt_state, lr, zero,
+                              with_metrics=with_metrics)
     new_params, new_state = out[0], out[1]
     opt_metrics = out[2] if with_metrics else {}
     if guard.skip_nonfinite:

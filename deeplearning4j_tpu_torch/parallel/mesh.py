@@ -110,6 +110,24 @@ class Mesh:
             dist.barrier()
 
 
+def flat_all_reduce(mesh: Mesh, tensors: list) -> list:
+    """Sum every tensor of ``tensors`` over the ranks in ONE all-reduce of
+    their concatenation, returned in their own shapes and dtypes. The
+    buffer takes the widest floating dtype among them (f32 at least), so
+    an f64 network's sums keep their precision."""
+    dtype = torch.float32
+    for t in tensors:
+        dtype = torch.promote_types(dtype, t.dtype)
+    flat = torch.cat([t.reshape(-1).to(dtype) for t in tensors])
+    mesh.all_reduce(flat)
+    out, at = [], 0
+    for t in tensors:
+        n = t.numel()
+        out.append(flat[at:at + n].reshape(t.shape).to(t.dtype))
+        at += n
+    return out
+
+
 def data_parallel_mesh(n_devices: Optional[int] = None) -> Mesh:
     """1-D mesh over every rank of the process group: pure DP.
     ``n_devices`` must equal the group's world size (1 with no group)."""

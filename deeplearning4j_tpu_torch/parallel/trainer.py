@@ -40,27 +40,11 @@ from deeplearning4j_tpu_torch.ops.losses import LossFunction, finalize_loss
 from deeplearning4j_tpu_torch.ops.rng import fold_in, split
 from deeplearning4j_tpu_torch.optimize.updater import apply_updater
 from deeplearning4j_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
+from deeplearning4j_tpu_torch.parallel.mesh import \
+    flat_all_reduce as _flat_all_reduce
 
 _PROFILE_SLICE = ("a compiled-step profile (profile=, runprof=) comes with "
                   "ROADMAP slice 9 (telemetry and profiling)")
-
-
-def _flat_all_reduce(mesh: Mesh, tensors: list) -> list:
-    """Sum every tensor of ``tensors`` over the ranks in ONE all-reduce of
-    their concatenation, returned in their own shapes and dtypes. The
-    buffer takes the widest floating dtype among them (f32 at least), so
-    an f64 network's sums keep their precision."""
-    dtype = torch.float32
-    for t in tensors:
-        dtype = torch.promote_types(dtype, t.dtype)
-    flat = torch.cat([t.reshape(-1).to(dtype) for t in tensors])
-    mesh.all_reduce(flat)
-    out, at = [], 0
-    for t in tensors:
-        n = t.numel()
-        out.append(flat[at:at + n].reshape(t.shape).to(t.dtype))
-        at += n
-    return out
 
 
 def _local_grad_step(conf, params, states, iteration, x, y, w, key,

@@ -3,20 +3,22 @@ pluggable blob store, the remote-storage seam the CLI's ``--model`` URIs go
 through.
 
 Everything above the seam talks to the abstract ``BlobStore``; backends
-plug in below it. The local-directory (``file://``) and in-memory
-(``mem://``) backends are ported whole. The ``gs://`` backend
-(``GCSBlobStore``) and the adapters above the seam (``BlobModelSaver``, the
-store checkpoint helpers, ``BlobDataSetIterator``) come with ROADMAP slice
-7, item 19; until then they raise and say so.
+plug in below it: the local-directory (``file://``), in-memory
+(``mem://``) and Google Cloud Storage (``gs://``) backends, and the
+adapters above the seam (``BlobModelSaver``, the store checkpoint helpers
+over ``scaleout/checkpoint.py``, ``BlobDataSetIterator``). The ``gs://``
+backend needs the google-cloud-storage package and fails loudly without
+it, as the JAX package's does.
 """
 
 from __future__ import annotations
 
+import io
 import os
 import re
 from typing import Dict, List, Optional
 
-_GCS_SLICE = "ROADMAP slice 7, item 19 (the scaleout host plane)"
+import numpy as np
 
 _KEY_RE = re.compile(r"^[A-Za-z0-9._/\-]+$")
 
@@ -125,12 +127,46 @@ class InMemoryBlobStore(BlobStore):
 
 
 class GCSBlobStore(BlobStore):
-    """Google Cloud Storage backend (not ported yet)."""
+    """Google Cloud Storage backend (the analogue of the reference's S3
+    module). Requires google-cloud-storage at runtime; without it
+    construction fails loudly rather than pretending."""
 
     def __init__(self, bucket: str, prefix: str = ""):
-        raise NotImplementedError(
-            f"the gs:// blob store comes with {_GCS_SLICE}; use file:// or "
-            "mem:// stores")
+        try:
+            from google.cloud import storage  # type: ignore
+        except ImportError as exc:  # pragma: no cover - environment-dependent
+            raise RuntimeError(
+                "GCSBlobStore requires the google-cloud-storage package; "
+                "use file:// or mem:// stores in environments without it"
+            ) from exc
+        self._bucket = storage.Client().bucket(bucket)  # pragma: no cover
+        self.prefix = prefix.strip("/")  # pragma: no cover
+
+    def _name(self, key: str) -> str:  # pragma: no cover
+        key = _check_key(key)
+        return f"{self.prefix}/{key}" if self.prefix else key
+
+    def put(self, key: str, data: bytes) -> None:  # pragma: no cover
+        self._bucket.blob(self._name(key)).upload_from_string(data)
+
+    def get(self, key: str) -> bytes:  # pragma: no cover
+        return self._bucket.blob(self._name(key)).download_as_bytes()
+
+    def exists(self, key: str) -> bool:  # pragma: no cover
+        return self._bucket.blob(self._name(key)).exists()
+
+    def delete(self, key: str) -> None:  # pragma: no cover
+        self._bucket.blob(self._name(key)).delete()
+
+    def list(self, prefix: str = "") -> List[str]:  # pragma: no cover
+        if prefix:
+            _check_key(prefix)
+        # anchor on "<store-prefix>/" so a sibling object sharing the prefix
+        # string (e.g. "models-old/x" next to store prefix "models") is
+        # neither matched nor mis-sliced
+        base = self.prefix + "/" if self.prefix else ""
+        names = [b.name for b in self._bucket.list_blobs(prefix=base + prefix)]
+        return sorted(n[len(base):] for n in names if n.startswith(base))
 
 
 # mem:// stores live for the life of the process, keyed by the URI's
@@ -182,29 +218,103 @@ def split_store_uri(path: str) -> tuple:
 # --------------------------------------------------------------- adapters ----
 
 class BlobModelSaver:
-    """ModelSaver over a BlobStore (not ported yet)."""
+    """ModelSaver over a BlobStore (ref: S3ModelSaver / HdfsModelSaver):
+    the conf JSON + flat params npz of ``MultiLayerNetwork.save``. ``load``
+    rebuilds the net on ``device`` (CUDA unless ``device="cpu"``)."""
 
-    def __init__(self, store: BlobStore, key: str = "nn-model.npz"):
-        raise NotImplementedError(f"BlobModelSaver comes with {_GCS_SLICE}")
+    def __init__(self, store: BlobStore, key: str = "nn-model.npz",
+                 device=None):
+        self.store = store
+        self.key = key
+        self.device = device
+
+    def save(self, model) -> None:
+        buf = io.BytesIO()
+        np.savez(
+            buf,
+            params=model.params().detach().cpu().numpy(),
+            conf=np.frombuffer(model.conf.to_json().encode(), dtype=np.uint8),
+        )
+        self.store.put(self.key, buf.getvalue())
+
+    def load(self):
+        from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
+        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+        with np.load(io.BytesIO(self.store.get(self.key))) as z:
+            conf = MultiLayerConfiguration.from_json(bytes(z["conf"]).decode())
+            net = MultiLayerNetwork(conf, device=self.device).init()
+            net.set_params(z["params"])
+        return net
+
+    def exists(self) -> bool:
+        return self.store.exists(self.key)
 
 
 def save_checkpoint_to_store(store: BlobStore, key: str, net,
                              iteration: Optional[int] = None) -> str:
-    """Full-state checkpoint through the blob seam (not ported yet)."""
-    raise NotImplementedError(
-        f"save_checkpoint_to_store comes with {_GCS_SLICE}")
+    """Full-state checkpoint (params + updater state + iteration + key)
+    through the blob seam; same payload as scaleout/checkpoint.py."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.scaleout.checkpoint import save_checkpoint
+
+    with tempfile.TemporaryDirectory() as d:
+        path = save_checkpoint(os.path.join(d, "ckpt"), net, iteration)
+        with open(path, "rb") as f:
+            store.put(key, f.read())
+    return key
 
 
-def load_checkpoint_from_store(store: BlobStore, key: str):
-    """Full-state checkpoint from the blob seam (not ported yet)."""
-    raise NotImplementedError(
-        f"load_checkpoint_from_store comes with {_GCS_SLICE}")
+def load_checkpoint_from_store(store: BlobStore, key: str, device=None):
+    """(net, iteration) from a checkpoint blob, the net on ``device`` (CUDA
+    unless ``device="cpu"``)."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.scaleout.checkpoint import load_checkpoint
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "ckpt.npz")
+        with open(path, "wb") as f:
+            f.write(store.get(key))
+        return load_checkpoint(path, device=device)
 
 
 class BlobDataSetIterator:
-    """DataSet batches from npz blobs under a key prefix (not ported
-    yet)."""
+    """DataSet batches from serialized npz blobs under a key prefix
+    (ref: BaseS3DataSetIterator / BaseHdfsDataSetIterator). Each blob holds
+    one batch: arrays ``features`` and ``labels`` (host arrays; the
+    network moves them to its device)."""
 
     def __init__(self, store: BlobStore, prefix: str = ""):
-        raise NotImplementedError(
-            f"BlobDataSetIterator comes with {_GCS_SLICE}")
+        from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+
+        self._DataSet = DataSet
+        self.store = store
+        self.keys = store.list(prefix)
+        self._pos = 0
+
+    @staticmethod
+    def write_batch(store: BlobStore, key: str, features, labels) -> None:
+        buf = io.BytesIO()
+        np.savez(buf, features=np.asarray(features), labels=np.asarray(labels))
+        store.put(key, buf.getvalue())
+
+    def has_next(self) -> bool:
+        return self._pos < len(self.keys)
+
+    def next(self, num=None):
+        if not self.has_next():
+            raise StopIteration
+        key = self.keys[self._pos]
+        self._pos += 1
+        with np.load(io.BytesIO(self.store.get(key))) as z:
+            return self._DataSet(z["features"], z["labels"])
+
+    def reset(self) -> None:
+        self._pos = 0
+
+    def __iter__(self):
+        self.reset()
+        while self.has_next():
+            yield self.next()

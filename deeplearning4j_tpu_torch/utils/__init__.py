@@ -1,7 +1,8 @@
-"""Counterpart of ``deeplearning4j_tpu/utils``: so far
-``MovingWindowMatrix``. The counters come with ROADMAP item 19, the rest
-of the utilities with item 21d."""
+"""Counterpart of ``deeplearning4j_tpu/utils``: so far the counters
+(``Counter``, ``CounterMap``) and ``MovingWindowMatrix``. The rest of the
+utilities come with ROADMAP item 21d."""
 
+from deeplearning4j_tpu_torch.utils.counter import Counter, CounterMap
 from deeplearning4j_tpu_torch.utils.moving_window import MovingWindowMatrix
 
-__all__ = ["MovingWindowMatrix"]
+__all__ = ["Counter", "CounterMap", "MovingWindowMatrix"]

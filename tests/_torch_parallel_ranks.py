@@ -1,20 +1,30 @@
-"""One rank of the data-parallel port's multi-process checks.
+"""One rank of the data-parallel port's multi-process checks, and the
+launcher the test modules start four of.
 
 Run as ``python tests/_torch_parallel_ranks.py RANK WORLD PORT IN OUT``:
 the rank joins a gloo process group on ``127.0.0.1:PORT`` through
 ``parallel.multihost.initialize``, reads the scenarios' inputs (a pickle
-of numpy trees) from ``IN``, runs every scenario through the port's
-trainer and writes its results to ``OUT/rank<RANK>.pkl``. It imports torch
-and the port only; tests/test_torch_parallel.py starts the ranks, runs the
-JAX package's trainer on the same inputs in its own process, and compares.
+of numpy trees) from ``IN``, runs every scenario through the port (the
+MLP trainer, the LM's composed step, Word2Vec's sharded steps and mesh
+fit) and writes its results to ``OUT/rank<RANK>.pkl``. It imports torch
+and the port only: JAX's random draws come in the inputs, precomputed by
+the test process (``_neg_slots`` returns them in call order).
+tests/test_torch_parallel.py, test_torch_lm_dp.py and
+test_torch_word2vec_mesh.py start the ranks (``spawn_ranks``), run the
+JAX package on the same inputs in their own process meanwhile, collect
+the ranks' results (``collect_ranks``, each rank killed after a timeout)
+and compare.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+import socket
+import subprocess
 import sys
 import traceback
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -35,6 +45,56 @@ from deeplearning4j_tpu_torch.parallel import multihost  # noqa: E402
 from deeplearning4j_tpu_torch.parallel import trainer as T  # noqa: E402
 
 CPU = "cpu"
+REPO = Path(__file__).resolve().parent.parent
+
+
+# ------------------------------------------------------------ launcher ----
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(root: Path, inputs: dict, world: int) -> list:
+    """Write ``inputs`` under ``root`` and start ``world`` ranks; returns
+    the processes."""
+    in_path = root / "inputs.pkl"
+    with open(in_path, "wb") as f:
+        pickle.dump(inputs, f)
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    env.pop("JAX_PLATFORMS", None)
+    port = _free_port()
+    return [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), str(r), str(world),
+         str(port), str(in_path), str(root)],
+        env=env, cwd=str(root), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+
+
+def collect_ranks(root: Path, procs: list, timeout: float) -> list:
+    """Wait for ``procs`` (each killed after ``timeout`` s) and load every
+    rank's results; a failed rank fails with its output."""
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {r}:\n{logs[r]}"
+    results = []
+    for r in range(len(procs)):
+        with open(root / f"rank{r}.pkl", "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+
+# ------------------------------------------------------------ scenarios ----
 
 
 def _conf(s: str) -> MultiLayerConfiguration:
@@ -229,8 +289,137 @@ def scenario_ckpt(inp, mesh):
             "resumed_state": tree_to_numpy(fresh._train_state)}
 
 
-SCENARIOS = {name[len("scenario_"):]: fn for name, fn in globals().items()
-             if name.startswith("scenario_")}
+def _lm_optimizer(spec):
+    from deeplearning4j_tpu_torch.optimize.updaters import OptimizerConfig
+
+    return None if spec is None else OptimizerConfig(**spec)
+
+
+def _floats(block):
+    import numpy as np
+
+    return {k: np.asarray(v.detach().cpu().numpy()) for k, v in block.items()}
+
+
+def scenario_lm(inp, mesh):
+    """Steps of ``make_composed_train_step`` on the global batches of
+    ``inp``; per step the loss, the metrics/guard block and the
+    collectives, and the final params (and canonical optimizer state)."""
+    from deeplearning4j_tpu_torch.interop import lm_params_from_numpy, \
+        tree_to_numpy
+    from deeplearning4j_tpu_torch.models import transformer_lm as T
+    from deeplearning4j_tpu_torch.optimize.updaters import \
+        canonical_opt_state
+    from deeplearning4j_tpu_torch.parallel import mesh as pmesh
+
+    opt = _lm_optimizer(inp.get("optimizer"))
+    step = T.make_composed_train_step(
+        mesh, inp["n_heads"], inp["capacity"], lr=inp["lr"],
+        with_metrics=inp.get("with_metrics", False),
+        guard=inp.get("guard"), optimizer=opt, device=CPU)
+    params = T.shard_lm_params(lm_params_from_numpy(inp["params"], CPU),
+                               mesh, device=CPU)
+    state = (None if opt is None else
+             T.init_lm_opt_state(opt, params, mesh, device=CPU))
+    out = {"losses": [], "blocks": [], "all_reduce": [], "all_gather": []}
+    for tokens, targets in inp["batches"]:
+        tk, tg = T.shard_lm_batch(tokens, targets, mesh, device=CPU)
+        pmesh.reset_collectives()
+        res = (step(params, tk, tg) if opt is None
+               else step(params, state, tk, tg))
+        out["all_reduce"].append(pmesh.COLLECTIVES["all_reduce"])
+        out["all_gather"].append(pmesh.COLLECTIVES["all_gather"])
+        if opt is None:
+            params, loss = res[0], res[1]
+        else:
+            params, state, loss = res[0], res[1], res[2]
+        out["losses"].append(float(loss))
+        if len(res) == (3 if opt is None else 4):
+            out["blocks"].append(_floats(res[-1]))
+    out["params"] = tree_to_numpy(params)
+    if opt is not None:
+        zero = T.lm_update_sharding(mesh) if opt.sharded else None
+        out["opt_state"] = canonical_opt_state(state, params, zero)
+        out["m_shape"] = tuple(state["m"]["embed"].shape)
+    return out
+
+
+def _inject_slots(slots):
+    """Make ``models.word2vec._neg_slots`` return this rank's precomputed
+    JAX draws, in call order."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import word2vec as w2v
+
+    queue = list(slots)
+
+    def neg_slots(key, shape, n_slots, device):
+        s = queue.pop(0)
+        assert tuple(s.shape) == tuple(shape), (s.shape, shape)
+        return torch.from_numpy(s.astype("int64")).to(device)
+
+    w2v._neg_slots = neg_slots
+    return queue
+
+
+def _t(a):
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.array(a))
+
+
+def scenario_w2v_step(inp, mesh):
+    """One sharded SGNS (per-pair or shared negatives) or HS step."""
+    from deeplearning4j_tpu_torch.models import word2vec as w2v
+
+    rank = mesh.rank
+    syn0, syn1 = _t(inp["syn0"]), _t(inp["syn1"])
+    if inp["objective"] == "hs":
+        step = w2v.make_sharded_hs_step(mesh)
+        syn0, syn1, loss = step(syn0, syn1, _t(inp["centers"]),
+                                _t(inp["points"]), _t(inp["codes"]),
+                                _t(inp["mask"]), _t(inp["weights"]),
+                                inp["lr"])
+    else:
+        left = _inject_slots(inp["slots"][rank])
+        step = w2v.make_sharded_sgns_step(mesh, inp["negative"],
+                                          inp["neg_group"])
+        syn0, syn1, loss = step(syn0, syn1, _t(inp["centers"]),
+                                _t(inp["contexts"]), _t(inp["weights"]),
+                                _t(inp["neg_table"]), inp["lr"],
+                                inp["key"])
+        assert not left
+    return {"syn0": syn0.numpy(), "syn1": syn1.numpy(), "loss": float(loss)}
+
+
+def scenario_w2v_fit(inp, mesh):
+    """A ``Word2Vec(mesh=...)`` fit on the python tokenizer path, with the
+    JAX package's per-shard negatives put in."""
+    from deeplearning4j_tpu_torch.models.word2vec import Word2Vec
+    from deeplearning4j_tpu_torch.text.sentence_iterator import \
+        CollectionSentenceIterator
+    from deeplearning4j_tpu_torch.text.tokenization import \
+        DefaultTokenizerFactory
+
+    class PythonTokenizer(DefaultTokenizerFactory):
+        """A subclass: the vocab builds on the python path."""
+
+    left = _inject_slots(inp["slots"][mesh.rank]) if inp["slots"] else []
+    vec = Word2Vec(sentence_iterator=CollectionSentenceIterator(inp["corpus"]),
+                   tokenizer_factory=PythonTokenizer(), mesh=mesh, device=CPU,
+                   **inp["kwargs"])
+    vec.fit()
+    assert not left, len(left)
+    table = vec.lookup_table
+    return {"syn0": table.syn0, "syn1": table.syn1, "syn1neg": table.syn1neg,
+            "batch_size": vec.batch_size,
+            "n_pairs": vec.last_fit_timings["n_pairs"],
+            "n_dispatches": vec.last_fit_timings["n_dispatches"]}
+
+
+SCENARIOS = {name[len("scenario_"):]: fn for name, fn in
+             list(globals().items()) if name.startswith("scenario_")}
 
 
 def main(argv) -> int:

@@ -20,12 +20,9 @@ import pytest
 # names of unported slices, by subpackage (ROADMAP Queue 1)
 UNPORTED = {
     "optimize": {"DivergenceWatchdog"},                       # item 20
-    "utils": {"Counter", "CounterMap",                        # item 19
-              "DiskBasedQueue", "Viterbi", "clamp", "entropy",
+    "utils": {"DiskBasedQueue", "Viterbi", "clamp", "entropy",
               "information_gain", "normalize_to_range", "rounded",
               "sigmoid", "sum_of_squares", "uniform"},         # item 21d
-    "scaleout": {"EarlyStopping", "InMemoryStateTracker", "Job",
-                 "LocalDistributedRunner"},                   # item 19
     "telemetry": {                                            # item 21a
         "AlertEngine", "AlertRule", "ClusterAggregator", "DEFAULT_INTERVAL",
         "MemoryWatermarkSampler", "MetricsHistory", "MetricsPusher",

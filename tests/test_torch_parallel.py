@@ -25,18 +25,14 @@ import torch
 if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
 
-import pickle
-import socket
-import subprocess
-import sys
 import types
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from _torch_parallel_ranks import collect_ranks, spawn_ranks
 from deeplearning4j_tpu.datasets.impl import IrisDataSetIterator
 from deeplearning4j_tpu.nn import functional as JF
 from deeplearning4j_tpu.nn.conf import NeuralNetConfiguration as JBuilder
@@ -51,7 +47,6 @@ from deeplearning4j_tpu_torch.optimize import updaters as tupd
 from deeplearning4j_tpu_torch.parallel import mesh as tmesh
 from deeplearning4j_tpu_torch.parallel import multihost, sharding
 
-REPO = Path(__file__).resolve().parent.parent
 WORLD = 4
 REL = 1e-5        # f32 training parity, relative to each leaf's max
 ZERO_ATOL = 1e-6  # sharded against replicated Adam: the same math
@@ -198,44 +193,13 @@ def _inputs(tmp_root):
     }
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Start the four ranks once; returns (inputs, [rank results])."""
     root = tmp_path_factory.mktemp("ranks")
     inputs = _inputs(root)
-    in_path = root / "inputs.pkl"
-    with open(in_path, "wb") as f:
-        pickle.dump(inputs, f)
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
-    env.pop("JAX_PLATFORMS", None)
-    port = _free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, str(REPO / "tests" / "_torch_parallel_ranks.py"),
-         str(r), str(WORLD), str(port), str(in_path), str(root)],
-        env=env, cwd=str(root), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=SPAWN_TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r}:\n{logs[r]}"
-    results = []
-    for r in range(WORLD):
-        with open(root / f"rank{r}.pkl", "rb") as f:
-            results.append(pickle.load(f))
-    return inputs, results
+    procs = spawn_ranks(root, inputs, WORLD)
+    return inputs, collect_ranks(root, procs, SPAWN_TIMEOUT_S)
 
 
 def _result(ranks, name, rank=0):

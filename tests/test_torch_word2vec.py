@@ -123,16 +123,22 @@ def test_entry_point_raises_without_cuda():
 
 
 def test_mesh_and_sharded_steps_raise_naming_item_18():
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tw2v.Word2Vec(mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tw2v.make_sharded_sgns_step(None, 5)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tw2v.make_sharded_hs_step(None)
+    """The mesh path is ported (tests/test_torch_word2vec_mesh.py holds it
+    against JAX's): a mesh without the "data" axis it splits over raises,
+    naming the axis, where JAX's would fail on the missing key."""
+    from deeplearning4j_tpu_torch.parallel.mesh import Mesh
+
+    no_data = Mesh(("model",), (1,))
+    with pytest.raises(ValueError, match="'data'"):
+        tw2v.Word2Vec(mesh=no_data, device=CPU)
+    with pytest.raises(ValueError, match="'data'"):
+        tw2v.make_sharded_sgns_step(no_data, 5)
+    with pytest.raises(ValueError, match="'data'"):
+        tw2v.make_sharded_hs_step(no_data)
+    one = Mesh(("data",), (1,))
     vec = tw2v.Word2Vec(sentence_iterator=CollectionSentenceIterator(["a b"]),
-                        device=CPU)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        vec._fit_host_pairs(None, None, None, 0)
+                        mesh=one, batch_size=7, device=CPU)
+    assert vec.mesh is one and vec.batch_size == 7
 
 
 def test_vectorized_pairs_match_bruteforce():
