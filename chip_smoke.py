@@ -244,7 +244,44 @@ Phases, each fatal on failure:
    save_checkpoint / load_checkpoint and save_checkpoint_to_store over
    mem://, torch.equal; (d) Word2VecWorkPerformer jobs on the card against
    the CPU's from the same draws (W2V_CARD_TOL);
-13. output: the card's name and power limit from nvidia-smi, one JSON line
+13. slice 4c and item 19b, over loopback TCP: (a) the serving fleet at
+   the flagship's width: a StateTrackerServer on 127.0.0.1:0, two
+   FleetReplicas in this process built by FleetReplica.from_live_params
+   from its address (two TCP clients each; N_SLOTS x MAX_LEN engines
+   over the same params on the card) and a FleetRouter over its own
+   StateTrackerClient, driven by serve.run_open_loop(sessions=) at 1.5x
+   the request rate one warmed bf16 engine sustains in a burst: at f32
+   24 greedy requests of 16 new tokens (prompts of PROMPT_LENS in turn,
+   sessions s0, s1 and unpinned in turn): every stream equals one
+   engine's (one request at a time) or leaves it only at a top-2 tie
+   (phase 3b's rule), each session rode one replica, nothing was
+   requeued, and K3f launched exactly n_layers x the admissions, summed
+   over both replicas, whose bucket resolves to it; at bf16, warmed, 96
+   requests through the fleet and through one engine on the same
+   schedule (tokens/s, first-token and latency p50/p99, the same launch
+   check) and the fleet once more under torch.profiler (busy share);
+   (b) chaos at f32: one replica die()s while mid-stream on an
+   unfinished request; every request finishes by the same stream rule,
+   the victim alone is buried (its fleet_replica_heartbeat_unix gauge
+   -1.0), at least one request requeued, and the cold_start callback's
+   replacement (FleetReplica.from_live_params from the card's params)
+   turns alive; (c) ``python -m deeplearning4j_tpu_torch.cli.driver
+   fleet --replica --synthetic <flagship> --seed 0 --slots 8 --max-len
+   2048 --serve-dtype none`` as a process (stdout drained by a thread):
+   it prints FLEET_REPLICA_READY, a router's 4 greedy requests equal an
+   in-process engine's over the same seeded synthetic params, and after
+   finish() it exits 0 (killed in a finally); (d) DistributedMaster with
+   two in-process DistributedWorker threads over TCP, each a
+   MultiLayerNetworkWorkPerformer on the card, over 8 batch-512
+   synthetic_mnist jobs of the MNIST MLP: K1 exactly 2 x iterations x
+   jobs, the score falling, each aggregation against the CPU's average
+   of the same jobs from the same incoming params (phase 12's
+   RUNNER_TOL or its ReLU-kink rule), samples/s beside phase 12's
+   LocalDistributedRunner; then 4 jobs through one worker process
+   (``python -m deeplearning4j_tpu_torch.scaleout.distributed_runner
+   --performer chip_smoke:dist_performer --device cuda``) that finishes
+   them and exits 0;
+14. output: the card's name and power limit from nvidia-smi, one JSON line
    listing each kernel (K3f at the serving shape; K3f, K3k, K3q at the
    training shape in f32 and bf16 with their launches over the timed f32
    training run; K1 at both MLP layer shapes in f32 and bf16 with its
@@ -257,8 +294,11 @@ Phases, each fatal on failure:
    ``fastpath_launches``, its count over each bf16 engine's run of phase
    3b, and K1's ``trainer_launches``, its counts over phase 11's timed
    trainer runs, and ``runner_launches``, its count over phase 12's sync
-   runner; K3f's, K3k's and K3q's training rows ``dp_launches``, their
-   counts over phase 12's data-parallel runs), and as the
+   runner, and ``distributed_launches``, its count over phase 13's
+   in-process DistributedMaster run; K3f's serving row ``fleet_launches``,
+   its counts over phase 13's f32 and timed bf16 fleet runs; K3f's, K3k's
+   and K3q's training rows ``dp_launches``, their counts over phase 12's
+   data-parallel runs), and as the
    last line {"ok": true, "device": {"platform": "gpu", "kind": ...,
    "count": ...}}. An f32 row's bound is that of f32-accurate products: the least
    of the CUDA cores' 67 TFLOP/s and three TF32 products at 495 (the
@@ -275,10 +315,12 @@ whole script's time.
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -295,6 +337,8 @@ PEAK_BYTES = 3.35e12
 # TF32 through the 3xTF32 split), which K1 and K3f take
 F32_PRODUCTS = "f32 products"
 DEVICE = "cuda"
+# the checkout this script runs from: phase 13's processes start there
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 # the flagship LM's serving width (bench.py's composed-flagship dims)
 VOCAB, D_MODEL, N_HEADS, N_EXPERTS, D_FF, N_LAYERS = 2048, 512, 4, 4, 1024, 2
@@ -4474,6 +4518,27 @@ def _sentences(sents):
     return CollectionSentenceIterator(sents)
 
 
+def _hold_round(what, r, got, want, start, errs, kinks) -> None:
+    """Round ``r``'s average ``got`` (leaves) against the CPU's ``want``
+    from the same incoming params ``start``: RUNNER_TOL of each leaf's
+    max, appended to ``errs``. A ReLU unit within f32 noise of its kink
+    switches between K1 and the CPU (phase 5): a leaf over RUNNER_TOL is
+    held to phase 5's K1-vs-plain grad limit, of the round's update's
+    max, and listed in ``kinks``."""
+    for i, (g, w, s) in enumerate(zip(got, want, start)):
+        err = float(np.abs(g - w).max())
+        rel = err / float(np.abs(w).max())
+        errs.append(rel)
+        if rel > RUNNER_TOL:
+            upd = float(np.abs(w - s).max())
+            kinks.append({"round": r, "leaf": i, "rel_err": rel,
+                          "of_update_max": err / upd})
+            if err > MLP_GRAD_TOL * upd:
+                raise AssertionError(
+                    f"{what} round {r} leaf {i} against the CPU: {rel} of "
+                    f"the leaf's max, {err / upd} of the update's max")
+
+
 def runner_phase() -> dict:
     """(c) LocalDistributedRunner on the MNIST MLP: RUNNER_JOBS batch-512
     synthetic_mnist jobs, MultiLayerNetworkWorkPerformer on the card,
@@ -4575,24 +4640,9 @@ def runner_phase() -> dict:
             net.set_params(incoming)
             net.fit(DataSet(x[j * b:(j + 1) * b], y[j * b:(j + 1) * b]))
             results.append(net.params().numpy())
-        want = leaves(np.mean(results, axis=0))
-        got, start = leaves(rounds.saved[r]), leaves(incoming)
-        for i, (g, w, s) in enumerate(zip(got, want, start)):
-            err = float(np.abs(g - w).max())
-            rel = err / float(np.abs(w).max())
-            errs.append(rel)
-            if rel > RUNNER_TOL:
-                # a ReLU unit within f32 noise of its kink switches between
-                # K1 and the CPU (phase 5): the round's update is then held
-                # to phase 5's K1-vs-plain grad limit, of the update's max
-                upd = float(np.abs(w - s).max())
-                kinks.append({"round": r, "leaf": i, "rel_err": rel,
-                              "of_update_max": err / upd})
-                if err > MLP_GRAD_TOL * upd:
-                    raise AssertionError(
-                        f"runner round {r} leaf {i} against the CPU: "
-                        f"{rel} of the leaf's max, {err / upd} of the "
-                        "update's max")
+        _hold_round("runner", r, leaves(rounds.saved[r]),
+                    leaves(np.mean(results, axis=0)), leaves(incoming),
+                    errs, kinks)
         incoming = rounds.saved[r]
     # fit_epochs on the same batches, for speed
     plain = MultiLayerNetwork(conf, device=DEVICE).init()
@@ -4757,6 +4807,682 @@ def slice8(smi: str, device_epoch_words_per_s) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 13 ----
+
+# the serving fleet at the flagship's width: two FleetReplicas of N_SLOTS x
+# MAX_LEN in this process, each with its own TCP clients of a
+# StateTrackerServer on 127.0.0.1, behind a FleetRouter; FLEET_REQUESTS
+# greedy requests of MAX_NEW tokens with prompts across the buckets
+# (PROMPT_LENS in turn), in two sessions and unpinned, driven by
+# run_open_loop; the bf16 runs take FLEET_TIMED_REQUESTS of the same mix
+FLEET_REPLICAS = ("r1", "r2")
+FLEET_REQUESTS, FLEET_TIMED_REQUESTS = 24, 96
+FLEET_SESSIONS = ("s0", "s1", None)
+# offered load: this multiple of the request rate one bf16 engine sustains
+# in a burst, so the schedule asks more than one engine gives
+FLEET_LOAD = 1.5
+FLEET_SEED = 13     # the open-loop arrival schedule's
+# the router's heartbeat windows: wider than the JAX defaults (1 s, 3 s);
+# two serve threads share the process's GIL with the heartbeats
+FLEET_STALE_S, FLEET_DEAD_S = 2.0, 5.0
+FLEET_CLI_REQUESTS = 4
+# DistributedMaster on the MNIST MLP: batch-512 jobs over DIST_WORKERS
+# in-process workers, then DIST_PROC_JOBS through one worker process
+DIST_JOBS, DIST_WORKERS, DIST_PROC_JOBS = 8, 2, 4
+FLEET_REPORT = ("duration_s", "tokens_per_sec", "offered_rps",
+                "first_token_p50_ms", "first_token_p99_ms",
+                "latency_p50_ms", "latency_p99_ms")
+
+
+def _fleet_prompts(seed: int, n: int) -> list:
+    rng = np.random.RandomState(seed)
+    return [_prompt(rng, PROMPT_LENS[i % len(PROMPT_LENS)])
+            for i in range(n)]
+
+
+def _fleet_sessions(n: int) -> list:
+    return [FLEET_SESSIONS[i % len(FLEET_SESSIONS)] for i in range(n)]
+
+
+def _engine_kwargs(serve_dtype, seed) -> dict:
+    from deeplearning4j_tpu_torch.telemetry.registry import MetricsRegistry
+
+    return {"n_slots": N_SLOTS, "max_len": MAX_LEN,
+            "serve_dtype": serve_dtype, "registry": MetricsRegistry(),
+            "seed": seed}
+
+
+def _record_submits(obj) -> list:
+    """Wrap ``obj.submit`` on the instance so every request it returns is
+    kept in the list returned (the replica's serve loop and loadgen call
+    it through the instance)."""
+    reqs, submit = [], obj.submit
+
+    def recording(*args, **kwargs):
+        reqs.append(submit(*args, **kwargs))
+        return reqs[-1]
+
+    obj.submit = recording
+    return reqs
+
+
+class _Fleet:
+    """A tracker server on 127.0.0.1:0, replicas built from its address
+    string by FleetReplica.from_live_params (two TCP clients each) over
+    ``params`` on the card, and a FleetRouter over its own
+    StateTrackerClient. ``submitted[rid]`` keeps each replica engine's
+    requests."""
+
+    def __init__(self, params, serve_dtype, rids=FLEET_REPLICAS,
+                 cold_start=None):
+        from deeplearning4j_tpu_torch.scaleout.remote_tracker import (
+            StateTrackerClient,
+            StateTrackerServer,
+        )
+        from deeplearning4j_tpu_torch.serve import FleetRouter
+        from deeplearning4j_tpu_torch.telemetry.registry import (
+            MetricsRegistry,
+        )
+
+        self.params, self.serve_dtype = params, serve_dtype
+        self.server = StateTrackerServer()
+        self.replicas, self.submitted = {}, {}
+        self.client = None
+        try:
+            for rid in rids:
+                self.add(rid)
+            self.client = StateTrackerClient(self.server.address)
+            self.router = FleetRouter(
+                self.client, registry=MetricsRegistry(),
+                stale_after_s=FLEET_STALE_S, dead_after_s=FLEET_DEAD_S,
+                cold_start=cold_start)
+            self.wait_alive(set(rids))
+        except BaseException:
+            self.close()
+            raise
+
+    def add(self, rid: str):
+        from deeplearning4j_tpu_torch.serve import FleetReplica
+
+        rep = FleetReplica.from_live_params(
+            self.params, N_HEADS, self.server.address, rid, device=DEVICE,
+            engine_kwargs=_engine_kwargs(self.serve_dtype,
+                                         len(self.replicas)))
+        self.submitted[rid] = _record_submits(rep.engine)
+        self.replicas[rid] = rep
+        rep.start()
+        return rep
+
+    def wait_alive(self, rids, timeout_s: float = 60.0) -> None:
+        deadline = time.monotonic() + timeout_s
+        while not rids <= {r["replica_id"] for r in
+                           self.router.fleet_snapshot()["replicas"]
+                           if r["state"] == "alive"}:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"fleet replicas {sorted(rids)} not "
+                                     f"alive within {timeout_s} s")
+            self.router.step()
+
+    def reset_records(self) -> None:
+        for reqs in self.submitted.values():
+            reqs.clear()
+
+    def k3f_expected(self) -> int:
+        return N_LAYERS * sum(
+            _kernel_admissions(self.replicas[rid].engine, reqs)
+            for rid, reqs in self.submitted.items())
+
+    def close(self) -> None:
+        for rep in self.replicas.values():
+            rep.stop()
+        if self.client is not None:
+            self.client.close()
+        self.server.shutdown()
+
+
+class _RpcCounts:
+    """Tracker RPCs by method, over every StateTrackerClient in this
+    process, while the context is open (a dict update a call)."""
+
+    def __enter__(self):
+        from deeplearning4j_tpu_torch.scaleout.remote_tracker import (
+            StateTrackerClient,
+        )
+
+        self.counts, lock = {}, threading.Lock()
+        self._cls, call = StateTrackerClient, StateTrackerClient._call
+
+        def counting(client, method, *args, **kwargs):
+            with lock:
+                self.counts[method] = self.counts.get(method, 0) + 1
+            return call(client, method, *args, **kwargs)
+
+        self._call, StateTrackerClient._call = call, counting
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._call = self._call
+
+
+def _fleet_drive(target, prompts, rate, sessions=None, profiled=False):
+    """run_open_loop over ``target`` (a FleetRouter or a DecodeEngine),
+    the launches counted from 0 over exactly that run: (report, the
+    requests it submitted, K3f's launches, the device busy record or
+    None). Every request must finish its MAX_NEW tokens."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.serve import run_open_loop
+
+    reqs = _record_submits(target)
+    ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+           if profiled else contextlib.nullcontext())
+    sync()
+    _kernels.reset_launches()
+    try:
+        with ctx as prof:
+            report = run_open_loop(target, prompts, rate,
+                                   max_new_tokens=MAX_NEW, seed=FLEET_SEED,
+                                   sessions=sessions)
+            sync()
+    finally:
+        del target.submit
+    launches = _kernels.LAUNCHES["flash_attention_fwd"]
+    for r in reqs:
+        if not (r.done.is_set() and r.finish_reason == "max_new_tokens"
+                and len(r.generated) == MAX_NEW):
+            raise AssertionError(f"fleet: request {r.rid} (prompt "
+                                 f"{len(r.prompt)}) ended "
+                                 f"{r.finish_reason!r} with "
+                                 f"{len(r.generated)} tokens")
+    busy = device_busy(prof, report.duration_s) if profiled else None
+    return report, reqs, launches, busy
+
+
+def _fleet_checks(fleet, reqs, launches, sessions) -> dict:
+    """K3f launched exactly n_layers x the replicas' kernel admissions
+    (never 0), each session rode one replica, nothing was requeued."""
+    want = fleet.k3f_expected()
+    if launches != want or want == 0:
+        raise AssertionError(f"fleet: flash_attention_fwd launched "
+                             f"{launches} times, the replicas' admissions "
+                             f"expect {want}")
+    rode = {}
+    for r, s in zip(reqs, sessions):
+        if s is not None:
+            rode.setdefault(s, set()).add(r.replica)
+    snap = fleet.router.fleet_snapshot()
+    if any(len(v) != 1 for v in rode.values()) or snap["requeued_total"]:
+        raise AssertionError(f"fleet: sessions rode {rode}, requeued "
+                             f"{snap['requeued_total']}")
+    return {"k3f_launches": launches,
+            "admissions": {rid: len(r) for rid, r in fleet.submitted.items()},
+            "sessions": {s: sorted(v)[0] for s, v in rode.items()}}
+
+
+def fleet_phase(params, prompts, want, smi: str) -> dict:
+    """(a) The fleet on the card: the rate one bf16 engine sustains in a
+    burst sets the offered load (FLEET_LOAD of it); at f32 the fleet's
+    streams of ``prompts`` against one engine's (``want``, phase 3b's tie
+    rule), K3f's count, sessions, no requeue; at bf16, warmed,
+    FLEET_TIMED_REQUESTS through the fleet and through one engine on the
+    same schedule, and the fleet once more profiled."""
+    from deeplearning4j_tpu_torch.serve.engine import DecodeEngine
+
+    sessions = _fleet_sessions(len(prompts))
+    timed = _fleet_prompts(42, FLEET_TIMED_REQUESTS)
+    timed_sessions = _fleet_sessions(FLEET_TIMED_REQUESTS)
+    warm = _fleet_prompts(43, FLEET_REQUESTS)
+    one = DecodeEngine(params, N_HEADS, device=DEVICE,
+                       **_engine_kwargs("bf16", 0))
+    for p in warm:
+        one.submit(p, max_new_tokens=MAX_NEW)
+    one.run_until_idle()
+    sync()
+    t0 = time.perf_counter()
+    for p in timed:
+        one.submit(p, max_new_tokens=MAX_NEW)
+    one.run_until_idle()
+    sync()
+    sustained = len(timed) / (time.perf_counter() - t0)
+    rate = FLEET_LOAD * sustained
+    log(f"[fleet] one bf16 engine sustains {sustained:.2f} requests/s "
+        f"({len(timed)} in one burst); offered load {rate:.2f} requests/s")
+
+    # f32: the fleet's streams against one engine's
+    fleet = _Fleet(params, None)
+    try:
+        rep, reqs, launches, _ = _fleet_drive(fleet.router, prompts, rate,
+                                              sessions)
+        f32 = _fleet_checks(fleet, reqs, launches, sessions)
+    finally:
+        fleet.close()
+    f32["diverged_near_tie"] = _fp_check_streams(params, "fleet", prompts,
+                                                 want, reqs)
+    f32.update({k: getattr(rep, k) for k in FLEET_REPORT})
+    log(f"[fleet] f32: {json.dumps(f32)}")
+
+    # bf16: timed, fleet and one engine on the same schedule
+    fleet = _Fleet(params, "bf16")
+    try:
+        _fleet_drive(fleet.router, warm, rate, _fleet_sessions(len(warm)))
+        fleet.reset_records()
+        with _RpcCounts() as rpcs:
+            rep, reqs, launches, _ = _fleet_drive(fleet.router, timed, rate,
+                                                  timed_sessions)
+        bf16 = _fleet_checks(fleet, reqs, launches, timed_sessions)
+        bf16.update({k: getattr(rep, k) for k in FLEET_REPORT})
+        # the control plane's cost: tracker round trips a generated token
+        bf16["tracker_rpcs"] = dict(sorted(rpcs.counts.items()))
+        bf16["tracker_rpcs_per_token"] = (sum(rpcs.counts.values())
+                                          / rep.tokens_out)
+        fleet.reset_records()
+        prep, _, _, busy = _fleet_drive(
+            fleet.router, _fleet_prompts(44, FLEET_REQUESTS), rate,
+            sessions, profiled=True)
+    finally:
+        fleet.close()
+    bf16["profiled"] = {"tokens_per_sec": prep.tokens_per_sec,
+                        "busy_share": busy["busy_share"],
+                        "device_busy_ms": busy["device_busy_ms"],
+                        "top_kernels_ms": dict(list(
+                            busy["top_kernels_ms"].items())[:4])}
+    orep, _, olaunches, _ = _fleet_drive(one, timed, rate)
+    engine = {k: getattr(orep, k) for k in FLEET_REPORT}
+    engine["k3f_launches"] = olaunches
+    del one
+    beats = bf16["tokens_per_sec"] > engine["tokens_per_sec"]
+    out = {"sustained_rps": sustained, "offered_rps": rate, "f32": f32,
+           "bf16": {"fleet": bf16, "one_engine": engine,
+                    "fleet_beats_one_engine": beats}}
+    log(f"[fleet] bf16, {len(timed)} requests, fleet of "
+        f"{len(FLEET_REPLICAS)} against one engine on the same schedule: "
+        f"{json.dumps(out['bf16'])} on {smi}")
+    return out
+
+
+def chaos_phase(params, want_prompts, want) -> dict:
+    """(b) One replica die()s while it is mid-stream on an unfinished
+    request (the victim as tests/test_fleet.py picks it), at f32: every
+    request finishes against one engine's stream (phase 3b's tie rule),
+    the victim alone is buried (heartbeat gauge -1.0) with at least one
+    request requeued, and the cold_start callback's replacement, built
+    by FleetReplica.from_live_params from the card's params, turns
+    alive."""
+    spawned = []
+
+    def cold_start(_rid):
+        spawned.append(fleet.add("r3"))
+
+    fleet = _Fleet(params, None, rids=("rA", "rB"), cold_start=cold_start)
+    router = fleet.router
+    try:
+        reqs = [router.submit(p, max_new_tokens=MAX_NEW)
+                for p in want_prompts]
+        victim, t_die, t_buried = None, None, None
+        deadline = time.monotonic() + 300.0
+        while router.has_work():
+            if time.monotonic() > deadline:
+                raise AssertionError("chaos: the fleet did not drain")
+            router.step()
+            if victim is None and any(
+                    r.t_done is None and r.replica == "rA"
+                    and len(r.generated) >= 1 for r in reqs):
+                victim, t_die = "rA", time.perf_counter()
+                fleet.replicas["rA"].die()
+            if t_buried is None and router.failed_replicas:
+                t_buried = time.perf_counter()
+        if victim is None:
+            raise AssertionError("chaos: the victim was never mid-stream")
+        snap = router.fleet_snapshot()
+        gauge = router.registry.gauge("fleet_replica_heartbeat_unix",
+                                      {"replica": victim}).value
+        if not (snap["failed_replicas"] == [victim]
+                and snap["requeued_total"] >= 1 and gauge == -1.0
+                and len(spawned) == 1):
+            raise AssertionError(f"chaos: failed {snap['failed_replicas']}, "
+                                 f"requeued {snap['requeued_total']}, "
+                                 f"gauge {gauge}, spawned {len(spawned)}")
+        for r in reqs:
+            if not (r.finish_reason == "max_new_tokens"
+                    and len(r.generated) == MAX_NEW):
+                raise AssertionError(f"chaos: request {r.rid} ended "
+                                     f"{r.finish_reason!r}")
+        diverged = _fp_check_streams(params, "fleet chaos", want_prompts,
+                                     want, reqs)
+        fleet.wait_alive({"r3"})
+        requeued = [r for r in reqs if r.requeues]
+        out = {"victim": victim, "requeued_total": snap["requeued_total"],
+               "failed_replicas": snap["failed_replicas"],
+               "heartbeat_gauge": gauge,
+               "die_to_burial_s": t_buried - t_die,
+               "requeue_to_first_token_ms": [
+                   (r.t_first_after_requeue - r.t_requeue) * 1e3
+                   for r in requeued if r.t_first_after_requeue],
+               "replacement_alive": True,
+               "diverged_near_tie": diverged}
+    finally:
+        fleet.close()
+    log(f"[fleet] chaos: {json.dumps(out)}")
+    return out
+
+
+def _drain(proc, lines: list, ready=None, marker=None) -> None:
+    """Read a child's stdout to its end (a full pipe would block it),
+    keeping the lines and setting ``ready`` at the first one holding
+    ``marker``, or at the end."""
+    for line in proc.stdout:
+        lines.append(line)
+        if marker is not None and marker in line:
+            ready.set()
+    if ready is not None:
+        ready.set()
+
+
+def fleet_cli_phase() -> dict:
+    """(c) ``python -m deeplearning4j_tpu_torch.cli.driver fleet --replica
+    --synthetic <flagship> --seed 0 --slots N_SLOTS --max-len MAX_LEN
+    --serve-dtype none`` as a process on the card: it prints
+    FLEET_REPLICA_READY, a router's FLEET_CLI_REQUESTS greedy requests
+    (one at a time) equal an in-process engine's over the same seeded
+    synthetic params (phase 3b's tie rule), and after finish() the
+    process exits 0."""
+    from deeplearning4j_tpu_torch.scaleout.remote_tracker import (
+        StateTrackerClient,
+        StateTrackerServer,
+    )
+    from deeplearning4j_tpu_torch.serve import FleetRouter
+    from deeplearning4j_tpu_torch.serve.engine import DecodeEngine
+    from deeplearning4j_tpu_torch.serve.fleet import synthetic_params
+    from deeplearning4j_tpu_torch.telemetry.registry import MetricsRegistry
+
+    spec = f"{VOCAB},{D_MODEL},{N_HEADS},{N_EXPERTS},{D_FF},{N_LAYERS}"
+    prompts = _fleet_prompts(45, FLEET_CLI_REQUESTS)
+    server = StateTrackerServer()
+    client = proc = None
+    lines, ready = [], threading.Event()
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "deeplearning4j_tpu_torch.cli.driver",
+             "fleet", "--replica", "--tracker", server.address,
+             "--synthetic", spec, "--seed", "0", "--slots", str(N_SLOTS),
+             "--max-len", str(MAX_LEN), "--serve-dtype", "none",
+             "--device", DEVICE],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=REPO)
+        threading.Thread(target=_drain, daemon=True,
+                         args=(proc, lines, ready,
+                               "FLEET_REPLICA_READY")).start()
+        ready.wait(180)
+        ready_line = next((ln for ln in lines
+                           if ln.startswith("FLEET_REPLICA_READY")), None)
+        if ready_line is None:
+            raise AssertionError("fleet CLI: no FLEET_REPLICA_READY:\n"
+                                 + "".join(lines[-40:]))
+        ready_s = time.perf_counter() - t0
+        rid = ready_line.split()[1]
+        client = StateTrackerClient(server.address)
+        router = FleetRouter(client, registry=MetricsRegistry(),
+                             stale_after_s=FLEET_STALE_S,
+                             dead_after_s=FLEET_DEAD_S)
+        got = []
+        for p in prompts:
+            req = router.submit(p, max_new_tokens=MAX_NEW)
+            router.run_until_idle(timeout_s=120.0)
+            got.append(req)
+        sparams, h = synthetic_params(spec, 0)
+        engine = DecodeEngine.from_live_params(
+            sparams, h, device=DEVICE, **_engine_kwargs(None, 0))
+        want = [engine.generate(p, max_new_tokens=MAX_NEW) for p in prompts]
+        diverged = _fp_check_streams(engine.params, "fleet CLI", prompts,
+                                     want, got)
+        client.finish()
+        rc = proc.wait(timeout=60)
+        if rc != 0 or {r.replica for r in got} != {rid}:
+            raise AssertionError(f"fleet CLI: exit {rc}:\n"
+                                 + "".join(lines[-40:]))
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        if client is not None:
+            client.close()
+        server.shutdown()
+    out = {"replica": rid, "ready_s": ready_s, "requests": len(got),
+           "diverged_near_tie": diverged, "exit": rc}
+    log(f"[fleet] cli: {json.dumps(out)}")
+    return out
+
+
+def dist_performer(device=None):
+    """The MNIST MLP's performer at the bench's width (phase 12's): the
+    conf's initial params drawn on the CPU and put in through update().
+    Phase 13's worker process resolves it as ``chip_smoke:dist_performer``
+    (the worker CLI passes ``device=``)."""
+    from deeplearning4j_tpu_torch.models.zoo import mnist_mlp
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.scaleout.perform import (
+        MultiLayerNetworkWorkPerformer,
+    )
+
+    conf = mnist_mlp(MLP_H1, MLP_H2)
+    performer = MultiLayerNetworkWorkPerformer(conf.to_json(), device=device)
+    performer.update(MultiLayerNetwork(conf, device="cpu").init()
+                     .params().numpy())
+    return performer
+
+
+def distributed_phase(runner_samples_per_s) -> dict:
+    """(d) DistributedMaster over TCP with DIST_WORKERS in-process
+    DistributedWorker threads, each a MultiLayerNetworkWorkPerformer on
+    the card: DIST_JOBS batch-512 synthetic_mnist jobs; K1 exactly 2 x
+    iterations x jobs, the score falls, and each aggregation against the
+    CPU's average of the same jobs from the same incoming params
+    (_hold_round). Then DIST_PROC_JOBS jobs through one worker process
+    (worker_main, ``--performer chip_smoke:dist_performer``) that finishes
+    them and exits 0. Samples/s beside phase 12's LocalDistributedRunner."""
+    from deeplearning4j_tpu_torch._device import tree_leaves
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.models.zoo import mnist_mlp
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.scaleout.distributed_runner import (
+        DistributedMaster,
+        DistributedWorker,
+    )
+    from deeplearning4j_tpu_torch.scaleout.job import DataSetJobIterator
+
+    b = MLP_BATCH
+    x, y = _mnist(b * (DIST_JOBS + DIST_PROC_JOBS), seed=53)
+    conf = mnist_mlp(MLP_H1, MLP_H2)
+    iters = conf.conf(0).num_iterations
+    records = []
+
+    def performer():
+        perf = dist_performer(DEVICE)
+        perform = perf.perform
+
+        def recording(job):
+            incoming = perf._params
+            perform(job)
+            records.append((incoming, job.work, job.result, job.score))
+
+        perf.perform = recording
+        return perf
+
+    def jobs(lo, n):
+        return DataSetJobIterator(ListDataSetIterator(
+            DataSet(x[lo * b:(lo + n) * b], y[lo * b:(lo + n) * b]), b))
+
+    master = DistributedMaster(job_iterator=jobs(0, DIST_JOBS),
+                               min_workers=DIST_WORKERS,
+                               max_rounds=DIST_JOBS, worker_timeout_s=60.0)
+    aggregations = []
+    update = master.router.update
+
+    def recording_update(updates=None):
+        snap = master.tracker.updates() if updates is None else updates
+        results = [job.result for job in snap.values()]
+        update(updates)
+        aggregations.append((results, master.tracker.get_current()))
+
+    master.router.update = recording_update
+    workers = [DistributedWorker(master.address, performer(),
+                                 worker_id=f"w{i}")
+               for i in range(DIST_WORKERS)]
+    threads = [threading.Thread(target=w.run, daemon=True) for w in workers]
+    try:
+        sync()
+        _kernels.reset_launches()
+        for t in threads:
+            t.start()
+        t0 = time.perf_counter()
+        final = master.train()
+        for t in threads:
+            t.join(timeout=60)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = _kernels.LAUNCHES["fused_dense"]
+        done = master.tracker.count("jobs_done")
+    finally:
+        master.shutdown()
+    if any(t.is_alive() for t in threads) or final is None \
+            or done != DIST_JOBS or len(records) != DIST_JOBS:
+        raise AssertionError(f"distributed: {done} jobs done, "
+                             f"{len(records)} performed")
+    if launches != 2 * iters * DIST_JOBS:
+        raise AssertionError(f"distributed: fused_dense launched {launches} "
+                             f"times, expected 2 x {iters} x {DIST_JOBS}")
+    scores = [rec[3] for rec in records]
+    first, last = np.mean(scores[:2]), np.mean(scores[-2:])
+    if not last < first:
+        raise AssertionError(f"distributed: score {first} -> {last}")
+    # each aggregation against the CPU's average of the same jobs
+    shape_net = MultiLayerNetwork(conf, device="cpu").init()
+
+    def leaves(flat):
+        shape_net.set_params(flat)
+        return [a.numpy().copy() for a in tree_leaves(shape_net.params_tree)]
+
+    errs, kinks = [], []
+    for r, (results, current) in enumerate(aggregations):
+        cpu, starts = [], []
+        for res in results:
+            incoming, work, _, _ = next(
+                rec for rec in records if np.array_equal(rec[2], res))
+            net = MultiLayerNetwork(conf, device="cpu").init()
+            net.set_params(incoming)
+            net.fit(work)
+            cpu.append(net.params().numpy())
+            starts.append(incoming)
+        _hold_round("distributed", r, leaves(current),
+                    leaves(np.mean(cpu, axis=0)),
+                    leaves(np.mean(starts, axis=0)), errs, kinks)
+    out = {"jobs": DIST_JOBS, "workers": DIST_WORKERS,
+           "aggregations": len(aggregations), "wall_s": wall,
+           "samples_per_s": b * DIST_JOBS / wall, "launches": launches,
+           "first_scores": first, "last_scores": last,
+           "max_leaf_rel_err_vs_cpu": max(errs),
+           "leaves_over_runner_tol": kinks,
+           "local_runner_samples_per_s": runner_samples_per_s}
+
+    # one worker as a process through worker_main
+    master = DistributedMaster(job_iterator=jobs(DIST_JOBS, DIST_PROC_JOBS),
+                               min_workers=1, max_rounds=DIST_PROC_JOBS,
+                               register_timeout_s=180.0,
+                               worker_timeout_s=60.0)
+    proc = None
+    lines = []
+    try:
+        proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "deeplearning4j_tpu_torch.scaleout.distributed_runner",
+             "--connect", master.address,
+             "--performer", "chip_smoke:dist_performer",
+             "--worker-id", "p0", "--device", DEVICE],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=REPO)
+        threading.Thread(target=_drain, daemon=True,
+                         args=(proc, lines)).start()
+        t0 = time.perf_counter()
+        master.train()
+        rc = proc.wait(timeout=60)
+        pwall = time.perf_counter() - t0
+        pdone = master.tracker.count("jobs_done")
+        prounds = master.tracker.count("rounds.p0")
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        master.shutdown()
+    if rc != 0 or pdone != DIST_PROC_JOBS or prounds != DIST_PROC_JOBS:
+        raise AssertionError(f"worker process: exit {rc}, {pdone} jobs, "
+                             f"{prounds} rounds:\n" + "".join(lines[-40:]))
+    out["process"] = {"jobs": DIST_PROC_JOBS, "exit": rc,
+                      "wall_s_from_register_wait": pwall}
+    log(f"[distributed] {json.dumps(out)}")
+    return out
+
+
+def slice4c(smi: str, runner_samples_per_s) -> dict:
+    """Phase 13: the serving fleet (FleetRouter over FleetReplicas, K3f in
+    each replica's prefills), its chaos run and its CLI process, and the
+    DistributedMaster with its workers over the wire (K1 in every job)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer_lm import init_lm_params
+    from deeplearning4j_tpu_torch.serve.engine import DecodeEngine
+
+    t0 = time.perf_counter()
+    # phase 3's flagship params, drawn again from the same seed
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = init_lm_params(gen, VOCAB, D_MODEL, N_HEADS, N_EXPERTS, D_FF,
+                            n_layers=N_LAYERS, device=DEVICE)
+    # the f32 oracle: one engine, one request at a time
+    prompts = _fleet_prompts(41, FLEET_REQUESTS)
+    single = DecodeEngine(params, N_HEADS, device=DEVICE,
+                          **_engine_kwargs(None, 0))
+    want = [single.generate(p, max_new_tokens=MAX_NEW) for p in prompts]
+    del single
+    out = {"fleet": fleet_phase(params, prompts, want, smi),
+           "chaos": chaos_phase(params, prompts, want)}
+    del params
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    out["cli"] = fleet_cli_phase()
+    out["distributed"] = distributed_phase(runner_samples_per_s)
+    out["wall_s"] = time.perf_counter() - t0
+    bf = out["fleet"]["bf16"]
+    summary = {
+        "fleet_tokens_per_s": bf["fleet"]["tokens_per_sec"],
+        "one_engine_tokens_per_s": bf["one_engine"]["tokens_per_sec"],
+        "fleet_latency_p50_p99_ms": [bf["fleet"]["latency_p50_ms"],
+                                     bf["fleet"]["latency_p99_ms"]],
+        "one_engine_latency_p50_p99_ms": [
+            bf["one_engine"]["latency_p50_ms"],
+            bf["one_engine"]["latency_p99_ms"]],
+        "fleet_first_token_p50_p99_ms": [bf["fleet"]["first_token_p50_ms"],
+                                         bf["fleet"]["first_token_p99_ms"]],
+        "one_engine_first_token_p50_p99_ms": [
+            bf["one_engine"]["first_token_p50_ms"],
+            bf["one_engine"]["first_token_p99_ms"]],
+        "fleet_busy_share": bf["fleet"]["profiled"]["busy_share"],
+        "fleet_tracker_rpcs_per_token": bf["fleet"]["tracker_rpcs_per_token"],
+        "fleet_beats_one_engine": bf["fleet_beats_one_engine"],
+        "chaos_die_to_burial_s": out["chaos"]["die_to_burial_s"],
+        "distributed_samples_per_s": out["distributed"]["samples_per_s"],
+        "local_runner_samples_per_s": runner_samples_per_s,
+        "wall_s": out["wall_s"]}
+    log(f"[slice4c] {json.dumps(summary)} on {smi}")
+    return out
+
+
 # ---------------------------------------------------------------- main ----
 
 def main() -> int:
@@ -4834,6 +5560,14 @@ def main() -> int:
             f"adam_{mode}": trainer["adam"][mode]["launches"]
             for mode in ("replicated", "sharded")})
         entry["runner_launches"] = s8["runner"]["sync"]["launches"]
+    s4c = slice4c(smi, s8["runner"]["sync"]["samples_per_s"])
+    # K3f over the fleet's counted runs (f32 and the timed bf16 run), K1
+    # over the DistributedMaster's in-process workers
+    serve_entry["fleet_launches"] = {
+        "f32": s4c["fleet"]["f32"]["k3f_launches"],
+        "bf16": s4c["fleet"]["bf16"]["fleet"]["k3f_launches"]}
+    for entry in mlp_entries:
+        entry["distributed_launches"] = s4c["distributed"]["launches"]
     log(f"[time] chip_smoke ran {time.perf_counter() - t_start:.1f} s")
 
     print(smi)

@@ -14,10 +14,12 @@ package's order, so a model trained by either CLI loads in the other.
 
 ``train --runtime parallel`` trains through
 ``parallel.ParameterAveragingTrainer`` over the process group's ranks.
+``fleet`` forwards its arguments to ``serve.fleet.replica_main`` (a
+serving-fleet replica; its own parser owns the flags, ``--device``
+among them).
 
-Not ported yet, each raising ``SystemExit`` that names its slice:
-``train --profile`` (slice 9) and the ``fleet`` subcommand (slice 4c,
-after slice 7's tracker protocol).
+Not ported yet, raising ``SystemExit`` that names its slice:
+``train --profile`` (slice 9).
 """
 
 from __future__ import annotations
@@ -277,9 +279,9 @@ def predict(args) -> int:
 
 
 def _fleet(args) -> int:
-    raise SystemExit("the fleet subcommand (a serving-fleet replica) comes "
-                     "with ROADMAP slice 4c (serve/fleet.py, after slice "
-                     "7's tracker protocol)")
+    from deeplearning4j_tpu_torch.serve.fleet import replica_main
+
+    return replica_main(args.fleet_args)
 
 
 def _add_common(p: argparse.ArgumentParser, needs_model_in: bool,
@@ -355,16 +357,26 @@ def build_parser() -> argparse.ArgumentParser:
     lm.add_argument("--seed", type=int, default=0)
     p_pred.set_defaults(func=predict)
 
+    # the serving-fleet replica process, also reachable as ``python -m
+    # deeplearning4j_tpu_torch.serve.fleet``. Arguments pass through
+    # verbatim to serve.fleet.replica_main (its parser owns the flags)
     p_fleet = sub.add_parser(
         "fleet",
-        help="run a serving-fleet replica (not ported yet: ROADMAP slice "
-             "4c)")
+        help="run a serving-fleet replica (args forwarded to "
+             "deeplearning4j_tpu_torch.serve.fleet, e.g. fleet --replica "
+             "--tracker HOST:PORT --synthetic V,D,H,E,DFF,L --device cpu)")
     p_fleet.add_argument("fleet_args", nargs=argparse.REMAINDER)
     p_fleet.set_defaults(func=_fleet)
     return parser
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["fleet"]:
+        # argparse's REMAINDER drops options that lead it (``fleet
+        # --replica ...`` fails to parse, as the JAX CLI's does), so the
+        # fleet's arguments bypass the top-level parser
+        return _fleet(argparse.Namespace(fleet_args=argv[1:]))
     args = build_parser().parse_args(argv)
     if getattr(args, "device", None) == "cuda" \
             and not torch.cuda.is_available():

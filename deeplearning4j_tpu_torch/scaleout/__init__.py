@@ -9,9 +9,11 @@ performers, single-file checkpoints (``checkpoint``), the checkpoint
 format (``ckpt``) and the blob store with its adapters (``blobstore``).
 
 The data plane of a card's training is in the step's collectives
-(parallel/trainer.py); this package keeps the reference's control plane.
-The wire (the remote tracker, the worker processes, provisioning) comes
-with ROADMAP item 19b.
+(parallel/trainer.py); this package keeps the reference's control plane,
+in process and over the wire: the remote tracker (``remote_tracker``,
+byte-compatible with the JAX package's frames), the master and its
+worker processes (``distributed_runner``) and the provisioning command
+lines (``provision``).
 """
 
 from deeplearning4j_tpu_torch.scaleout.job import Job  # noqa: F401

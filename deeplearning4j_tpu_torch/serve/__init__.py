@@ -1,9 +1,10 @@
 """The port's serving stack: the decode engine, its fast path (prefix
-cache, speculative decoding), the open-loop load generator and the
-serve_dtype seam. The fleet replica and router come with ROADMAP slice 4c,
-after the tracker protocol they speak (item 19)."""
+cache, speculative decoding), the open-loop load generator, the
+serve_dtype seam, and the fleet (replicas and the router over the remote
+tracker)."""
 
 from deeplearning4j_tpu_torch.serve.engine import DecodeEngine, ServeRequest
+from deeplearning4j_tpu_torch.serve.fleet import FleetReplica, replica_main
 from deeplearning4j_tpu_torch.serve.loadgen import (
     LoadReport,
     arrival_schedule,
@@ -11,6 +12,11 @@ from deeplearning4j_tpu_torch.serve.loadgen import (
     run_open_loop_http,
 )
 from deeplearning4j_tpu_torch.serve.prefix_cache import PrefixPageCache
+from deeplearning4j_tpu_torch.serve.router import (
+    FleetRequest,
+    FleetRouter,
+    pick_replica,
+)
 from deeplearning4j_tpu_torch.serve.quant import (
     QuantTensor,
     activation_dtype,
@@ -27,6 +33,11 @@ from deeplearning4j_tpu_torch.serve.speculative import (
 __all__ = [
     "DecodeEngine",
     "ServeRequest",
+    "FleetReplica",
+    "FleetRequest",
+    "FleetRouter",
+    "pick_replica",
+    "replica_main",
     "LoadReport",
     "arrival_schedule",
     "run_open_loop",

@@ -10,8 +10,9 @@ in the queue (or for the driver to catch up) counts against the server, as
 a user would experience it. ``arrival_schedule`` draws from numpy's
 ``RandomState``, so a seed gives the JAX package's offsets.
 
-:func:`run_open_loop` drives a ``DecodeEngine`` in process: one thread
-interleaves due submissions with ``engine.step()`` calls. It returns a
+:func:`run_open_loop` drives a ``DecodeEngine`` (or a ``FleetRouter``)
+in process: one thread interleaves due submissions with ``engine.step()``
+calls. It returns a
 :class:`LoadReport` with tokens/s and exact (not bucket-approximated)
 p50/p95/p99 latency over the recorded per-request latencies (full request
 and first token), and the inter-token percentiles. The HTTP driver
@@ -99,18 +100,30 @@ def run_open_loop(engine, prompts: Sequence[Sequence[int]],
                   rate_rps: float, max_new_tokens: int = 16,
                   temperature: float = 0.0, seed: int = 0,
                   timeout_s: float = 300.0,
-                  slo_ms: Optional[float] = None) -> LoadReport:
+                  slo_ms: Optional[float] = None,
+                  sessions: Optional[Sequence[Optional[str]]] = None
+                  ) -> LoadReport:
     """Drive ``engine`` with open-loop arrivals of ``prompts`` (one
     request each, in order) at ``rate_rps``. The engine must NOT be
     running its background loop: this driver owns the step cadence so the
     measurement is single-threaded and reproducible.
 
     ``engine`` is anything with the driver protocol (``submit`` /
-    ``has_work`` / ``step``)."""
+    ``has_work`` / ``step``): a ``DecodeEngine`` or a ``FleetRouter``.
+    With ``sessions`` (one key per prompt, None entries allowed), each
+    submit carries its session key so fleet runs exercise session
+    affinity; engines without session support must be driven with
+    ``sessions=None``."""
+    if sessions is not None and len(sessions) != len(prompts):
+        raise ValueError(
+            f"sessions ({len(sessions)}) must match prompts "
+            f"({len(prompts)})")
     offsets = arrival_schedule(len(prompts), rate_rps, seed=seed)
     t0 = time.perf_counter()
     deadline = t0 + timeout_s
-    pending = list(zip(offsets, prompts))
+    pending = list(zip(offsets, prompts,
+                       sessions if sessions is not None
+                       else [None] * len(prompts)))
     requests = []  # (scheduled_arrival_abs, ServeRequest)
     while pending or engine.has_work():
         now = time.perf_counter()
@@ -119,9 +132,10 @@ def run_open_loop(engine, prompts: Sequence[Sequence[int]],
                 f"open-loop run exceeded {timeout_s}s with "
                 f"{len(pending)} requests unsubmitted")
         while pending and t0 + pending[0][0] <= now:
-            offset, prompt = pending.pop(0)
+            offset, prompt, session = pending.pop(0)
+            kwargs = {} if session is None else {"session": session}
             req = engine.submit(prompt, max_new_tokens=max_new_tokens,
-                                temperature=temperature)
+                                temperature=temperature, **kwargs)
             requests.append((t0 + offset, req))
         if engine.has_work():
             engine.step()

@@ -1,13 +1,19 @@
 """Counterpart of ``deeplearning4j_tpu/telemetry``: so far the in-step
 metrics (``metrics``), the host registry of counters, gauges and
-histograms (``registry``) and span tracing with its crash flight recorder
-(``trace``). The step log, sessions, runtime profiling, history, alerts,
-federation and Prometheus export come with ROADMAP item 21a."""
+histograms (``registry``), span tracing with its crash flight recorder
+(``trace``) and the tracker-federated cluster view (``federation``). The
+step log, sessions, runtime profiling, history and alerts come with
+ROADMAP item 21a, Prometheus export and the UI routes with item 21c."""
 
 from deeplearning4j_tpu_torch.telemetry.metrics import (
     global_norm,
     train_step_metrics,
     update_metrics,
+)
+from deeplearning4j_tpu_torch.telemetry.federation import (
+    ClusterAggregator,
+    MetricsPusher,
+    merge_snapshots,
 )
 from deeplearning4j_tpu_torch.telemetry.registry import (
     DEFAULT_BUCKETS,
@@ -30,10 +36,12 @@ from deeplearning4j_tpu_torch.telemetry.trace import (
 )
 
 __all__ = [
+    "ClusterAggregator",
     "Counter",
     "DEFAULT_BUCKETS",
     "Gauge",
     "Histogram",
+    "MetricsPusher",
     "MetricsRegistry",
     "Span",
     "Tracer",
@@ -44,6 +52,7 @@ __all__ = [
     "get_tracer",
     "global_norm",
     "maybe_span",
+    "merge_snapshots",
     "parse_traceparent",
     "set_tracer",
     "train_step_metrics",

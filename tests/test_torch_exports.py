@@ -24,21 +24,19 @@ UNPORTED = {
               "information_gain", "normalize_to_range", "rounded",
               "sigmoid", "sum_of_squares", "uniform"},         # item 21d
     "telemetry": {                                            # item 21a
-        "AlertEngine", "AlertRule", "ClusterAggregator", "DEFAULT_INTERVAL",
-        "MemoryWatermarkSampler", "MetricsHistory", "MetricsPusher",
+        "AlertEngine", "AlertRule", "DEFAULT_INTERVAL",
+        "MemoryWatermarkSampler", "MetricsHistory",
         "PROMETHEUS_CONTENT_TYPE", "ProfileStore", "ProfiledStep",
         "RunProfiledStep", "RunProfiler", "StepLogWriter", "StepProfile",
         "StepTiming", "TrainTelemetry", "Watchtower", "arm_watchtower",
         "attribute", "chrome_trace_events", "default_profile_store",
         "default_rules", "default_runprof", "find_sessions", "get_engine",
         "get_history", "get_runprof", "load_session", "maybe_runprof",
-        "merge_snapshots", "profile_compiled", "profile_lowered",
+        "profile_compiled", "profile_lowered",
         "read_spill", "read_step_log", "render_prometheus",
         "render_snapshot", "replay_spill", "resolve_runprof",
         "sanitize_name", "set_engine", "set_history", "set_runprof",
         "summarize_session", "summarize_step_log"},
-    "serve": {"FleetReplica", "FleetRequest", "FleetRouter",
-              "pick_replica", "replica_main"},                 # slice 4c
     "parallel": {"get_moe_impl", "moe_apply", "resolve_moe_impl",
                  "set_moe_impl"},                             # item 20
 }
@@ -98,7 +96,14 @@ def test_repaired_exports_are_present():
             assert hasattr(mod, name), (mod.__name__, name)
     from deeplearning4j_tpu_torch import serve
 
-    assert "slice 4c" in serve.__doc__ and "slice 7" not in serve.__doc__
+    assert "fleet" in serve.__doc__ and "slice 4c" not in serve.__doc__
+    for name in ("FleetReplica", "FleetRequest", "FleetRouter",
+                 "pick_replica", "replica_main"):
+        assert getattr(serve, name).__module__.startswith(
+            "deeplearning4j_tpu_torch.serve."), name
+    for name in ("ClusterAggregator", "MetricsPusher", "merge_snapshots"):
+        assert getattr(telemetry, name).__module__ == \
+            "deeplearning4j_tpu_torch.telemetry.federation", name
 
 
 @pytest.mark.parametrize("sub,names", [
