@@ -237,8 +237,8 @@ Phases, each fatal on failure:
    MultiLayerNetworkWorkPerformer on the card): the sync run from one
    draw of params put in through update(), each round's average against
    the CPU's round from the same incoming params (RUNNER_TOL of each
-   leaf's max, or for a leaf a ReLU kink flip moves, MLP_GRAD_TOL of the
-   round's update's max: phase 5's K1-vs-plain limit), K1 exactly
+   leaf's max, or for a leaf a ReLU kink flip moves, KINK_TOL, a few
+   examples' share, of the round's update's max), K1 exactly
    2 x iterations x jobs, samples/s beside fit_epochs'; a HogWild run that
    finishes with its score falling; the trained net through
    save_checkpoint / load_checkpoint and save_checkpoint_to_store over
@@ -281,7 +281,38 @@ Phases, each fatal on failure:
    (``python -m deeplearning4j_tpu_torch.scaleout.distributed_runner
    --performer chip_smoke:dist_performer --device cuda``) that finishes
    them and exits 0;
-14. output: the card's name and power limit from nvidia-smi, one JSON line
+14. item 20a (composed parallelism), the ring first, then in a one-rank
+   NCCL group (world size 1: the ring, the all-to-alls and the stage hops
+   are one rank's): (a) ring_attention_in_process, the ring's per-rank
+   body over 4 sequence shards of 512 held in one process, "blockwise"
+   forced, causal, at the training shape (B=4, H=4, T=2048, Dh=128) in
+   f32 and bf16: output and the grads of sum(o²) against the unsharded
+   kernel route at phase 2's tolerances, K3f, K3k and K3q each exactly
+   P(P+1)/2 = 10 launches a call, prefetch on and off bit-identical, the
+   ring's device ms beside the unsharded pass's; an unaligned
+   blockwise_block_partials offset raises on the card; (b)
+   make_composed_train_step on a ("data", "sp", "expert") mesh of
+   (1, 1, 1) at the flagship's full width and training shape: 3 SGD and
+   3 Adam steps at ample capacity against make_single_device_train_step
+   from the same state (in float64 with dense attention params and
+   losses within 1e-10; at f32 through the kernels each loss and each
+   leaf's params no farther from the float64 run than the single-device
+   step's, within a factor of 2), 3 steps with metrics at
+   capacity 1024 (moe_dropped_frac equal
+   to the host's expected_dropped over the routes from the same
+   activations, layer 0's moe_apply equal to moe_reference within 1e-5,
+   the loss finite and falling), K3f, K3k, K3q exactly n_layers x steps,
+   the collectives exactly as derived, ms a step and tokens/s beside
+   phases 4 and 12; (c) the flagship through make_pp_stages(n_stages=1)
+   and make_pp_loss on a ("data", "pipe") mesh of (1, 1), 4 microbatches
+   of one 2048-token sequence, 2 SGD steps strict and overlap=True
+   (bit-identical; losses and params within 1e-5 of each leaf's max of the
+   same steps on the CPU, computed first, or no farther from the same
+   steps in float64 than the CPU's, within a factor of 2; K3f, K3k, K3q
+   exactly n_layers x microbatches a step), and pipeline_from_conf on a 1024→1024 tanh
+   dense layer, 4 microbatches of 512 rows (K1 once a microbatch, the
+   output the layer's dense.forward);
+15. output: the card's name and power limit from nvidia-smi, one JSON line
    listing each kernel (K3f at the serving shape; K3f, K3k, K3q at the
    training shape in f32 and bf16 with their launches over the timed f32
    training run; K1 at both MLP layer shapes in f32 and bf16 with its
@@ -298,7 +329,11 @@ Phases, each fatal on failure:
    in-process DistributedMaster run; K3f's serving row ``fleet_launches``,
    its counts over phase 13's f32 and timed bf16 fleet runs; K3f's, K3k's
    and K3q's training rows ``dp_launches``, their counts over phase 12's
-   data-parallel runs), and as the
+   data-parallel runs, ``ring_launches``, their count over one call of
+   phase 14's ring at the row's type, ``composed_launches`` and
+   ``pp_launches``, their counts over phase 14's composed and staged
+   runs; K1's rows ``pp_launches``, its count over phase 14's
+   pipeline_from_conf run), and as the
    last line {"ok": true, "device": {"platform": "gpu", "kind": ...,
    "count": ...}}. An f32 row's bound is that of f32-accurate products: the least
    of the CUDA cores' 67 TFLOP/s and three TF32 products at 495 (the
@@ -4291,8 +4326,15 @@ DP_TOL = 1e-6         # params of each leaf's max, and losses, relative
 RUNNER_JOBS, RUNNER_WORKERS = 12, 4   # batch-512 synthetic_mnist jobs
 # a round's average against the CPU's round from the same incoming params,
 # of each leaf's max; a leaf over it (a ReLU unit flipping at its kink
-# between K1 and the CPU) is held to MLP_GRAD_TOL of the round's update
+# between K1 and the CPU) is held to KINK_TOL of the round's update. A
+# flip moves one example's share (1/MLP_BATCH) of one job's gradient
+# column: 3.0e-5 and 3.3e-5 of the leaf's max, once in a run, in two
+# runs on an H100, the second 1.6e-3 of its round's update, past phase
+# 5's single-batch MLP_GRAD_TOL. KINK_TOL allows a few examples' share; a
+# fault of the plumbing (a job lost or counted twice) moves a leaf by a
+# job's whole share of the update, 1/RUNNER_WORKERS.
 RUNNER_TOL = 1e-5
+KINK_TOL = 4 / MLP_BATCH
 W2V_PERF_JOBS, W2V_PERF_PAIRS = 3, 8192
 
 
@@ -4369,7 +4411,8 @@ def lm_dp_phase(mesh) -> dict:
         launches = _check_launches(f"data-parallel {mode}", DP_STEPS)
         coll = dict(pmesh.COLLECTIVES)
         want = {"all_reduce": 2 * DP_STEPS,
-                "all_gather": DP_STEPS if mode == "adam_sharded" else 0}
+                "all_gather": DP_STEPS if mode == "adam_sharded" else 0,
+                "all_to_all": 0, "send_recv": 0, "broadcast": 0}
         if coll != want:
             raise AssertionError(f"data-parallel {mode}: collectives {coll},"
                                  f" expected {want}")
@@ -4523,8 +4566,8 @@ def _hold_round(what, r, got, want, start, errs, kinks) -> None:
     from the same incoming params ``start``: RUNNER_TOL of each leaf's
     max, appended to ``errs``. A ReLU unit within f32 noise of its kink
     switches between K1 and the CPU (phase 5): a leaf over RUNNER_TOL is
-    held to phase 5's K1-vs-plain grad limit, of the round's update's
-    max, and listed in ``kinks``."""
+    held to KINK_TOL of the round's update's max, and listed in
+    ``kinks``."""
     for i, (g, w, s) in enumerate(zip(got, want, start)):
         err = float(np.abs(g - w).max())
         rel = err / float(np.abs(w).max())
@@ -4533,7 +4576,7 @@ def _hold_round(what, r, got, want, start, errs, kinks) -> None:
             upd = float(np.abs(w - s).max())
             kinks.append({"round": r, "leaf": i, "rel_err": rel,
                           "of_update_max": err / upd})
-            if err > MLP_GRAD_TOL * upd:
+            if err > KINK_TOL * upd:
                 raise AssertionError(
                     f"{what} round {r} leaf {i} against the CPU: {rel} of "
                     f"the leaf's max, {err / upd} of the update's max")
@@ -4545,7 +4588,7 @@ def runner_phase() -> dict:
     RUNNER_WORKERS worker threads. The sync run (IterativeReduceWorkRouter)
     from one seed's params put in through update(): each round's average
     against the CPU's round from the same incoming params (RUNNER_TOL of
-    each leaf's max; a leaf a ReLU kink flip moves, MLP_GRAD_TOL of the
+    each leaf's max; a leaf a ReLU kink flip moves, KINK_TOL of the
     round's update), K1 exactly 2 x iterations x jobs, samples/s beside
     fit_epochs' on the
     same batches. A HogWild run finishes and its score falls. The trained
@@ -5483,6 +5526,522 @@ def slice4c(smi: str, runner_samples_per_s) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 14 ----
+
+# item 20a: the ring's kernel work over P shards in one process, the LM's
+# composed step on a ("data", "sp", "expert") mesh and the staged LM on a
+# ("data", "pipe") mesh, in a one-rank NCCL group (world size 1: the ring,
+# the all-to-alls and the stage hops are one rank's)
+RING_SHARDS = 4
+COMPOSED_STEPS = 3
+# the composed step against the single-device step from the same state.
+# In float64 (dense attention: the kernels take f32 and bf16) they are
+# one function: params of each leaf's max and losses within F64_TOL. At
+# f32, the kernel path, the MoE dispatch (gather, expert products,
+# scatter-add) sums in another order than the dense MoE: one step's grads
+# differ by 2.3e-6 of a leaf's max, both 7.0e-3 from float64 on
+# experts.w1, and three steps move params 2.4e-3 apart (on an H100);
+# Adam's normalized steps move both f32 runs up to 0.21 of a bias leaf's max
+# from float64 and their losses 1.2e-6 apart. So each f32 loss and
+# each leaf's params are held to lie no farther from the float64 run than
+# the single-device step's do, up to F32_SPREAD (plus COMPOSED_TOL of the
+# loss).
+F64_TOL = 1e-10
+F32_SPREAD = 2.0
+COMPOSED_TOL = DP_TOL
+DROP_CAPACITY = 1024         # under the ~4096 routes an expert takes
+MOE_REF_TOL = 1e-5
+PP_MICRO, PP_STEPS = 4, 2
+# the card's staged steps against the CPU's: each leaf within PP_TOL of
+# its max, or no farther from the same steps in float64 than the CPU's
+# are, up to F32_SPREAD (two f32 runs of the MoE FFN part by up to 3.2e-3
+# of a zero-initialized bias's max in two steps on an H100); losses
+# likewise
+PP_TOL = 1e-5
+PP_DENSE_WIDTH, PP_DENSE_ROWS = 1024, 512
+
+
+def ring_phase() -> dict:
+    """(a) ring_attention_in_process, the ring's per-rank body over
+    RING_SHARDS shards of TRAIN_T / RING_SHARDS (the rotation a shift of
+    the list), "blockwise" forced, causal, at the training shape in f32
+    and bf16: the output and the grads of sum(o²) against the unsharded
+    kernel route (attention_core "blockwise") at phase 2's tolerances,
+    K3f, K3k and K3q each launched P(P+1)/2 times a call, prefetch=True
+    and False bit-identical, device ms of the ring's pass beside the
+    unsharded one's; then an unaligned block_partials offset raises."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.parallel.ring_attention import \
+        ring_attention_in_process
+
+    b, h, t, dh = TRAIN_B, N_HEADS, TRAIN_T, D_MODEL // N_HEADS
+    pairs = RING_SHARDS * (RING_SHARDS + 1) // 2
+    out = {"shards": RING_SHARDS, "shard_len": t // RING_SHARDS,
+           "shape": [b, h, t, dh]}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        q, k, v = (x.requires_grad_() for x in _qkv((b, h, t, dh), dtype,
+                                                     seed=41))
+
+        def ring(prefetch=True):
+            o = ring_attention_in_process(q, k, v, RING_SHARDS, causal=True,
+                                          attn_impl="blockwise",
+                                          prefetch=prefetch)
+            return o, torch.autograd.grad((o.float() ** 2).sum(), (q, k, v))
+
+        def whole():
+            o = fa.attention_core(q, k, v, causal=True, impl="blockwise")
+            return o, torch.autograd.grad((o.float() ** 2).sum(), (q, k, v))
+
+        ref_o, ref_g = whole()
+        _kernels.reset_launches()
+        o, grads = ring()
+        sync()
+        launches = {n: _kernels.LAUNCHES[n] for n in TRAIN_KERNELS}
+        if launches != dict.fromkeys(TRAIN_KERNELS, pairs):
+            raise AssertionError(f"ring over {RING_SHARDS} shards launched "
+                                 f"{launches}, expected {pairs} each")
+        o2, grads2 = ring(prefetch=False)
+        if not (torch.equal(o, o2) and all(
+                torch.equal(a, c) for a, c in zip(grads, grads2))):
+            raise AssertionError("ring: prefetch=True and False differ")
+        err_o = (o.float() - ref_o.float()).abs().max().item()
+        err_g = max(_rel_err(g, r) for g, r in zip(grads, ref_g))
+        run = {"launches": launches, "o_err": err_o, "grad_rel_err": err_g,
+               "finite": bool(torch.isfinite(o.float()).all().item())}
+        if (err_o > TOL[name]["o"] or err_g > BWD_TOL[name]
+                or not run["finite"]):
+            raise AssertionError(f"ring against the unsharded kernels "
+                                 f"({name}): {run}")
+        if DEVICE == "cuda":
+            run["ring_ms"] = device_ms(ring, reps=10)
+            run["unsharded_ms"] = device_ms(whole, reps=10)
+        out[name] = run
+        del q, k, v, o, o2, grads, grads2, ref_o, ref_g
+    qa = torch.zeros((1, 1, 64, dh), device=DEVICE)
+    try:
+        fa.blockwise_block_partials(qa, qa, qa, 64, 32, causal=True)
+        out["unaligned_raise"] = None
+    except ValueError as e:
+        out["unaligned_raise"] = str(e)
+    if DEVICE == "cuda" and out["unaligned_raise"] is None:
+        raise AssertionError("an unaligned block_partials offset ran on the "
+                             "card")
+    log(f"[ring] {json.dumps(out)}")
+    return out
+
+
+def _composed_collectives(steps: int, metrics: bool) -> dict:
+    """What composed steps on the one-rank ("data", "sp", "expert") mesh
+    issue with the all-to-all dispatch: per layer the dispatch's two
+    all-to-alls forward and two backward, its output gather and the
+    split's backward gather, and the router grads' all-reduce; per step
+    the statistics and the grads all-reduces (and the metrics' two
+    norms, each one all-reduce over "expert")."""
+    return {"all_reduce": steps * (2 + N_LAYERS + (2 if metrics else 0)),
+            "all_gather": steps * 2 * N_LAYERS,
+            "all_to_all": steps * 4 * N_LAYERS,
+            "send_recv": 0, "broadcast": 0}
+
+
+def _leaf_errs(got, want) -> dict:
+    """Each leaf's max abs error over ``want``'s leaf max, by key path."""
+    from deeplearning4j_tpu_torch._device import tree_leaves, tree_paths
+
+    return {".".join(map(str, p)): float(
+        (a.double() - b.double()).abs().max()
+        / b.double().abs().max().clamp_min(1e-300))
+        for p, a, b in zip(tree_paths(want), tree_leaves(got),
+                           tree_leaves(want))}
+
+
+def composed_phase(mesh, single_ms: float, dp_ms: float) -> dict:
+    """(b) make_composed_train_step on the one-rank ("data", "sp",
+    "expert") mesh at the flagship's full width and training shape, ample
+    capacity ((B/dp)·T), COMPOSED_STEPS SGD and Adam steps against
+    make_single_device_train_step from the same state: in float64 with
+    dense attention the same function (F64_TOL); at f32 through the
+    kernels, each loss and each leaf's params no farther from the float64
+    run than the single-device step's (F32_SPREAD); at
+    DROP_CAPACITY with metrics: each step's moe_dropped_frac equal to
+    expected_dropped over the routes, counted on the host from the same
+    activations, layer 0's moe_apply equal to moe_reference on them, the
+    loss finite and falling; K3f, K3k, K3q exactly n_layers x steps and
+    the collectives exactly as derived (``_composed_collectives``); ms a
+    step and tokens/s beside phase 4's single-device and phase 12's
+    ("data",) step."""
+    import torch
+
+    from deeplearning4j_tpu_torch._device import tree_map
+    from deeplearning4j_tpu_torch.models import transformer_lm as T
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.optimize.updaters import OptimizerConfig
+    from deeplearning4j_tpu_torch.parallel import mesh as pmesh
+    from deeplearning4j_tpu_torch.parallel import moe
+
+    params, tokens, targets = _train_setup(seed=3)
+    tk, tg = T.shard_lm_batch(tokens, targets, mesh, device=DEVICE)
+    ample = (TRAIN_B // mesh.shape["data"]) * TRAIN_T
+    token_axes = ("data", "sp")
+
+    def clone(tree, dtype=None):
+        return tree_map(lambda _, a: a.clone().to(dtype or a.dtype), tree)
+
+    def run(opt, dtype, composed, attn_impl=None):
+        p = clone(params, dtype)
+        if composed:
+            step = T.make_composed_train_step(
+                mesh, N_HEADS, ample, optimizer=opt, attn_impl=attn_impl,
+                device=DEVICE)
+            p = T.shard_lm_params(p, mesh, device=DEVICE)
+            batch = (tk, tg)
+        else:
+            step = T.make_single_device_train_step(
+                N_HEADS, optimizer=opt, attn_impl=attn_impl, device=DEVICE)
+            batch = (tokens, targets)
+        carry = (p,) if opt is None else (
+            p, T.init_lm_opt_state(opt, p, mesh if composed else None,
+                                   device=DEVICE))
+        return step, carry, batch
+
+    out = {"mesh": dict(mesh.shape), "capacity": ample,
+           "moe_impl": T.selected_moe_impl(mesh, TRAIN_B * TRAIN_T)}
+    for mode in ("sgd", "adam"):
+        opt = None if mode == "sgd" else OptimizerConfig(name="adam",
+                                                         lr=ADAM_LR)
+        # float64, dense attention: one function
+        c64 = {}
+        for composed in (False, True):
+            step, carry, batch = run(opt, torch.float64, composed, "dense")
+            c64[composed] = _timed_steps(step, carry, batch,
+                                         COMPOSED_STEPS)[:2]
+        f64_err = max(_leaf_errs(c64[True][0][0], c64[False][0][0])
+                      .values())
+        f64_loss = max(abs(a - b) / abs(b) for a, b in
+                       zip(c64[True][1], c64[False][1]))
+        want64, loss64 = c64[False][0][0], c64[False][1]
+        del c64
+        # f32 through the kernels
+        step, carry, batch = run(opt, None, False)
+        single, l1, _ = _timed_steps(step, carry, batch, COMPOSED_STEPS)
+        step, carry, batch = run(opt, None, True)
+        _kernels.reset_launches()
+        pmesh.reset_collectives()
+        c2, l2, _ = _timed_steps(step, carry, batch, COMPOSED_STEPS)
+        launches = _check_launches(f"composed {mode}", COMPOSED_STEPS)
+        coll = dict(pmesh.COLLECTIVES)
+        want = _composed_collectives(COMPOSED_STEPS, False)
+        if coll != want:
+            raise AssertionError(f"composed {mode}: collectives {coll}, "
+                                 f"expected {want}")
+        e_single = _leaf_errs(single[0], want64)
+        e_comp = _leaf_errs(c2[0], want64)
+        spread = {k: e_comp[k] / max(e_single[k], 1e-12) for k in e_comp}
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(l2, l1))
+        # each step's loss no farther from the float64 run's than the
+        # single-device step's
+        loss_bad = [i for i, (a, b, w) in enumerate(zip(l2, l1, loss64))
+                    if abs(a - w) > F32_SPREAD * abs(b - w)
+                    + COMPOSED_TOL * abs(w)]
+        run_ = {"f64_max_leaf_rel_err": f64_err, "f64_max_loss_rel_err":
+                f64_loss, "max_loss_rel_err": loss_err, "losses": l2,
+                "single_losses": l1, "f64_losses": loss64,
+                "max_leaf_rel_err_vs_single": max(_leaf_errs(
+                    c2[0], single[0]).values()),
+                "leaf_rel_err_vs_f64": {k: [e_single[k], e_comp[k]]
+                                        for k in e_comp},
+                "launches": {k: launches[k] for k in TRAIN_KERNELS},
+                "collectives": coll}
+        bad = [k for k in e_comp
+               if e_comp[k] > F32_SPREAD * e_single[k] + COMPOSED_TOL]
+        if (f64_err > F64_TOL or f64_loss > F64_TOL or bad or loss_bad
+                or not l2[-1] < l2[0]):
+            raise AssertionError(f"composed {mode} against the single-"
+                                 f"device step (leaves over the spread: "
+                                 f"{bad}, {spread}; steps {loss_bad}): "
+                                 f"{run_}")
+        c2, _, ms = _timed_steps(step, c2, batch, DP_TIMED)
+        run_.update({"ms_per_step": ms,
+                     "tokens_per_s": TRAIN_B * TRAIN_T * 1e3 / ms})
+        out[mode] = run_
+        del step, single, c2, want64
+
+    # a capacity that drops routes, with the metrics block
+    comp = T.make_composed_train_step(mesh, N_HEADS, DROP_CAPACITY,
+                                      with_metrics=True, device=DEVICE)
+    p = T.shard_lm_params(clone(params), mesh, device=DEVICE)
+    shards = moe.route_shards(mesh, token_axes, "expert", TRAIN_B * TRAIN_T)
+    states, losses, fracs = [], [], []
+    _kernels.reset_launches()
+    pmesh.reset_collectives()
+    for _ in range(COMPOSED_STEPS):
+        states.append(clone(p))
+        p, loss, metrics = comp(p, tk, tg)
+        losses.append(float(loss))
+        fracs.append(float(metrics["moe_dropped_frac"]))
+    launches = _check_launches("composed with drops", COMPOSED_STEPS)
+    coll = dict(pmesh.COLLECTIVES)
+    want = _composed_collectives(COMPOSED_STEPS, True)
+    if coll != want:
+        raise AssertionError(f"composed with drops: collectives {coll}, "
+                             f"expected {want}")
+    # the host's count: each step's forward again from its incoming
+    # params, the dispatch's activations kept
+    host, ref_err = [], None
+    with torch.no_grad():
+        for s in states:
+            routed = []
+
+            def moe_fn(rw, ex, x, routed=routed):
+                routed.append(x)
+                return moe.moe_apply(rw, ex, x, mesh, T.expert_fn,
+                                     DROP_CAPACITY, top_k=2,
+                                     token_axes=token_axes)
+
+            T.lm_forward(s, tk, N_HEADS, lambda q, k, v: T.attention_core(
+                q, k, v, causal=True), moe_fn)
+            routers = s["blocks"]["router"]
+            host.append(float(np.mean([
+                moe.expected_dropped(routers[i], x, DROP_CAPACITY, 2,
+                                     n_shards=shards)
+                for i, x in enumerate(routed)])) / (TRAIN_B * TRAIN_T * 2))
+            if ref_err is None:
+                layer = T._layer(s["blocks"], 0)
+                got = moe.moe_apply(layer["router"], layer["experts"],
+                                    routed[0], mesh, T.expert_fn,
+                                    DROP_CAPACITY, top_k=2,
+                                    token_axes=token_axes)
+                per = [tree_map(lambda _, a, e=e: a[e], layer["experts"])
+                       for e in range(N_EXPERTS)]
+                ref = moe.moe_reference(layer["router"], per, routed[0],
+                                        T.expert_fn, DROP_CAPACITY, 2,
+                                        shards)
+                ref_err = (got.float() - ref).abs().max().item()
+    drop_err = max(abs(a - b) for a, b in zip(fracs, host))
+    drops = {"capacity": DROP_CAPACITY, "losses": losses,
+             "moe_dropped_frac": fracs, "host_dropped_frac": host,
+             "max_dropped_frac_err": drop_err, "moe_reference_err": ref_err,
+             "launches": {k: launches[k] for k in TRAIN_KERNELS},
+             "collectives": coll}
+    if (drop_err > 1e-6 or ref_err > MOE_REF_TOL or min(fracs) <= 0
+            or not all(np.isfinite(losses)) or not losses[-1] < losses[0]):
+        raise AssertionError(f"composed step with drops: {drops}")
+    out["drops"] = drops
+    out["single_device_ms_per_step"] = single_ms
+    out["dp_ms_per_step"] = dp_ms
+    log(f"[composed] {json.dumps(out)}")
+    return out
+
+
+def _pp_steps(mesh, params, toks, tgts, overlap: bool, device,
+              dtype=None, attn_impl=None) -> tuple:
+    """PP_STEPS SGD steps (lr 0.1) of the staged flagship through
+    make_pp_loss on ``mesh`` (params cast to ``dtype`` where given):
+    (losses, params, ms a step)."""
+    import torch
+
+    from deeplearning4j_tpu_torch._device import tree_leaves, tree_map, \
+        tree_unflatten
+    from deeplearning4j_tpu_torch.models import transformer_lm as T
+
+    params = tree_map(lambda _, a: a.detach().to(device, dtype).clone(),
+                      params)
+    trained, stage_fn = T.lm_params_to_pp_trained(
+        params, mesh, N_HEADS, mesh.shape["pipe"], attn_impl=attn_impl)
+    loss_fn = T.make_pp_loss(stage_fn, mesh, "pipe", batch_axis="data",
+                             overlap=overlap)
+    toks, tgts = toks.to(device), tgts.to(device)
+    losses = []
+    if device != "cpu":
+        sync()
+    t0 = time.perf_counter()
+    for _ in range(PP_STEPS):
+        leaves = [x.detach().requires_grad_() for x in tree_leaves(trained)]
+        loss = loss_fn(tree_unflatten(trained, leaves), toks, tgts)
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            trained = tree_unflatten(trained, [
+                p - 0.1 * g for p, g in zip(leaves, grads)])
+        losses.append(loss.detach())
+    if device != "cpu":
+        sync()
+    ms = (time.perf_counter() - t0) * 1e3 / PP_STEPS
+    return ([float(x) for x in losses], T.pp_trained_to_lm_params(trained),
+            ms)
+
+
+def pp_reference() -> tuple:
+    """The staged flagship's PP_STEPS steps on the CPU (no process group:
+    a mesh of one rank whose collectives are the identity), from the
+    state phase (c) starts from."""
+    from deeplearning4j_tpu_torch.parallel.mesh import Mesh
+
+    params, tokens, _ = _train_setup(seed=4)
+    toks = np.random.RandomState(6).randint(0, VOCAB, (PP_MICRO, 1,
+                                                       TRAIN_T + 1))
+    import torch
+
+    toks = torch.as_tensor(toks)
+    cpu = Mesh(("data", "pipe"), (1, 1))
+    losses, trained, ms = _pp_steps(cpu, params, toks[..., :-1],
+                                    toks[..., 1:], False, "cpu")
+    return params, toks, losses, trained, ms
+
+
+def pp_phase(mesh, ref, single_ms: float) -> dict:
+    """(c) the staged flagship on the one-rank ("data", "pipe") mesh:
+    make_pp_stages(n_stages=1) and make_pp_loss over PP_MICRO
+    microbatches of one TRAIN_T-token sequence, PP_STEPS SGD steps strict
+    and overlap=True: the two bit-identical, losses and params within
+    PP_TOL of each leaf's max of the same steps on the CPU, K3f, K3k, K3q
+    exactly n_layers x microbatches a step; then pipeline_from_conf on a
+    uniform 1024→1024 tanh dense layer, PP_MICRO microbatches of 512 rows:
+    K1 once a microbatch, the output the layer's dense.forward."""
+    import torch
+
+    from deeplearning4j_tpu_torch._device import tree_leaves
+    from deeplearning4j_tpu_torch.nn import functional as NF
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import dense
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.parallel import mesh as pmesh
+    from deeplearning4j_tpu_torch.parallel.pipeline import (
+        pipeline_apply,
+        pipeline_from_conf,
+    )
+
+    params, toks, cpu_losses, cpu_trained, cpu_ms = ref
+    out = {"mesh": dict(mesh.shape), "microbatches": PP_MICRO,
+           "cpu_ms_per_step": cpu_ms, "cpu_losses": cpu_losses}
+    runs = {}
+    for overlap in (False, True):
+        _kernels.reset_launches()
+        pmesh.reset_collectives()
+        losses, trained, ms = _pp_steps(mesh, params, toks[..., :-1],
+                                        toks[..., 1:], overlap, DEVICE)
+        launches = {n: _kernels.LAUNCHES[n] for n in TRAIN_KERNELS}
+        want = N_LAYERS * PP_MICRO * PP_STEPS
+        if launches != dict.fromkeys(TRAIN_KERNELS, want):
+            raise AssertionError(f"pp overlap={overlap}: launches "
+                                 f"{launches}, expected {want} each")
+        runs[overlap] = (losses, trained)
+        out["overlap" if overlap else "strict"] = {
+            "losses": losses, "ms_per_step": ms,
+            "tokens_per_s": PP_MICRO * TRAIN_T * 1e3 / ms,
+            "launches": launches, "collectives": dict(pmesh.COLLECTIVES)}
+    (l0, t0), (l1, t1) = runs[False], runs[True]
+    if l0 != l1 or not all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(t0), tree_leaves(t1))):
+        raise AssertionError("pp: the overlap schedule differs from the "
+                             "strict one")
+    # the same steps in float64 (dense attention) on the card: the truth
+    # both f32 runs are held against
+    l64, t64, _ = _pp_steps(mesh, params, toks[..., :-1], toks[..., 1:],
+                            False, DEVICE, torch.float64, "dense")
+    t64 = tree_map_cpu(t64)
+    card = tree_map_cpu(t0)
+    errs = _leaf_errs(card, cpu_trained)
+    e_card, e_cpu = _leaf_errs(card, t64), _leaf_errs(cpu_trained, t64)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l0, cpu_losses))
+    bad = [k for k in errs if errs[k] > PP_TOL
+           and e_card[k] > F32_SPREAD * e_cpu[k] + PP_TOL]
+    loss_bad = [i for i, (a, b, w) in enumerate(zip(l0, cpu_losses, l64))
+                if abs(a - b) > PP_TOL * abs(b)
+                and abs(a - w) > F32_SPREAD * abs(b - w) + PP_TOL * abs(w)]
+    out.update({"max_leaf_rel_err_vs_cpu": max(errs.values()),
+                "leaf_rel_err_vs_cpu": errs,
+                "leaf_rel_err_vs_f64": {k: [e_cpu[k], e_card[k]]
+                                        for k in errs},
+                "max_loss_rel_err_vs_cpu": loss_err, "f64_losses": l64,
+                "single_device_ms_per_step": single_ms})
+    if bad or loss_bad or not all(np.isfinite(l0)):
+        raise AssertionError(f"pp against the CPU (leaves {bad}, steps "
+                             f"{loss_bad}): {out}")
+
+    conf = (NeuralNetConfiguration.Builder()
+            .n_in(PP_DENSE_WIDTH).n_out(PP_DENSE_WIDTH)
+            .activation_function("tanh").seed(3).list(2)
+            .override(1, layer_type="OUTPUT", n_in=PP_DENSE_WIDTH, n_out=10,
+                      activation_function="softmax", loss_function="MCXENT")
+            .pretrain(False).backward(True).build())
+    net_params = NF.init_params(conf, 0, device=DEVICE)
+    stage, stage_fn = pipeline_from_conf(conf, net_params, mesh)
+    x = torch.randn(PP_MICRO, PP_DENSE_ROWS, PP_DENSE_WIDTH,
+                    generator=torch.Generator(device=DEVICE).manual_seed(8),
+                    device=DEVICE)
+    _kernels.reset_launches()
+    with torch.no_grad():
+        y = pipeline_apply(stage, x, stage_fn, mesh)
+    k1 = _kernels.LAUNCHES["fused_dense"]
+    with torch.no_grad():
+        want = torch.stack([dense.forward(conf.conf(0), net_params[0], m)
+                            for m in x])
+    dense_err = (y - want).abs().max().item()
+    out["dense"] = {"shape": [PP_MICRO, PP_DENSE_ROWS, PP_DENSE_WIDTH],
+                    "k1_launches": k1, "max_abs_err": dense_err}
+    if k1 != PP_MICRO or dense_err > 0:
+        raise AssertionError(f"pipeline_from_conf: {out['dense']}")
+    log(f"[pp] {json.dumps(out)}")
+    return out
+
+
+def tree_map_cpu(tree):
+    from deeplearning4j_tpu_torch._device import tree_map
+
+    return tree_map(lambda _, a: a.detach().cpu(), tree)
+
+
+def slice20a(smi: str, single_ms: float, dp_ms: float) -> dict:
+    """Phase 14: item 20a. (a) the ring's kernel work over RING_SHARDS
+    shards on the card; then, in a one-rank NCCL group, (b) the composed
+    step on ("data", "sp", "expert") and (c) the staged LM and
+    pipeline_from_conf on ("data", "pipe"), against the CPU's staged
+    steps computed first (no group)."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel import mesh as pmesh
+    from deeplearning4j_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    out = {"ring": ring_phase()}
+    ref = pp_reference()
+    out["pp_cpu_reference_s"] = time.perf_counter() - t0
+    multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device=DEVICE)
+    try:
+        backend = dist.get_backend()
+        if backend != ("nccl" if DEVICE == "cuda" else "gloo"):
+            raise AssertionError(f"process group backend {backend}")
+        out["composed"] = composed_phase(
+            pmesh.Mesh(("data", "sp", "expert"), (1, 1, 1)), single_ms,
+            dp_ms)
+        out["pp"] = pp_phase(pmesh.Mesh(("data", "pipe"), (1, 1)), ref,
+                             single_ms)
+    finally:
+        multihost.shutdown()
+    out["wall_s"] = time.perf_counter() - t0
+    c, p, r = out["composed"], out["pp"], out["ring"]
+    summary = {
+        "ring_ms": {k: r[k].get("ring_ms") for k in ("float32", "bfloat16")},
+        "unsharded_ms": {k: r[k].get("unsharded_ms")
+                         for k in ("float32", "bfloat16")},
+        "composed_sgd_ms_per_step": c["sgd"]["ms_per_step"],
+        "composed_adam_ms_per_step": c["adam"]["ms_per_step"],
+        "composed_tokens_per_s": c["sgd"]["tokens_per_s"],
+        "single_device_ms_per_step": single_ms,
+        "dp_ms_per_step": dp_ms,
+        "pp_ms_per_step": p["strict"]["ms_per_step"],
+        "pp_overlap_ms_per_step": p["overlap"]["ms_per_step"],
+        "composed_collectives_a_step": {
+            k: v // COMPOSED_STEPS for k, v in
+            c["sgd"]["collectives"].items()},
+        "wall_s": out["wall_s"]}
+    log(f"[slice20a] {json.dumps(summary)} on {smi}")
+    return out
+
+
 # ---------------------------------------------------------------- main ----
 
 def main() -> int:
@@ -5568,6 +6127,23 @@ def main() -> int:
         "bf16": s4c["fleet"]["bf16"]["fleet"]["k3f_launches"]}
     for entry in mlp_entries:
         entry["distributed_launches"] = s4c["distributed"]["launches"]
+    s20 = slice20a(smi, train_main["ms_per_step"],
+                   s8["lm_dp"]["sgd"]["ms_per_step"])
+    for entry in train_entries:
+        # item 20a's runs (phase 14): the ring's call over RING_SHARDS
+        # shards at the entry's type, the composed steps, the staged steps
+        name = entry["name"]
+        ring_type = "bfloat16" if "bfloat16" in entry["shape"] else "float32"
+        entry["ring_launches"] = s20["ring"][ring_type]["launches"][name]
+        entry["composed_launches"] = {
+            run: s20["composed"][run]["launches"][name]
+            for run in ("sgd", "adam", "drops")}
+        entry["pp_launches"] = {
+            run: s20["pp"][run]["launches"][name]
+            for run in ("strict", "overlap")}
+    for entry in mlp_entries + [e for e in conv_entries
+                                if e["name"] == "fused_dense"]:
+        entry["pp_launches"] = s20["pp"]["dense"]["k1_launches"]
     log(f"[time] chip_smoke ran {time.perf_counter() - t_start:.1f} s")
 
     print(smi)

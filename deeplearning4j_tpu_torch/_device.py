@@ -45,6 +45,23 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_paths(tree, path: tuple = ()) -> list:
+    """The key path of every leaf, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in tree_paths(tree[k],
+                                                            path + (k,))]
+    if isinstance(tree, (tuple, list)):
+        return [p for i, v in enumerate(tree)
+                for p in tree_paths(v, path + (i,))]
+    return [path]
+
+
+def keystr(path: tuple) -> str:
+    """A key path as ``jax.tree_util.keystr`` writes it:
+    ``['blocks']['experts']['w1']``, ``[0]`` for a sequence index."""
+    return "".join(f"[{k!r}]" for k in path)
+
+
 def tree_unflatten(tree, leaves: list):
     """A tree shaped like ``tree`` holding ``leaves`` in ``tree_leaves``
     order (the inverse of ``tree_leaves``)."""

@@ -38,18 +38,21 @@ update, with the ``guard=`` and ``with_metrics=`` seams). Gradients come
 from ``torch.autograd``; on a CUDA tensor the attention's backward runs on
 the flash backward kernels through ``ops.flash_attention.FlashAttention``.
 
-Data parallelism: on a mesh whose only axis is "data" (``parallel.mesh``,
-one rank per device over ``torch.distributed``),
-``make_composed_train_step`` runs JAX's composed step: each rank computes
-the loss and grads of its rows (``shard_lm_batch``) through the same
-single-device path (on the card the flash kernels K3f, K3k, K3q), one
-all-reduce carries the router statistics after the forward, and one flat
-all-reduce sums the grads. ``lm_param_shardings``, ``shard_lm_params``,
-``lm_update_sharding`` and ``init_lm_opt_state(mesh=)`` place the params and
-the (ZeRO-sharded) optimizer state. The "sp" and "expert" axes (ring
-attention, expert-parallel MoE), the pipeline factories and the
-``profile=``/``runprof=``/``tuned=`` seams come with later slices (ROADMAP
-items 20 and slice 9) and raise.
+Composed parallelism (``parallel.mesh``, one rank per device over
+``torch.distributed``): ``make_composed_train_step`` runs JAX's composed
+step on a mesh of any subset of ("data", "sp", "expert"): batch rows over
+"data", the sequence over "sp" (``ring_attention`` over the rank's
+sequence block), experts over "expert" (``moe_apply``; each rank holds its
+G experts). Each rank computes the loss and grads of its token shard
+(``shard_lm_batch``; the ranks of one "expert" line hold the same shard
+and compute the same), one all-reduce over the token axes carries the
+router statistics after the forward, and one flat all-reduce over the
+token axes sums the grads. ``lm_param_shardings``, ``shard_lm_params``,
+``lm_update_sharding`` and ``init_lm_opt_state(mesh=)`` place the params
+and the (ZeRO-sharded) optimizer state. ``make_pp_stages``/``make_pp_loss``
+split the stack at layer boundaries into ``parallel.pipeline`` stages over
+"pipe". The "model" axis is ROADMAP item 20b; the ``profile=``/
+``runprof=``/``tuned=`` seams come with slice 9 and raise.
 """
 
 from __future__ import annotations
@@ -90,12 +93,23 @@ from deeplearning4j_tpu_torch.optimize.updaters import (
     init_opt_state,
     opt_update_shardmap,
 )
-from deeplearning4j_tpu_torch.parallel.mesh import flat_all_reduce
+from deeplearning4j_tpu_torch.parallel.mesh import (
+    LeafShards,
+    all_to_all_ad,
+    flat_all_reduce,
+    gather_rows_ad,
+    sum_grads_ad,
+)
 from deeplearning4j_tpu_torch.parallel.moe import (
+    _dropped_routes,
     _routing,
     load_balance_loss,
+    moe_apply,
+    resolve_moe_impl,
+    route_shards,
     router_load_fraction,
 )
+from deeplearning4j_tpu_torch.parallel.ring_attention import ring_attention
 from deeplearning4j_tpu_torch.telemetry.metrics import train_step_metrics
 
 _NEG_INF = -1e30
@@ -353,12 +367,13 @@ def _loss_and_grads(loss_fn, params, tokens, targets, dev,
 
 def _make_sgd_step(loss_fn, lr: float, with_metrics: bool, dev,
                    donate: bool = False, guard=None,
-                   loss_and_grads=_loss_and_grads):
+                   loss_and_grads=_loss_and_grads, shards=None):
     """The SGD step: ``step(params, tokens, targets) -> (new_params, loss)``,
     plus the guard block (``guard``) or the metrics dict
     (``with_metrics``, guard block merged in) as a third output.
-    ``loss_and_grads`` is ``_loss_and_grads``' contract (the data-parallel
-    step passes its own)."""
+    ``loss_and_grads`` is ``_loss_and_grads``' contract (the composed
+    step passes its own); ``shards`` (``parallel.mesh.LeafShards``) makes
+    the norms global where leaves are split over the mesh."""
     def step(params, tokens, targets):
         loss, metrics, grads = loss_and_grads(loss_fn, params, tokens,
                                               targets, dev, with_metrics)
@@ -369,10 +384,11 @@ def _make_sgd_step(loss_fn, lr: float, with_metrics: bool, dev,
                 block = None
             else:
                 new_params, block = guarded_sgd_update(params, grads, loss,
-                                                       lr, guard)
+                                                       lr, guard, shards)
             if with_metrics:
                 block = {**metrics,
-                         **train_step_metrics(params, grads, lr, loss=loss),
+                         **train_step_metrics(params, grads, lr, loss=loss,
+                                              shards=shards),
                          **(block or {})}
         new_params = commit(params, new_params, donate)
         if block is None:
@@ -384,12 +400,14 @@ def _make_sgd_step(loss_fn, lr: float, with_metrics: bool, dev,
 
 def _make_opt_step(loss_fn, lr: float, with_metrics: bool,
                    optimizer: OptimizerConfig, dev, donate: bool = False,
-                   guard=None, zero=None, loss_and_grads=_loss_and_grads):
+                   guard=None, zero=None, loss_and_grads=_loss_and_grads,
+                   shards=None):
     """The optimizer-threaded step: ``step(params, opt_state, tokens,
     targets) -> (new_params, new_opt_state, loss[, metrics/guard
     block])``. The loss and grads are the SGD step's; only the update
-    differs (``zero``: the ZeRO-sharded update). With ``donate`` the
-    params and moments are updated in place."""
+    differs (``zero``: the ZeRO-sharded update; ``shards`` as in
+    ``_make_sgd_step``). With ``donate`` the params and moments are
+    updated in place."""
     def step(params, opt_state, tokens, targets):
         loss, metrics, grads = loss_and_grads(loss_fn, params, tokens,
                                               targets, dev, with_metrics)
@@ -397,19 +415,21 @@ def _make_opt_step(loss_fn, lr: float, with_metrics: bool,
             if guard is None:
                 out = opt_update_shardmap(optimizer, params, grads,
                                           opt_state, lr, zero,
-                                          with_metrics=with_metrics)
+                                          with_metrics=with_metrics,
+                                          shards=shards)
             else:
                 out = guarded_opt_update(params, grads, opt_state, loss, lr,
                                          optimizer, guard,
                                          with_metrics=with_metrics,
-                                         zero=zero)
+                                         zero=zero, shards=shards)
             new_params, new_state = out[0], out[1]
             block = out[2] if len(out) == 3 else None
             if with_metrics:
                 # the optimizer block LAST: its true ‖Δp‖/‖p‖ update_ratio
                 # overrides the lr·‖g‖ SGD proxy of train_step_metrics
                 block = {**metrics,
-                         **train_step_metrics(params, grads, lr, loss=loss),
+                         **train_step_metrics(params, grads, lr, loss=loss,
+                                              shards=shards),
                          **block}
         new_params = commit(params, new_params, donate)
         new_state = commit(opt_state, new_state, donate)
@@ -461,28 +481,38 @@ def make_single_device_train_step(n_heads: int, lr: float = 0.1,
                           donate=donate, guard=guard_cfg)
 
 
-# ------------------------------------------------------ data parallelism ----
+# ------------------------------------------------- composed parallelism ----
 
 DATA_AXIS = "data"
 SEQ_AXIS = "sp"
 EXPERT_AXIS = "expert"
-_ITEM_20 = ("the {} mesh axis (ring attention over 'sp', expert-parallel MoE "
-            "over 'expert') comes with ROADMAP item 20: the port's composed "
-            "step runs ('data',) meshes only")
+_COMPOSED_AXES = (DATA_AXIS, SEQ_AXIS, EXPERT_AXIS)
 _SLICE_9 = ("{} comes with ROADMAP slice 9 (telemetry, profiling and "
             "tuning)")
 
 
-def _check_data_mesh(mesh) -> None:
-    """A mesh the port's composed step runs: "data" is its only axis."""
-    names = tuple(mesh.axis_names)
-    for axis in (SEQ_AXIS, EXPERT_AXIS):
-        if axis in names:
-            raise NotImplementedError(_ITEM_20.format(repr(axis)))
-    other = [a for a in names if a != DATA_AXIS]
-    if other or DATA_AXIS not in names:
-        raise NotImplementedError(_ITEM_20.format(
-            "/".join(map(repr, other)) or "missing 'data'"))
+def _check_composed_mesh(mesh) -> None:
+    """A mesh the composed step runs: any subset of ("data", "sp",
+    "expert")."""
+    other = [a for a in mesh.axis_names if a not in _COMPOSED_AXES]
+    if other or not mesh.axis_names:
+        raise NotImplementedError(
+            f"the composed step runs meshes over {_COMPOSED_AXES}, got "
+            f"{tuple(mesh.axis_names)}: the 'model' axis (tensor "
+            "parallelism) is ROADMAP item 20b; 'pipe' runs through "
+            "make_pp_stages and make_pp_loss")
+
+
+def _token_axes(mesh) -> tuple:
+    """The axes the tokens split over: "data" (rows), "sp" (sequence)."""
+    return tuple(a for a in (DATA_AXIS, SEQ_AXIS) if a in mesh.axis_names)
+
+
+def _token_shards(mesh) -> int:
+    n = 1
+    for a in _token_axes(mesh):
+        n *= int(mesh.shape[a])
+    return n
 
 
 def _mesh_device(mesh, device: DeviceLike) -> torch.device:
@@ -498,50 +528,78 @@ def _mesh_device(mesh, device: DeviceLike) -> torch.device:
     return resolve_device(device)
 
 
+def _is_expert_leaf(path: tuple) -> bool:
+    return "experts" in path
+
+
 def lm_param_shardings(params: dict, mesh) -> dict:
     """Per-leaf sharding specs (``parallel/sharding.py``'s tuples, ``()``
-    = replicated) for the flagship params on ``mesh``. On a ("data",) mesh
-    every leaf is replicated; an "expert" axis (experts on axis 1 of the
-    block leaves) is ROADMAP item 20 and raises."""
-    from deeplearning4j_tpu_torch.parallel.sharding import replicated
-
-    if EXPERT_AXIS in mesh.axis_names:
-        raise NotImplementedError(_ITEM_20.format(repr(EXPERT_AXIS)))
-    rep = replicated(mesh)
-    return tree_map(lambda _, x: rep, params)
+    = replicated) for the flagship params on ``mesh``: the experts sit on
+    axis 1 of the block leaves, ``(None, "expert")``, when the mesh has an
+    "expert" axis; every other leaf is replicated. Raises when the experts
+    do not split over the axis, as JAX's does."""
+    names = mesh.axis_names
+    if EXPERT_AXIS in names:
+        n_experts = params["blocks"]["experts"]["w1"].shape[1]
+        ep = mesh.shape[EXPERT_AXIS]
+        if n_experts % ep:
+            raise ValueError(
+                f"{n_experts} experts do not shard over the {ep}-device "
+                f"{EXPERT_AXIS!r} axis — grouped layout needs "
+                "n_experts % axis size == 0")
+        espec = (None, EXPERT_AXIS)
+    else:
+        espec = ()
+    return tree_map(lambda path, _: espec if _is_expert_leaf(path) else (),
+                    params)
 
 
 def shard_lm_params(params: dict, mesh, *, device: DeviceLike = None) -> dict:
-    """Place the params per ``lm_param_shardings``: every leaf replicated,
-    moved to this rank's device. Nothing is broadcast (as in JAX, where
-    ``device_put`` copies the caller's values): every rank passes the same
-    params."""
-    lm_param_shardings(params, mesh)
+    """Place the params per ``lm_param_shardings`` on this rank's device:
+    replicated leaves whole, expert leaves as this rank's contiguous group
+    of G = E / ep experts on axis 1 of the (L, E, ...) block leaves.
+    Nothing is broadcast (as in JAX, where ``device_put`` copies the
+    caller's values): every rank passes the same params."""
+    specs = lm_param_shardings(params, mesh)
     dev = _mesh_device(mesh, device)
-    return tree_map(lambda _, x: torch.as_tensor(x).to(dev), params)
+    ep = int(mesh.shape.get(EXPERT_AXIS, 1))
+    e = int(mesh.coords.get(EXPERT_AXIS, 0))
+
+    def place(path, x):
+        x = torch.as_tensor(x)
+        if _get(specs, path):
+            g = x.shape[1] // ep
+            x = x[:, e * g:(e + 1) * g]
+        return x.to(dev)
+
+    return tree_map(place, params)
 
 
 def shard_lm_batch(tokens, targets, mesh, *,
                    device: DeviceLike = None) -> tuple:
-    """This rank's contiguous rows ``[r·B/R, (r+1)·B/R)`` of the global
-    (B, T) ``tokens`` and ``targets`` (arrays or tensors), on its device:
-    what ``P("data")`` places on device r. ``B % R != 0`` raises
-    ``ValueError``, as JAX's ``device_put`` does; an "sp" axis (the
-    sequence split) is ROADMAP item 20 and raises."""
-    if SEQ_AXIS in mesh.axis_names:
-        raise NotImplementedError(_ITEM_20.format(repr(SEQ_AXIS)))
+    """This rank's block of the global (B, T) ``tokens`` and ``targets``
+    (arrays or tensors), on its device: rows ``[r·B/R, (r+1)·B/R)`` over
+    "data" and columns ``[s·T/S, (s+1)·T/S)`` over "sp", what
+    ``P("data", "sp")`` places on the rank. A dim that does not split
+    raises ``ValueError``, as JAX's ``device_put`` does."""
     dev = _mesh_device(mesh, device)
-    n = int(mesh.shape[DATA_AXIS]) if DATA_AXIS in mesh.axis_names else 1
-    r = int(mesh.coords[DATA_AXIS]) if DATA_AXIS in mesh.axis_names else 0
     out = []
     for a in (tokens, targets):
-        rows = a.shape[0]
-        if rows % n:
-            raise ValueError(
-                f"a batch of {rows} rows does not split over the {n} ranks "
-                f"of the {DATA_AXIS!r} axis")
-        b = rows // n
-        part = a[r * b:(r + 1) * b]
+        part = a
+        for dim, axis in ((0, DATA_AXIS), (1, SEQ_AXIS)):
+            if axis not in mesh.axis_names:
+                continue
+            n, r = int(mesh.shape[axis]), int(mesh.coords[axis])
+            size = part.shape[dim]
+            if size % n:
+                what = "batch of" if dim == 0 else "sequence of"
+                unit = "rows" if dim == 0 else "tokens"
+                raise ValueError(
+                    f"a {what} {size} {unit} does not split over the {n} "
+                    f"ranks of the {axis!r} axis")
+            k = size // n
+            part = part[r * k:(r + 1) * k] if dim == 0 else \
+                part[:, r * k:(r + 1) * k]
         out.append(torch.as_tensor(np.asarray(part) if not isinstance(
             part, torch.Tensor) else part).to(dev))
     return tuple(out)
@@ -549,8 +607,9 @@ def shard_lm_batch(tokens, targets, mesh, *,
 
 def lm_update_sharding(mesh):
     """The flagship's ZeRO update-sharding descriptor on ``mesh``
-    (optimize/updaters.ZeroSharding): moments shard over the "data" axis.
-    With no expert axis no leaf needs a prefix."""
+    (optimize/updaters.ZeroSharding): moments shard over the "data" axis;
+    expert leaves keep their (layer, expert) prefix, so the dp shard nests
+    inside this rank's expert group."""
     from deeplearning4j_tpu_torch.optimize.updaters import ZeroSharding
 
     names = mesh.axis_names
@@ -560,8 +619,32 @@ def lm_update_sharding(mesh):
             f"the mesh (got {names}) — there is no dp axis to shard the "
             "update over")
     if EXPERT_AXIS in names:
-        raise NotImplementedError(_ITEM_20.format(repr(EXPERT_AXIS)))
-    return ZeroSharding(mesh, DATA_AXIS)
+        def prefix_fn(ks):
+            return (None, EXPERT_AXIS) if "['experts']" in ks else ()
+    else:
+        def prefix_fn(ks):
+            return ()
+    return ZeroSharding(mesh, DATA_AXIS, prefix_fn)
+
+
+def _lm_shards(mesh) -> Optional[LeafShards]:
+    """Expert leaves split over "expert" (None: no expert axis)."""
+    if EXPERT_AXIS not in mesh.axis_names:
+        return None
+    return LeafShards(mesh, lambda path: (EXPERT_AXIS,)
+                      if _is_expert_leaf(path) else ())
+
+
+def selected_moe_impl(mesh, n_tokens: int,
+                      moe_impl: Optional[str] = None) -> Optional[str]:
+    """The MoE dispatch a composed step with this GLOBAL token count will
+    run: per-call arg > set_moe_impl/env override > auto divisibility
+    gate; None on meshes without an expert axis (dense MoE)."""
+    if EXPERT_AXIS not in mesh.axis_names:
+        return None
+    return resolve_moe_impl(n_tokens,
+                            _token_shards(mesh) * mesh.shape[EXPERT_AXIS],
+                            moe_impl)
 
 
 def _router_stats(router_w: torch.Tensor, x: torch.Tensor, top_k: int):
@@ -576,42 +659,94 @@ def _router_stats(router_w: torch.Tensor, x: torch.Tensor, top_k: int):
     return f, softmax(logits).mean(0), load
 
 
+def _to_row_chunks(mesh, x: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """This rank's (B_l·T_l, d) tokens, a (rows, sequence block) block of
+    its data shard, → the data shard's row-major token stream's chunk at
+    this rank's "sp" index: the tokens JAX's GSPMD layout gives the MoE's
+    sub-shards. One all-to-all over "sp"."""
+    b, t, sp = shape[0], shape[1], mesh.shape[SEQ_AXIS]
+    d = x.shape[-1]
+    send = x.reshape(sp, b // sp, t, d)
+    got = all_to_all_ad(mesh, send, SEQ_AXIS)        # (src, B_l/sp, T_l, d)
+    return got.permute(1, 0, 2, 3).reshape(b // sp * sp * t, d)
+
+
+def _from_row_chunks(mesh, y: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """The inverse of ``_to_row_chunks``."""
+    b, t, sp = shape[0], shape[1], mesh.shape[SEQ_AXIS]
+    d = y.shape[-1]
+    send = y.reshape(b // sp, sp, t, d).permute(1, 0, 2, 3)
+    got = all_to_all_ad(mesh, send, SEQ_AXIS)        # (src, B_l/sp, T_l, d)
+    return got.reshape(b * t, d)
+
+
 def composed_loss_fn(mesh, n_heads: int, capacity: int = 0, top_k: int = 2,
                      aux_weight: float = 1e-2,
                      attn_impl: Optional[str] = None,
                      moe_impl: Optional[str] = None,
                      with_metrics: bool = False,
                      ring_prefetch: bool = True):
-    """The loss of JAX's composed step on a ("data",) mesh, computed from
-    this rank's rows: ``loss_fn(params, tokens, targets) -> (loss_r,
-    info)``.
+    """The loss of JAX's composed step, computed from this rank's token
+    shard: ``loss_fn(params, tokens, targets) -> (loss_r, info)``.
 
-    JAX's load-balance aux is global: under GSPMD its means run over the
-    WHOLE batch. The mean over ranks of per-rank aux losses differs
-    whenever routing differs across shards, so each rank's forward ends
-    with ONE all-reduce of every layer's top-1 fractions ``f`` and mean
-    router probabilities ``P`` (and the task loss and router load), and
-    the rank differentiates the surrogate
-    ``loss_r = task_r + w·mean_l E·Σ_e f̄_e·P_e^(r)`` with ``f̄`` the
-    ranks' mean fractions (no gradient, like JAX's argmax). The mean over
-    ranks of ``loss_r`` is JAX's loss, and so is the mean of its
+    "sp" runs the attention as ``ring_attention`` over the rank's sequence
+    block (``attn_impl`` forces its per-pair core, ``ring_prefetch`` its
+    rotation order); "expert" runs the FFN as ``moe_apply`` over
+    ``token_axes`` ("alltoall" | "alltoall_2d" | "replicated" by
+    ``moe_impl``, else the auto chain on the global token count), with the
+    rank's expert group. With "sp" too, the MoE's tokens first move to the
+    layout GSPMD gives JAX's flat token stream (``_to_row_chunks``: each
+    "sp" rank takes a contiguous run of whole rows of its data shard, one
+    all-to-all each way, which needs the shard's rows to divide over
+    "sp"), so capacity drops the same routes as JAX's.
+
+    JAX's load-balance aux is global: its means run over the WHOLE batch.
+    Each rank's forward ends with ONE all-reduce over the token axes of
+    every layer's top-1 fractions ``f`` and mean router probabilities
+    ``P`` (and the task loss, the router load and, with an expert axis,
+    the dropped routes), and the rank differentiates the surrogate
+    ``loss_r = task_r + w·mean_l E·Σ_e f̄_e·P_e^(r)`` with ``f̄`` the token
+    shards' mean fractions (no gradient, like JAX's argmax). The mean over
+    token shards of ``loss_r`` is JAX's loss, and so is the mean of its
     gradients. ``info["loss"]`` is the global loss itself; with
     ``with_metrics`` ``info`` also holds the global ``task_loss``,
-    ``aux_loss`` and ``router_load``.
-
-    ``capacity``, ``moe_impl`` and ``ring_prefetch`` act only on the
-    "expert"/"sp" axes (ROADMAP item 20): they are accepted and inert
-    here, as in JAX on a ("data",) mesh."""
-    _check_data_mesh(mesh)
-    n_ranks = int(mesh.size)
+    ``aux_loss``, ``router_load`` and, with an expert axis,
+    ``moe_dropped_frac`` (the capacity overflow share under the resolved
+    dispatch's sub-shards)."""
+    _check_composed_mesh(mesh)
+    names = mesh.axis_names
+    tok_axes = _token_axes(mesh)
+    n_tok = _token_shards(mesh)
+    has_ep = EXPERT_AXIS in names
+    relayout = has_ep and SEQ_AXIS in names and mesh.shape[SEQ_AXIS] > 1
 
     def attn_core(q, k, v):
+        if SEQ_AXIS in names:
+            return ring_attention(
+                q, k, v, mesh, SEQ_AXIS, causal=True,
+                batch_axis=DATA_AXIS if DATA_AXIS in names else None,
+                attn_impl=attn_impl, prefetch=ring_prefetch)
         return attention_core(q, k, v, causal=True, impl=attn_impl)
 
-    def moe_fn(rw, ex, x):
-        return dense_moe(rw, ex, x, top_k)
-
     def loss_fn(params, tokens, targets):
+        shape = tuple(tokens.shape)
+        n_global = shape[0] * shape[1] * n_tok
+        if relayout and shape[0] % mesh.shape[SEQ_AXIS]:
+            raise ValueError(
+                f"with 'sp' and 'expert' on the mesh the MoE takes whole "
+                f"rows: the {shape[0]} rows of a data shard do not divide "
+                f"over the {mesh.shape[SEQ_AXIS]} ranks of 'sp'")
+        routed = []     # each layer's MoE tokens, in JAX's layout
+
+        def moe_fn(rw, ex, x):
+            if not has_ep:
+                return dense_moe(rw, ex, x, top_k)
+            xj = _to_row_chunks(mesh, x, shape) if relayout else x
+            routed.append(xj.detach())
+            out = moe_apply(rw, ex, xj, mesh, expert_fn, capacity,
+                            top_k=top_k, token_axes=tok_axes, impl=moe_impl)
+            return _from_row_chunks(mesh, out, shape) if relayout else out
+
         logits, moe_ins = lm_forward(params, tokens, n_heads, attn_core,
                                      moe_fn)
         logp = torch.log_softmax(logits, dim=-1)
@@ -623,38 +758,50 @@ def composed_loss_fn(mesh, n_heads: int, capacity: int = 0, top_k: int = 2,
         f = torch.stack([s[0] for s in stats])          # (L, E)
         p_mean = torch.stack([s[1] for s in stats])     # (L, E)
         load = torch.stack([s[2] for s in stats]).mean(0)
-        f_sum, p_sum, load_sum, task_sum = flat_all_reduce(
-            mesh, [f, p_mean.detach(), load, task.detach()])
-        f_bar, p_bar = f_sum / n_ranks, p_sum / n_ranks
+        parts = [f, p_mean.detach(), load, task.detach()]
+        if has_ep:
+            # this token shard's sub-shards under the resolved dispatch
+            n_sub = route_shards(mesh, tok_axes, EXPERT_AXIS, n_global,
+                                 moe_impl) // n_tok
+            parts.append(torch.stack([
+                _dropped_routes(routers[i].detach(), xj, capacity, top_k,
+                               n_sub) for i, xj in enumerate(routed)]))
+        summed = flat_all_reduce(mesh, parts, tok_axes)
+        f_bar, p_bar = summed[0] / n_tok, summed[1] / n_tok
         n_experts = f.shape[1]
         aux_r = (n_experts * (f_bar * p_mean).sum(-1)).mean()
         loss_r = task + aux_weight * aux_r
         with torch.no_grad():
-            task_g = task_sum / n_ranks
+            task_g = summed[3] / n_tok
             aux_g = (n_experts * (f_bar * p_bar).sum(-1)).mean()
             info = {"loss": task_g + aux_weight * aux_g}
             if with_metrics:
                 info.update(task_loss=task_g, aux_loss=aux_g,
-                            router_load=load_sum / n_ranks)
+                            router_load=summed[2] / n_tok)
+                if has_ep:
+                    info["moe_dropped_frac"] = (
+                        summed[4] / (n_global * top_k)).mean()
         return loss_r, info
 
     return loss_fn
 
 
-def _dp_loss_and_grads(loss_fn, params, tokens, targets, dev,
-                       with_metrics: bool, mesh=None) -> tuple:
+def _composed_loss_and_grads(loss_fn, params, tokens, targets, dev,
+                             with_metrics: bool, mesh=None) -> tuple:
     """``_loss_and_grads``' contract for ``composed_loss_fn``: this rank's
-    surrogate differentiated, then the grads summed over the ranks in one
-    flat all-reduce and divided by their number — the global batch's
-    gradient on every rank — with the global loss and metrics."""
+    surrogate differentiated, then the grads summed over the token axes in
+    one flat all-reduce and divided by the number of token shards — the
+    global batch's gradient on every rank (expert leaves: this rank's
+    experts') — with the global loss and metrics."""
     leaves = [x.detach().requires_grad_() for x in tree_leaves(params)]
     with torch.enable_grad():
         loss_r, info = loss_fn(tree_unflatten(params, leaves),
                                torch.as_tensor(tokens, device=dev),
                                torch.as_tensor(targets, device=dev))
         grads = torch.autograd.grad(loss_r, leaves)
-    n_ranks = int(mesh.size)
-    grads = [g / n_ranks for g in flat_all_reduce(mesh, list(grads))]
+    n_tok = _token_shards(mesh)
+    grads = [g / n_tok for g in flat_all_reduce(mesh, list(grads),
+                                                _token_axes(mesh))]
     loss = info.pop("loss")
     return loss, (info if with_metrics else None), \
         tree_unflatten(params, grads)
@@ -671,35 +818,40 @@ def make_composed_train_step(mesh, n_heads: int, capacity: int = 0,
                              ring_prefetch: bool = True, runprof=None,
                              tuned=None, tune_context=None, *,
                              device: DeviceLike = None):
-    """JAX's composed train step on a ("data",) mesh: plain data
-    parallelism over the ranks of the process group.
+    """JAX's composed train step on a mesh of any subset of ("data", "sp",
+    "expert"), over the ranks of the process group.
 
     ``step(params, tokens, targets) -> (new_params, loss)`` with SGD, or
     ``step(params, opt_state, tokens, targets) -> (new_params,
     new_opt_state, loss)`` with ``optimizer=`` (state from
     ``init_lm_opt_state``; ``update_sharding="sharded"`` runs the ZeRO
-    update, each rank its ``1/dp`` chunk, and all-gathers the params).
-    ``tokens``/``targets`` are this rank's rows, as ``shard_lm_batch``
-    returns them; ``params`` are replicated (``shard_lm_params``). The
+    update over "data", each rank its ``1/dp`` chunk, and all-gathers the
+    params). ``tokens``/``targets`` are this rank's block, as
+    ``shard_lm_batch`` returns it; ``params`` are this rank's
+    (``shard_lm_params``: its expert group with an "expert" axis). The
     outputs match ``make_single_device_train_step``'s, and the loss, the
-    metrics (``with_metrics``: the global task/aux split and router load,
-    and the norms of the all-reduced grads) and the guard's decision
-    (``guard=``: finiteness of the global loss and the reduced grads) are
-    the same on every rank.
+    metrics (``with_metrics``: the global task/aux split, router load,
+    ``moe_dropped_frac`` and the norms of the reduced grads over every
+    expert) and the guard's decision (``guard=``) are the same on every
+    rank. ``capacity`` bounds the routes per (expert, sub-shard) of the
+    MoE dispatch (``moe_impl``); ``attn_impl`` forces the attention core,
+    the ring's per-pair core under "sp"; ``ring_prefetch`` the ring's
+    rotation order (bit-identical values).
 
-    Collectives a step (``parallel.mesh.COLLECTIVES``): SGD and the
-    replicated optimizer make 2 all-reduces (the forward's router
-    statistics and the grads); the ZeRO-sharded update adds 1 all-gather,
-    LAMB's norms an all-reduce each and the sharded metrics block one.
+    Collectives a step (``parallel.mesh.COLLECTIVES``) on a ("data",)
+    mesh: SGD and the replicated optimizer make 2 all-reduces (the
+    forward's router statistics and the grads); the ZeRO-sharded update
+    adds 1 all-gather, LAMB's norms an all-reduce each and the sharded
+    metrics block one. "sp" adds the ring's exchanges and, with "expert",
+    the MoE's two all-to-alls over "sp" each way; "expert" adds the
+    dispatch's collectives per layer (``parallel/moe.py``) and one
+    all-reduce per norm of the guard and metrics.
 
-    On the card each rank's attention runs the flash kernels for T >= the
-    auto gate (``attn_impl=None``). ``device`` (CUDA unless
-    ``device="cpu"``) is the rank's device when the mesh has none. A mesh
-    with an "sp" or "expert" axis raises (ROADMAP item 20); ``capacity``,
-    ``moe_impl`` and ``ring_prefetch`` are inert here, as in JAX on this
-    mesh; ``profile=``, ``runprof=`` and ``tuned=`` raise (ROADMAP slice
-    9)."""
-    _check_data_mesh(mesh)
+    On the card each rank's attention runs the flash kernels (the ring's
+    pairs through K3f, K3k, K3q). ``device`` (CUDA unless
+    ``device="cpu"``) is the rank's device when the mesh has none;
+    ``profile=``, ``runprof=`` and ``tuned=`` raise (ROADMAP slice 9)."""
+    _check_composed_mesh(mesh)
     if profile or runprof:
         raise NotImplementedError(_SLICE_9.format(
             "a compiled-step profile (profile=, runprof=)"))
@@ -710,17 +862,136 @@ def make_composed_train_step(mesh, n_heads: int, capacity: int = 0,
                                attn_impl=attn_impl, moe_impl=moe_impl,
                                with_metrics=with_metrics,
                                ring_prefetch=ring_prefetch)
-    grads_fn = partial(_dp_loss_and_grads, mesh=mesh)
+    grads_fn = partial(_composed_loss_and_grads, mesh=mesh)
     guard_cfg = GuardConfig.coerce(guard)
+    shards = _lm_shards(mesh)
     opt_cfg = OptimizerConfig.coerce(optimizer)
     if opt_cfg is None:
         return _make_sgd_step(loss_fn, lr, with_metrics, dev, donate=donate,
-                              guard=guard_cfg, loss_and_grads=grads_fn)
+                              guard=guard_cfg, loss_and_grads=grads_fn,
+                              shards=shards)
     opt_cfg = opt_cfg.resolved()
     zero = lm_update_sharding(mesh) if opt_cfg.sharded else None
     return _make_opt_step(loss_fn, lr, with_metrics, opt_cfg, dev,
                           donate=donate, guard=guard_cfg, zero=zero,
-                          loss_and_grads=grads_fn)
+                          loss_and_grads=grads_fn, shards=shards)
+
+
+# ----------------------------------------------------------------- dp×pp ----
+
+def make_pp_stages(params: dict, n_heads: int, n_stages: int = 2,
+                   top_k: int = 2, attn_impl: Optional[str] = None,
+                   moe_fn=None):
+    """Split the decoder stack at LAYER BOUNDARIES into ``n_stages``
+    pipeline stages: stage i owns layers [i·L/S, (i+1)·L/S) and applies
+    them in order (dense experts: the pipe axis shards STAGES, not
+    experts). Requires n_layers % n_stages == 0.
+
+    Returns (per_stage_params, stage_fn) for
+    parallel.pipeline.stack_stage_params / pipeline_apply; embed/decoder
+    stay outside the pipe, activations are (mb, T, d). ``attn_impl``
+    forces every staged layer's attention core (default: the auto chain
+    on the microbatch length: the flash kernels at T >= 1024);
+    ``moe_fn(router_w, experts, flat)`` overrides the staged FFN
+    (default: the dense top-k MoE)."""
+    blocks = params["blocks"]
+    n_layers = lm_n_layers(params)
+    if n_layers % n_stages:
+        raise ValueError(
+            f"n_layers={n_layers} does not split over {n_stages} pipeline "
+            "stages — layer-boundary staging needs n_layers % n_stages == 0")
+    per = n_layers // n_stages
+    per_stage = [tree_map(lambda _, a, i=i: a[i * per:(i + 1) * per], blocks)
+                 for i in range(n_stages)]
+
+    def core(q, k, v):
+        return attention_core(q, k, v, causal=True, impl=attn_impl)
+
+    def dense(rw, ex, x):
+        return dense_moe(rw, ex, x, top_k)
+
+    moe = moe_fn or dense
+
+    def stage_fn(p, x):
+        for i in range(tree_leaves(p)[0].shape[0]):
+            x, _ = _decoder_block(_layer(p, i), x, n_heads, core, moe)
+        return x
+
+    return per_stage, stage_fn
+
+
+def make_pp_loss(stage_fn, mesh, pipe_axis: str,
+                 batch_axis: Optional[str] = None,
+                 with_metrics: bool = False, overlap: bool = False):
+    """Staged-LM task loss for the dp×pp path: embed lookup, the pipeline
+    schedule over ``pipe_axis``, decoder, mean NLL. The dense twin is
+    ``dense_loss_fn(n_heads, aux_weight=0.0)`` on the flattened
+    microbatches.
+
+    ``loss(trained, toks_mbs, targets_mbs)`` with trained = (this rank's
+    stage params, embed, dec_w, dec_b) and the GLOBAL (n_micro, mb, T)
+    tokens and targets. With ``batch_axis`` each rank pipelines its rows
+    and the outputs are gathered over the rows before the decoder, so the
+    loss is the global one on every rank; the stage params and the
+    embedding, which see this rank's rows only, have their grads summed
+    over ``batch_axis`` in the backward (one all-reduce), so autograd
+    gives every rank the global gradient. ``with_metrics`` returns (loss,
+    metrics) with the per-microbatch NLL means."""
+    from deeplearning4j_tpu_torch.parallel.pipeline import pipeline_apply
+
+    def loss(trained, toks_mbs, tgt_mbs):
+        stacked, embed, dec_w, dec_b = trained
+        if batch_axis is not None:
+            leaves = sum_grads_ad(mesh, tree_leaves(stacked) + [embed],
+                                  batch_axis)
+            stacked, embed = tree_unflatten(stacked, leaves[:-1]), leaves[-1]
+        x_mbs = embed[torch.as_tensor(toks_mbs).long()]     # (M, mb, T, d)
+        outs = pipeline_apply(stacked, x_mbs, stage_fn, mesh, pipe_axis,
+                              batch_axis=batch_axis, overlap=overlap)
+        if batch_axis is not None:
+            outs = gather_rows_ad(mesh, outs.transpose(0, 1).contiguous(),
+                                  batch_axis).transpose(0, 1)
+        logits = outs @ dec_w + dec_b
+        logp = torch.log_softmax(logits, dim=-1)
+        tgt = torch.as_tensor(tgt_mbs, device=logp.device).long()
+        nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+        if with_metrics:
+            return nll.mean(), {"microbatch_loss": nll.detach().mean(
+                dim=tuple(range(1, nll.dim())))}
+        return nll.mean()
+
+    return loss
+
+
+def pp_trained_to_lm_params(trained) -> dict:
+    """The dp×pp training carry — (stage params, embed, dec_w, dec_b) —
+    back to the params dict ``init_lm_params`` produces: the stage axis
+    (S, L/S, ...) merged into the (L, ...) block axis (this rank's stage:
+    its L/S layers)."""
+    from deeplearning4j_tpu_torch.parallel.pipeline import merge_stage_axis
+
+    stacked, embed, dec_w, dec_b = trained
+    return {"embed": embed, "blocks": merge_stage_axis(stacked),
+            "dec_w": dec_w, "dec_b": dec_b}
+
+
+def lm_params_to_pp_trained(params: dict, mesh, n_heads: int,
+                            n_stages: int, pipe_axis: str = "pipe",
+                            top_k: int = 2,
+                            attn_impl: Optional[str] = None):
+    """Params → the dp×pp carry: (trained tuple, stage_fn), this rank's
+    stage of the stack staged onto ``pipe_axis``."""
+    from deeplearning4j_tpu_torch.parallel.pipeline import (
+        shard_stage_params,
+        stack_stage_params,
+    )
+
+    per_stage, stage_fn = make_pp_stages(params, n_heads, n_stages=n_stages,
+                                         top_k=top_k, attn_impl=attn_impl)
+    stacked = shard_stage_params(stack_stage_params(per_stage), mesh,
+                                 pipe_axis)
+    trained = (stacked, params["embed"], params["dec_w"], params["dec_b"])
+    return trained, stage_fn
 
 
 # --------------------------------------------------------------- serving ----

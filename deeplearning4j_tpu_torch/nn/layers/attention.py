@@ -8,8 +8,8 @@ residual connection, then the decoder projection n_in → n_out. The
 attention core is ``ops.flash_attention.attention_core``: dense at short
 T, the flash kernels (K3f forward, K3k and K3q backward) at T >= 1024.
 The transformer LM's decoder blocks share the layernorm and head
-split/merge helpers. ``forward_ring`` (sequence parallelism) comes with
-ROADMAP slice 8.
+split/merge helpers. ``forward_ring`` runs the block with the sequence
+sharded over a mesh axis (ring attention).
 """
 
 from __future__ import annotations
@@ -106,8 +106,16 @@ def forward(conf: NeuralNetConfiguration, params: Dict[str, torch.Tensor],
 def forward_ring(conf: NeuralNetConfiguration,
                  params: Dict[str, torch.Tensor], x: torch.Tensor, mesh,
                  axis: str) -> torch.Tensor:
-    """The block with the sequence axis sharded over a mesh axis (ring
-    attention). Not ported yet."""
-    raise NotImplementedError(
-        "forward_ring (ring attention over a sequence-sharded mesh) is not "
-        "ported yet: it comes with ROADMAP slice 8 (composed parallelism)")
+    """The block with the SEQUENCE axis sharded over ``axis``: attention
+    runs as ring attention (``parallel.ring_attention``; K/V blocks
+    rotating over the axis, online-softmax merge), so a rank holds O(T/P).
+    x: this rank's sequence block (batch, T/P, n_in), the one at its index
+    on ``axis``; returns its block of ``forward``'s logits. Every rank of
+    the axis calls it."""
+    from deeplearning4j_tpu_torch.parallel.ring_attention import \
+        ring_attention
+
+    return _forward(
+        conf, params, x,
+        lambda q, k, v: ring_attention(q, k, v, mesh, axis,
+                                       causal=conf.causal))

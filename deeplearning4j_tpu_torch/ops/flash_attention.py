@@ -371,6 +371,90 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = False, block_q: int = _DEFAULT_BLOCK,
+                        block_k: int = _DEFAULT_BLOCK) -> torch.Tensor:
+    """softmax(q·kᵀ/√Dh)·v over (B, H, T, Dh) without materializing (T, T):
+    the "blockwise" core, ``FlashAttention`` (K3f forward, K3k and K3q
+    backward on the card). ``block_q``/``block_k`` set the JAX package's
+    lax tiling; the kernels tile by 64 rows whatever they are, so here they
+    are accepted and change no value."""
+    return FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal)
+
+
+def _partials_plain(q, k, v, q_offset: int, k_offset: int, causal: bool):
+    """The plain version of ``blockwise_block_partials`` for any shapes
+    and offsets: one block spanning every key, f32 scores with the JAX
+    package's ADDITIVE -1e30 mask (a row masked everywhere comes out with
+    lse ≈ -1e30 and drops out of a merge), P rounded to V's dtype before
+    the PV product, the row sum guarded by max(l, 1e-30)."""
+    acc = _acc_dtype(q.dtype)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * (
+        1.0 / (q.shape[-1] ** 0.5))
+    if causal:
+        qp = q_offset + torch.arange(q.shape[2], device=q.device)
+        kp = k_offset + torch.arange(k.shape[2], device=q.device)
+        s = s + torch.where(qp[:, None] >= kp[None, :], 0.0,
+                            _NEG_INF).to(acc)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    l = torch.clamp_min(p.sum(-1), 1e-30)
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).to(acc), v.to(acc))
+    return o / l[..., None], m + torch.log(l)
+
+
+def blockwise_block_partials(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, q_offset: int = 0,
+                             k_offset: int = 0, causal: bool = False,
+                             block_q: Optional[int] = None,
+                             block_k: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Online softmax over ONE Q-shard × K/V-shard pair at GLOBAL sequence
+    offsets: ``(o_norm, lse)``, both f32 (B, H, Tq, ·), the pair's
+    softmax-normalized output and logsumexp. Shards merge exactly by
+    logsumexp weights, ``o = Σ_j o_norm_j · exp(lse_j − LSE)``: ring
+    attention's online merge with (m=lse, l=1).
+
+    On a CUDA tensor one K3f launch, ``flash_attention_fwd``, whose modes
+    cover what the ring produces: equal-length shards (``Tq == Tk``) at
+    offsets that are multiples of the shard length. ``k_offset ==
+    q_offset`` runs causal=1, a K block wholly before the Q block (or
+    ``causal=False``, where offsets do not matter) causal=0, and a K block
+    wholly after it masks every row: the JAX package's ``(0, -1e30)``
+    partials come back with no launch, on either device. On a CPU tensor
+    these modes go through the same wrapper (its plain version), and any
+    other shapes and offsets through ``_partials_plain``; on a CUDA tensor
+    they raise, naming the limit. ``block_q``/``block_k`` set the JAX
+    package's tiling and change no value here."""
+    tq, tk = q.shape[2], k.shape[2]
+    q_offset, k_offset = int(q_offset), int(k_offset)
+    if causal and k_offset >= q_offset + tq:
+        b, h, _, d = q.shape
+        return (torch.zeros((b, h, tq, v.shape[-1]), dtype=torch.float32,
+                            device=q.device),
+                torch.full((b, h, tq), _NEG_INF, dtype=torch.float32,
+                           device=q.device))
+    kernel_mode = tq == tk and (not causal or k_offset == q_offset
+                                or k_offset + tk <= q_offset)
+    if kernel_mode:
+        o, lse = flash_attention_fwd(q.contiguous(), k.contiguous(),
+                                     v.contiguous(),
+                                     causal and k_offset == q_offset)
+        return o.to(_acc_dtype(o.dtype)), lse
+    if q.device.type == "cpu":
+        return _partials_plain(q, k, v, q_offset, k_offset, causal)
+    if tq != tk:
+        raise ValueError(
+            f"blockwise_block_partials on the card takes equal-length "
+            f"shards (one K3f launch), got Tq={tq}, Tk={tk}")
+    raise ValueError(
+        f"blockwise_block_partials on the card takes a causal K block on "
+        f"the Q block's diagonal or wholly before or after it, got "
+        f"q_offset={q_offset}, k_offset={k_offset} at shard length {tq}: "
+        "the kernel has no offset mask")
+
+
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = False,
                    impl: Optional[str] = None) -> torch.Tensor:
@@ -384,6 +468,5 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "options: " + ", ".join(_IMPLS))
     impl = impl or resolve_attention_impl(q.shape[2], q.shape[-1], q.dtype)
     if impl in ("flash", "blockwise"):
-        return FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), causal)
+        return blockwise_attention(q, k, v, causal)
     return dense_attention(q, k, v, causal)

@@ -53,10 +53,11 @@ class GuardConfig:
             f"{type(guard).__name__}")
 
 
-def guard_stats(loss: torch.Tensor, grads) -> Tuple:
+def guard_stats(loss: torch.Tensor, grads, shards=None) -> Tuple:
     """(grad global-norm, finite?): a single NaN/Inf anywhere in the grad
-    tree poisons the norm, so one scalar test covers every leaf."""
-    gn = global_norm(grads)
+    tree poisons the norm, so one scalar test covers every leaf.
+    ``shards`` as in ``telemetry.metrics.global_norm``."""
+    gn = global_norm(grads, shards)
     finite = torch.isfinite(loss.float()) & torch.isfinite(gn)
     return gn, finite
 
@@ -80,14 +81,15 @@ def guard_select(finite: torch.Tensor, new_tree, old_tree):
 
 
 def guarded_sgd_update(params, grads, loss: torch.Tensor, lr: float,
-                       cfg: GuardConfig) -> Tuple:
+                       cfg: GuardConfig, shards=None) -> Tuple:
     """The guarded SGD update: ``(new_params, guard_metrics)``.
 
     Clean batch → ``params - lr * grads``, the same as the unguarded
     update. Non-finite loss or grads → params carried unchanged,
     ``nonfinite`` set. The metrics are f32 device scalars (``nonfinite``,
-    ``clipped``, ``guard_grad_norm``)."""
-    gn, finite = guard_stats(loss, grads)
+    ``clipped``, ``guard_grad_norm``). ``shards`` as in
+    ``guard_stats``."""
+    gn, finite = guard_stats(loss, grads, shards)
     clipped = torch.zeros((), dtype=torch.float32, device=gn.device)
     if cfg.clip_norm is not None:
         grads, was_clipped = clip_by_global_norm(grads, gn, cfg.clip_norm)

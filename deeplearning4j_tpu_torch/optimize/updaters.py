@@ -29,8 +29,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch._device import DeviceLike, resolve_device, \
-    tree_leaves, tree_map, tree_unflatten
+from deeplearning4j_tpu_torch._device import DeviceLike, keystr, \
+    resolve_device, tree_leaves, tree_map, tree_paths, tree_unflatten
 
 UPDATE_SHARDING_ENV = "DL4J_TPU_UPDATE_SHARDING"
 _MODES = ("replicated", "sharded")
@@ -111,11 +111,16 @@ class OptimizerConfig:
 # ------------------------------------------------------------ ZeRO layout ----
 
 class ZeroSharding:
-    """Where the dp-sharded update lives: the mesh (parallel/mesh.py) and
-    its dp axis. Every leaf is flattened, padded to a dp multiple and
-    split over ``axis``; this rank holds row ``index``."""
+    """Where the dp-sharded update lives: the mesh (parallel/mesh.py), its
+    dp axis, and a per-leaf ``prefix_fn(keystr) -> tuple`` naming the
+    mesh axes of the KEPT leading dims (``(None, "expert")`` for the
+    flagship's (L, E, ...) expert leaves, ``("pipe",)`` for stage-stacked
+    leaves), as in the JAX package. The trailing dims of a leaf are
+    flattened, padded to a dp multiple and split over ``axis``; this rank
+    holds row ``index``: ``lead + (1, chunk)`` of the ``lead + (n, chunk)``
+    layout, ``lead`` its own (already sharded) leading dims."""
 
-    def __init__(self, mesh, axis: str = "data"):
+    def __init__(self, mesh, axis: str = "data", prefix_fn=None):
         if axis not in mesh.axis_names:
             raise ValueError(
                 f"update-sharding axis {axis!r} is not on the mesh "
@@ -124,30 +129,50 @@ class ZeroSharding:
         self.axis = axis
         self.n = int(mesh.shape[axis])
         self.index = int(mesh.coords[axis])
+        self.prefix_fn = prefix_fn or (lambda _ks: ())
 
-    def layout(self, shape: Tuple[int, ...]):
-        """(chunk, pad) for one leaf of ``shape``."""
-        size = int(np.prod(shape, dtype=np.int64))
+    def keep(self, path: tuple) -> int:
+        """How many leading dims of the leaf at ``path`` are kept."""
+        return len(tuple(self.prefix_fn(keystr(path))))
+
+    def layout(self, shape: Tuple[int, ...], keep: int = 0):
+        """(chunk, pad) for one leaf of ``shape`` whose first ``keep`` dims
+        are kept."""
+        if keep >= len(shape) and not (keep == 0 and shape == ()):
+            raise ValueError(
+                f"ZeRO prefix keeps every dim of a {tuple(shape)} leaf — "
+                f"nothing left to shard over {self.axis!r}")
+        size = int(np.prod(shape[keep:], dtype=np.int64))
         chunk = -(-size // self.n)
         return chunk, self.n * chunk - size
 
 
-def _partition(x, n: int, chunk: int, pad: int):
-    """param-shaped → ``(n, chunk)`` (flatten, pad with zeros to an ``n``
-    multiple, fold the shard axis out). Host numpy and tensors alike."""
-    flat = x.reshape(-1)
+def _partition(x, n: int, chunk: int, pad: int, keep: int = 0):
+    """param-shaped → ``lead + (n, chunk)`` (flatten the dims after the
+    first ``keep``, pad with zeros to an ``n`` multiple, fold the shard
+    axis out). Host numpy and tensors alike."""
+    lead = tuple(x.shape[:keep])
+    flat = x.reshape(lead + (-1,))
     if pad:
         if isinstance(x, np.ndarray):
-            flat = np.pad(flat, (0, pad))
+            flat = np.pad(flat, [(0, 0)] * keep + [(0, pad)])
         else:
             flat = torch.nn.functional.pad(flat, (0, pad))
-    return flat.reshape(n, chunk)
+    return flat.reshape(lead + (n, chunk))
 
 
-def _unpartition(y, shape: Tuple[int, ...]):
+def _unpartition(y, shape: Tuple[int, ...], keep: int = 0):
     """Inverse of ``_partition`` (drops the zero padding)."""
-    size = int(np.prod(shape, dtype=np.int64))
-    return y.reshape(-1)[:size].reshape(shape)
+    lead = tuple(y.shape[:keep])
+    size = int(np.prod(shape[keep:], dtype=np.int64))
+    return y.reshape(lead + (-1,))[..., :size].reshape(shape)
+
+
+def _gather_rows(zero: ZeroSharding, row, keep: int):
+    """``lead + (1, chunk)`` rows of every rank of the dp axis →
+    ``lead + (n, chunk)``."""
+    got = zero.mesh.all_gather(row.movedim(keep, 0), zero.axis)
+    return got.movedim(0, keep)
 
 
 def _f32(x) -> float:
@@ -207,28 +232,52 @@ def _leaf_update(cfg: OptimizerConfig, p, g, m, v, t, lr: float,
     return upd, m, v, None
 
 
+def _leaf_axes(params, shards) -> list:
+    """Each leaf's split axes (``LeafShards``), () for every leaf without
+    shards."""
+    if shards is None:
+        return [()] * len(tree_leaves(params))
+    return shards.leaf_axes(params)
+
+
+def _sumsq_over(shards, axes: tuple):
+    """LAMB's per-leaf ``sumsq``: local, or summed over ``axes``."""
+    if shards is None or not axes:
+        return _sumsq
+    return lambda x: shards.mesh.all_reduce(_sumsq(x), axes)
+
+
+def _sum_parts(shards, parts):
+    """Σ of ``(axes, partial)`` pairs over the ranks holding each part."""
+    if shards is None:
+        return sum(x for _, x in parts)
+    return shards.reduce(parts)
+
+
 def opt_update(cfg: OptimizerConfig, params, grads, opt_state, lr: float,
-               with_metrics: bool = False):
+               with_metrics: bool = False, shards=None):
     """The optimizer transform: ``(new_params, new_opt_state[,
     opt_metrics])``. ``opt_state`` is ``{"m", "v", "count"}`` from
     :func:`init_opt_state`. ``with_metrics`` appends the optimizer-health
     block: moment global norms, the true ‖Δp‖/‖p‖ update ratio and, for
-    LAMB, the mean trust ratio."""
+    LAMB, the mean trust ratio. ``shards`` (``parallel.mesh.LeafShards``)
+    names the axes a leaf is split over: its norms then sum over those
+    ranks (LAMB's per leaf, the metrics' over the tree)."""
     t = opt_state["count"] + 1
     new_p, new_m, new_v, trusts = [], [], [], []
-    upd_sq = p_sq = m_sq = v_sq = 0.0
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                          tree_leaves(opt_state["m"]),
-                          tree_leaves(opt_state["v"])):
-        upd, m2, v2, trust = _leaf_update(cfg, p, g, m, v, t, lr)
+    sq = {"upd": [], "p": [], "m": [], "v": []}
+    for axes, p, g, m, v in zip(_leaf_axes(params, shards),
+                                tree_leaves(params), tree_leaves(grads),
+                                tree_leaves(opt_state["m"]),
+                                tree_leaves(opt_state["v"])):
+        upd, m2, v2, trust = _leaf_update(cfg, p, g, m, v, t, lr,
+                                          _sumsq_over(shards, axes))
         new_p.append(p - upd)
         new_m.append(m2)
         new_v.append(v2)
         if with_metrics:
-            upd_sq = upd_sq + _sumsq(upd.float())
-            p_sq = p_sq + _sumsq(p.float())
-            m_sq = m_sq + _sumsq(m2.float())
-            v_sq = v_sq + _sumsq(v2.float())
+            for k, x in (("upd", upd), ("p", p), ("m", m2), ("v", v2)):
+                sq[k].append((axes, _sumsq(x.float())))
             if trust is not None:
                 trusts.append(trust)
     new_params = tree_unflatten(params, new_p)
@@ -236,6 +285,8 @@ def opt_update(cfg: OptimizerConfig, params, grads, opt_state, lr: float,
                  "v": tree_unflatten(params, new_v), "count": t}
     if not with_metrics:
         return new_params, new_state
+    upd_sq, p_sq, m_sq, v_sq = (_sum_parts(shards, sq[k])
+                                for k in ("upd", "p", "m", "v"))
     metrics = {
         "moment_norm_m": torch.sqrt(m_sq),
         "moment_norm_v": torch.sqrt(v_sq),
@@ -248,7 +299,7 @@ def opt_update(cfg: OptimizerConfig, params, grads, opt_state, lr: float,
 
 def opt_update_shardmap(cfg: OptimizerConfig, params, grads, opt_state,
                         lr: float, zero: Optional[ZeroSharding],
-                        with_metrics: bool = False):
+                        with_metrics: bool = False, shards=None):
     """The update inside the data-parallel step, where collectives are
     explicit; ``zero`` (None in replicated mode) takes the place of the
     JAX package's axis name and decides each leaf's chunk and padding.
@@ -257,49 +308,62 @@ def opt_update_shardmap(cfg: OptimizerConfig, params, grads, opt_state,
     rank's ``(1, chunk)`` moment rows, and all-gathers only the params —
     every leaf's row in one buffer, one ``all_gather`` a step. LAMB's
     norms sum over the ranks (an all-reduce per norm), and the metrics
-    block's sums make one more."""
+    block's sums make one more (one per set of axes with ``shards``:
+    a ZeRO row is split over the dp axis and its leaf's own axes).
+    Kept leading dims (``zero.prefix_fn``) stay in each row."""
     if not cfg.sharded:
         return opt_update(cfg, params, grads, opt_state, lr,
-                          with_metrics=with_metrics)
+                          with_metrics=with_metrics, shards=shards)
     t = opt_state["count"] + 1
     mesh, n, my = zero.mesh, zero.n, zero.index
-
-    def sumsq(x):
-        return mesh.all_reduce(_sumsq(x))
+    paths = tree_paths(params)
 
     shapes, rows, new_m, new_v, trusts = [], [], [], [], []
-    upd_sq = m_sq = v_sq = p_sq = 0.0
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                          tree_leaves(opt_state["m"]),
-                          tree_leaves(opt_state["v"])):
+    sq = {"upd": [], "p": [], "m": [], "v": []}
+    for path, axes, p, g, m, v in zip(paths, _leaf_axes(params, shards),
+                                      tree_leaves(params), tree_leaves(grads),
+                                      tree_leaves(opt_state["m"]),
+                                      tree_leaves(opt_state["v"])):
         shape = tuple(p.shape)
-        chunk, pad = zero.layout(shape)
-        p_row = _partition(p, n, chunk, pad)[my:my + 1]
-        g_row = _partition(g, n, chunk, pad)[my:my + 1]
-        upd, m2, v2, trust = _leaf_update(cfg, p_row, g_row, m, v, t, lr,
-                                          sumsq)
-        shapes.append((shape, chunk))
-        rows.append(p_row - upd)
+        keep = zero.keep(path)
+        chunk, pad = zero.layout(shape, keep)
+        p_row = _partition(p, n, chunk, pad, keep)[..., my:my + 1, :]
+        g_row = _partition(g, n, chunk, pad, keep)[..., my:my + 1, :]
+        row_axes = axes + (zero.axis,)   # a row splits over dp too
+        upd, m2, v2, trust = _leaf_update(
+            cfg, p_row, g_row, m, v, t, lr,
+            lambda x, a=row_axes: mesh.all_reduce(_sumsq(x), a))
+        shapes.append((shape, keep, chunk))
+        rows.append((p_row - upd).reshape(1, -1))
         new_m.append(m2)
         new_v.append(v2)
         if with_metrics:
-            upd_sq = upd_sq + _sumsq(upd.float())
-            p_sq = p_sq + _sumsq(p.float())
-            m_sq = m_sq + _sumsq(m2.float())
-            v_sq = v_sq + _sumsq(v2.float())
+            sq["p"].append((axes, _sumsq(p.float())))
+            for k, x in (("upd", upd), ("m", m2), ("v", v2)):
+                sq[k].append((row_axes, _sumsq(x.float())))
             if trust is not None:
                 trusts.append(trust)
-    gathered = mesh.all_gather(torch.cat(rows, dim=1))  # (n, Σ chunk)
+    gathered = mesh.all_gather(torch.cat(rows, dim=1), zero.axis)
     new_p, col = [], 0
-    for shape, chunk in shapes:
-        new_p.append(_unpartition(gathered[:, col:col + chunk], shape))
-        col += chunk
+    for shape, keep, chunk in shapes:
+        lead = shape[:keep]
+        width = int(np.prod(lead, dtype=np.int64)) * chunk
+        block = gathered[:, col:col + width].reshape((n,) + lead + (chunk,))
+        new_p.append(_unpartition(block.movedim(0, keep), shape, keep))
+        col += width
     new_params = tree_unflatten(params, new_p)
     new_state = {"m": tree_unflatten(params, new_m),
                  "v": tree_unflatten(params, new_v), "count": t}
     if not with_metrics:
         return new_params, new_state
-    upd_sq, m_sq, v_sq = mesh.all_reduce(torch.stack([upd_sq, m_sq, v_sq]))
+    p_sq = _sum_parts(shards, sq["p"])
+    if shards is None:
+        upd_sq, m_sq, v_sq = mesh.all_reduce(torch.stack(
+            [sum(x for _, x in sq[k]) for k in ("upd", "m", "v")]),
+            zero.axis)
+    else:
+        upd_sq, m_sq, v_sq = (shards.reduce(sq[k])
+                              for k in ("upd", "m", "v"))
     metrics = {
         "moment_norm_m": torch.sqrt(m_sq),
         "moment_norm_v": torch.sqrt(v_sq),
@@ -313,27 +377,27 @@ def opt_update_shardmap(cfg: OptimizerConfig, params, grads, opt_state,
 def guarded_opt_update(params, grads, opt_state, loss, lr: float,
                        cfg: OptimizerConfig, guard,
                        with_metrics: bool = False,
-                       zero: Optional[ZeroSharding] = None):
+                       zero: Optional[ZeroSharding] = None, shards=None):
     """The optimizer update with the guardrails: finiteness of loss and
     grad global-norm, optional global-norm clip, and the skip-on-nonfinite
     select over params AND the whole optimizer state (moments and step
     count). ``zero`` runs the ZeRO update of :func:`opt_update_shardmap`
     (None: the replicated one). Returns ``(new_params, new_opt_state,
     metrics)``: the guard block, plus the optimizer block when
-    ``with_metrics``."""
+    ``with_metrics``. ``shards`` as in :func:`opt_update`."""
     from deeplearning4j_tpu_torch.optimize.guardrails import (
         clip_by_global_norm,
         guard_select,
         guard_stats,
     )
 
-    gn, finite = guard_stats(loss, grads)
+    gn, finite = guard_stats(loss, grads, shards)
     clipped = torch.zeros((), dtype=torch.float32, device=gn.device)
     if guard.clip_norm is not None:
         grads, was_clipped = clip_by_global_norm(grads, gn, guard.clip_norm)
         clipped = (was_clipped & finite).to(torch.float32)
     out = opt_update_shardmap(cfg, params, grads, opt_state, lr, zero,
-                              with_metrics=with_metrics)
+                              with_metrics=with_metrics, shards=shards)
     new_params, new_state = out[0], out[1]
     opt_metrics = out[2] if with_metrics else {}
     if guard.skip_nonfinite:
@@ -365,9 +429,10 @@ def init_opt_state(cfg: Optional[OptimizerConfig], params,
         v = tree_unflatten(params, [torch.zeros_like(x) for x in leaves])
         return {"m": m, "v": v, "count": count}
 
-    def one(_path, leaf):
-        chunk, _pad = zero.layout(tuple(leaf.shape))
-        return leaf.new_zeros((1, chunk))
+    def one(path, leaf):
+        keep = zero.keep(path)
+        chunk, _pad = zero.layout(tuple(leaf.shape), keep)
+        return leaf.new_zeros(tuple(leaf.shape[:keep]) + (1, chunk))
 
     return {"m": tree_map(one, params), "v": tree_map(one, params),
             "count": count}
@@ -392,7 +457,9 @@ def canonical_opt_state(opt_state, params_like,
 
     def gather(path, leaf):
         shape = tuple(leaf_of(params_like, path).shape)
-        return _unpartition(_host(zero.mesh.all_gather(leaf)), shape)
+        keep = zero.keep(path)
+        return _unpartition(_host(_gather_rows(zero, leaf, keep)), shape,
+                            keep)
 
     return {"m": tree_map(gather, opt_state["m"]),
             "v": tree_map(gather, opt_state["v"]),
@@ -416,10 +483,12 @@ def partition_opt_state(canonical, zero: ZeroSharding,
     ``device="cpu"``)."""
     dev = zero.mesh.device or resolve_device(device)
 
-    def one(_path, leaf):
+    def one(path, leaf):
         arr = _host(leaf)
-        chunk, pad = zero.layout(tuple(arr.shape))
-        row = _partition(arr, zero.n, chunk, pad)[zero.index:zero.index + 1]
+        keep = zero.keep(path)
+        chunk, pad = zero.layout(tuple(arr.shape), keep)
+        row = _partition(arr, zero.n, chunk, pad, keep)[
+            ..., zero.index:zero.index + 1, :]
         return torch.from_numpy(np.ascontiguousarray(row)).to(dev)
 
     count = int(_host(canonical["count"]))

@@ -5,9 +5,12 @@ The JAX package returns ``NamedSharding``s; here a sharding is its spec, a
 tuple naming the mesh axis each dim of a leaf splits over (None:
 unsplit; ``()``: replicated), equal to the JAX spec's entries. Dense and
 Output weights alternate Megatron-style, column-parallel then
-row-parallel; attention splits heads. Placing tensors over a "model" axis
-(``shard_leading_axis``, ``apply_shardings``) is tensor parallelism,
-ROADMAP item 20, and raises until then.
+row-parallel; attention splits heads. One process per rank: "placing" a
+stacked leaf over an axis is taking this rank's contiguous chunk of its
+leading dim (``shard_leading_axis``: the expert and stage layouts).
+Placing tensors over a "model" axis (``shard_leading_axis`` on it,
+``apply_shardings``) is tensor parallelism, ROADMAP item 20b, and raises
+until then.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from deeplearning4j_tpu_torch.nn.params import BIAS_KEY, \
 from deeplearning4j_tpu_torch.parallel.mesh import MODEL_AXIS
 
 _TP_ITEM = ("placing tensors over a 'model' mesh axis is tensor "
-            "parallelism, ROADMAP item 20")
+            "parallelism, ROADMAP item 20b")
 
 
 def replicated(mesh) -> tuple:
@@ -80,7 +83,24 @@ def stack_along_leading_axis(per_item: list):
 
 
 def shard_leading_axis(stacked, mesh, axis: str):
-    raise NotImplementedError(_TP_ITEM)
+    """This rank's contiguous chunk, over ``axis``, of the leading dim of
+    every leaf of ``stacked`` (``P(axis)``'s local shard): rows [i·n/P,
+    (i+1)·n/P) at the rank's index i of P. A leading dim that does not
+    split over the axis raises, as ``jax.device_put`` does."""
+    if axis == MODEL_AXIS:
+        raise NotImplementedError(_TP_ITEM)
+    from deeplearning4j_tpu_torch._device import tree_map
+
+    p, i = int(mesh.shape[axis]), int(mesh.coords[axis])
+
+    def one(_path, leaf):
+        n = leaf.shape[0]
+        if n % p:
+            raise ValueError(f"a leading dim of {n} does not split over "
+                             f"the {p} ranks of the {axis!r} axis")
+        return leaf[i * (n // p):(i + 1) * (n // p)]
+
+    return tree_map(one, stacked)
 
 
 def apply_shardings(params, shardings_per_layer, mesh):

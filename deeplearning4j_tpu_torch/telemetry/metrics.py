@@ -17,9 +17,13 @@ from deeplearning4j_tpu_torch._device import tree_leaves
 _EPS = 1e-12
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, shards=None) -> torch.Tensor:
     """sqrt(sum of squares) over every leaf of a nested dict (f32
-    accumulate)."""
+    accumulate). ``shards`` (``parallel.mesh.LeafShards``) names the mesh
+    axes a leaf is split over: its squares then sum over those ranks, so
+    the norm is the global tree's, as under GSPMD."""
+    if shards is not None:
+        return torch.sqrt(shards.sumsq(tree))
     leaves = tree_leaves(tree)
     if not leaves:
         return torch.tensor(0.0)
@@ -27,11 +31,13 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def train_step_metrics(params, grads, lr: float, loss=None) -> dict:
+def train_step_metrics(params, grads, lr: float, loss=None,
+                       shards=None) -> dict:
     """The standard step-health block: grad global-norm, param global-norm,
-    and the update/param ratio (||lr·g|| / ||p|| for SGD)."""
-    gn = global_norm(grads)
-    pn = global_norm(params)
+    and the update/param ratio (||lr·g|| / ||p|| for SGD); ``shards`` as
+    in ``global_norm``."""
+    gn = global_norm(grads, shards)
+    pn = global_norm(params, shards)
     out = {
         "grad_norm": gn,
         "param_norm": pn,

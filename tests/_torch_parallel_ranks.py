@@ -56,9 +56,11 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn_ranks(root: Path, inputs: dict, world: int) -> list:
-    """Write ``inputs`` under ``root`` and start ``world`` ranks; returns
-    the processes."""
+def spawn_ranks(root: Path, inputs: dict, world: int,
+                script: Path = Path(__file__).resolve()) -> list:
+    """Write ``inputs`` under ``root`` and start ``world`` ranks of
+    ``script`` (this file's scenarios by default); returns the
+    processes."""
     in_path = root / "inputs.pkl"
     with open(in_path, "wb") as f:
         pickle.dump(inputs, f)
@@ -66,7 +68,7 @@ def spawn_ranks(root: Path, inputs: dict, world: int) -> list:
     env.pop("JAX_PLATFORMS", None)
     port = _free_port()
     return [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), str(r), str(world),
+        [sys.executable, str(script), str(r), str(world),
          str(port), str(in_path), str(root)],
         env=env, cwd=str(root), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(world)]

@@ -37,8 +37,6 @@ UNPORTED = {
         "render_snapshot", "replay_spill", "resolve_runprof",
         "sanitize_name", "set_engine", "set_history", "set_runprof",
         "summarize_session", "summarize_step_log"},
-    "parallel": {"get_moe_impl", "moe_apply", "resolve_moe_impl",
-                 "set_moe_impl"},                             # item 20
 }
 
 # names only the port exports

@@ -327,20 +327,37 @@ def test_lm_param_shardings_replicate_every_leaf():
 
 @pytest.mark.parametrize("axes", [("data", "sp"), ("data", "expert"),
                                   ("sp",), ("data", "sp", "expert")])
-def test_sp_and_expert_meshes_raise_naming_item_20(axes):
+def test_sp_and_expert_meshes_place_like_jax(axes):
+    """On ("data", "sp", "expert") meshes (each axis of one rank here; the
+    multi-rank parity is tests/test_torch_composed.py) the composed step
+    builds, the param specs are JAX's, the batch block is the one
+    ``P("data", "sp")`` places on the rank, and one SGD step equals JAX's
+    composed step on the same-shaped 1-device mesh."""
+    import jax.sharding as jsh
+
     mesh = Mesh(axes, (1,) * len(axes))
-    with pytest.raises(NotImplementedError, match="item 20"):
-        TT.make_composed_train_step(mesh, H, CAP, device="cpu")
-    params = lm_params_from_numpy(
-        _np(JT.init_lm_params(jax.random.PRNGKey(1), V, D, H, E, FF, 1)),
-        "cpu")
-    if "expert" in axes:
-        with pytest.raises(NotImplementedError, match="item 20"):
-            TT.lm_param_shardings(params, mesh)
-    if "sp" in axes:
-        with pytest.raises(NotImplementedError, match="item 20"):
-            TT.shard_lm_batch(np.zeros((2, 4)), np.zeros((2, 4)), mesh,
-                              device="cpu")
+    jm = jsh.Mesh(np.array(jax.devices()[:1]).reshape((1,) * len(axes)),
+                  axes)
+    params = _np(JT.init_lm_params(jax.random.PRNGKey(1), V, D, H, E, FF, 1))
+    want = jax.tree_util.tree_map(lambda s: tuple(s.spec),
+                                  JT.lm_param_shardings(params, jm))
+    got = TT.lm_param_shardings(lm_params_from_numpy(params, "cpu"), mesh)
+    assert jax.tree_util.tree_leaves(got, is_leaf=lambda x: isinstance(
+        x, tuple)) == jax.tree_util.tree_leaves(
+        want, is_leaf=lambda x: isinstance(x, tuple))
+    tokens, targets = _batches(np.random.RandomState(5), 1)[0]
+    tk, tg = TT.shard_lm_batch(tokens, targets, mesh, device="cpu")
+    np.testing.assert_array_equal(tk.numpy(), tokens)
+    step = TT.make_composed_train_step(mesh, H, B * T, lr=LR, device="cpu")
+    tp, loss = step(TT.shard_lm_params(lm_params_from_numpy(params, "cpu"),
+                                       mesh, device="cpu"), tk, tg)
+    jstep = JT.make_composed_train_step(jm, H, B * T, lr=LR)
+    jtk, jtg = JT.shard_lm_batch(jnp.asarray(tokens), jnp.asarray(targets),
+                                 jm)
+    jp, jloss = jstep(JT.shard_lm_params(
+        jax.tree_util.tree_map(jnp.asarray, params), jm), jtk, jtg)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=LOSS_TOL)
+    _assert_close(tree_to_numpy(tp), _np(jp), what=axes)
 
 
 def test_unported_seams_raise_and_sharded_state_needs_a_mesh():

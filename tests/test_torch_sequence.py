@@ -236,10 +236,22 @@ def test_attention_layer_through_the_kernel_route_matches_dense():
         assert out["flash"][1][k].abs().max() > 0, k
 
 
-def test_forward_ring_raises_and_names_slice_8():
-    tc, _, tp, _ = _layer("ATTENTION", D_MODEL, V, n_heads=N_HEADS)
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        tattn.forward_ring(tc, tp, torch.ones(1, 4, D_MODEL), None, "sp")
+def test_forward_ring_matches_jax_on_a_one_rank_axis():
+    """``forward_ring`` over an "sp" axis of one rank (the multi-rank
+    parity is tests/test_torch_ring_attention.py) against JAX's on a
+    1-device mesh: the ring's single pair is the block."""
+    import jax.sharding as jsh
+
+    from deeplearning4j_tpu_torch.parallel.mesh import Mesh
+
+    tc, jc, tp, jp = _layer("ATTENTION", D_MODEL, V, n_heads=N_HEADS)
+    x = np.random.RandomState(2).randn(2, 16, D_MODEL).astype(np.float32)
+    got = tattn.forward_ring(tc, tp, torch.from_numpy(x), Mesh(("sp",), (1,)),
+                             "sp")
+    want = jattn.forward_ring(jc, jp, jnp.asarray(x),
+                              jsh.Mesh(np.array(jax.devices()[:1]), ("sp",)),
+                              "sp")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
 
 
 def test_attention_params_check_heads_like_jax():

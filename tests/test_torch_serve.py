@@ -258,7 +258,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'deeplearning4j_tpu' or "
         "m.startswith('deeplearning4j_tpu.'))\n"
-        "assert len(names) >= 119, names\n"
+        "assert len(names) >= 120, names\n"
         "for m in ('optimize.guardrails', 'optimize.updaters', "
         "'telemetry.metrics', 'text.vocab', 'native.lib', "
         "'models.word2vec', 'models.rntn', 'nn.tree', 'text.corpora.treeparser', "
@@ -267,7 +267,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'scaleout.iterative_reduce', 'scaleout.statetracker', "
         "'utils.netwatch', 'scaleout.remote_tracker', "
         "'scaleout.distributed_runner', 'scaleout.provision', "
-        "'telemetry.federation', 'serve.router', 'serve.fleet'):\n"
+        "'telemetry.federation', 'serve.router', 'serve.fleet', "
+        "'parallel.mesh', 'parallel.moe', 'parallel.ring_attention', "
+        "'parallel.pipeline'):\n"
         "    assert 'deeplearning4j_tpu_torch.' + m in names, m\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n")
