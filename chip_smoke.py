@@ -350,6 +350,7 @@ whole script's time.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
@@ -4120,10 +4121,13 @@ def _free_port() -> int:
 
 
 def _max_leaf_rel(got, want) -> float:
+    """max over leaves of max |got - want| / max |want|; inf where a leaf
+    of either tree is not finite (a NaN would pass every ``>`` test)."""
     from deeplearning4j_tpu_torch._device import tree_leaves
 
-    return max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+    errs = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            for a, b in zip(tree_leaves(got), tree_leaves(want))]
+    return max(errs) if all(math.isfinite(e) for e in errs) else math.inf
 
 
 def trainer_phase() -> dict:
@@ -6042,6 +6046,461 @@ def slice20a(smi: str, single_ms: float, dp_ms: float) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 15 ----
+
+# items 20b and 20c: tensor parallelism at full width, every coordinate's
+# kernel work on the one card; the TP and composed steps on a one-rank
+# NCCL ("data", "model") mesh; checkpoints of the flagship's trained state
+# through the multi-process writer and the async writer; the guard
+TP_MLP_DEGREE = 2
+TP_ATTN_DEGREES = (2, 4)
+TP_STEPS_TIMED = 5
+GUARD_STEPS = 2          # healthy steps before the poisoned batch
+ROLLBACK_TOL = 1e-6      # resumed steps against the unpoisoned run
+CKPT_TRAIN_STEPS = 3     # Adam steps behind the saved state
+ASYNC_OVERLAP_STEPS = 5
+
+
+class _OneCoordinate:
+    """One "model" rank's work alone, for its time: the collectives are
+    left out (f and g pass the rank's value on, a gather tiles its
+    columns to the full width), so the interval holds the coordinate's
+    kernels and local products only."""
+
+    def __init__(self, tp: int, rank: int):
+        self.tp, self.ranks = tp, (rank,)
+
+    def fan_out(self, x):
+        return [x]
+
+    def reduce(self, parts):
+        return parts[0]
+
+    def gather(self, parts):
+        import torch
+
+        return torch.cat([parts[0]] * self.tp, dim=-1)
+
+    def split(self, x):
+        n = x.shape[-1] // self.tp
+        r = self.ranks[0]
+        return [x[..., r * n:(r + 1) * n]]
+
+
+def _tp_fake_mesh(tp: int, rank: int):
+    import types
+
+    return types.SimpleNamespace(axis_names=("data", "model"),
+                                 shape={"data": 1, "model": tp},
+                                 coords={"data": 0, "model": rank})
+
+
+def _assembled_grads(grads, specs, per_rank_n, tp):
+    """Each param's whole grad from the coordinates' shard grads:
+    concatenated on the split dim, rank 0's for a replicated leaf."""
+    import torch
+
+    out = []
+    at = 0
+    for spec in specs:
+        if spec:
+            dim = [d for d, e in enumerate(spec) if e][0]
+            out.append(torch.cat([grads[r * per_rank_n + at]
+                                  for r in range(tp)], dim))
+        else:
+            out.append(grads[at])
+        at += 1
+    return out
+
+
+def tp_coordinates(name, conf, x, y, tp, loss_tol, grad_tol,
+                   want_launches) -> dict:
+    """One step's loss and grads of ``conf`` with every coordinate of a
+    (1, tp) ("data", "model") mesh placed by ``apply_shardings`` and run
+    in this process (``tensor_parallel.tp_loss_in_process``: partials
+    summed and columns concatenated on the card where the collectives
+    would), against the unsharded step on the card at f32 (TF32 off):
+    loss within ``loss_tol``, each grad within ``grad_tol`` of its max;
+    kernel launches exactly ``want_launches``. Times the whole in-process
+    step, each coordinate's work alone, and the single-device step."""
+    import torch
+
+    from deeplearning4j_tpu_torch._device import tree_leaves, tree_unflatten
+    from deeplearning4j_tpu_torch.nn import functional as F
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.parallel import sharding
+    from deeplearning4j_tpu_torch.parallel import tensor_parallel as TP
+
+    params = F.init_params(conf, 3, device=DEVICE)
+    specs = sharding.param_shardings(conf, _tp_fake_mesh(tp, 0))
+    flat_specs = [tuple(specs[i].get(k, ())) for i, layer in
+                  enumerate(params) for k in sorted(layer)]
+    per_rank = [sharding.apply_shardings(params, specs,
+                                         _tp_fake_mesh(tp, r))
+                for r in range(tp)]
+    head = conf.conf(conf.n_layers - 1).loss_function
+
+    def tp_step():
+        leaves = [[p.detach().requires_grad_() for p in tree_leaves(pr)]
+                  for pr in per_rank]
+        trees = [tree_unflatten(pr, lv) for pr, lv in zip(per_rank, leaves)]
+        loss = TP.tp_loss_in_process(conf, trees, x, y)
+        return loss, torch.autograd.grad(
+            loss, [p for lv in leaves for p in lv], allow_unused=True,
+            materialize_grads=True)
+
+    def single_step():
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        loss = F.network_loss(conf, tree_unflatten(params, leaves), x, y,
+                              train=True)
+        return loss, torch.autograd.grad(loss, leaves)
+
+    def coordinate_step(r):
+        comm = _OneCoordinate(tp, r)
+        leaves = [p.detach().requires_grad_() for p in
+                  tree_leaves(per_rank[r])]
+        per = TP.tp_per_example_loss(
+            conf, [tree_unflatten(per_rank[r], leaves)], x, y, comm,
+            specs=specs, train=True)
+        from deeplearning4j_tpu_torch.ops.losses import finalize_loss
+
+        return torch.autograd.grad(finalize_loss(head, per.mean()), leaves,
+                                   allow_unused=True, materialize_grads=True)
+
+    _kernels.reset_launches()
+    loss, grads = tp_step()
+    sync()
+    launches = {k: _kernels.LAUNCHES[k] for k in want_launches}
+    ref_loss, ref_grads = single_step()
+    got = _assembled_grads(grads, flat_specs, len(flat_specs), tp)
+    names = [f"{i}.{k}" for i, layer in enumerate(params)
+             for k in sorted(layer)]
+    errs = {n: _rel_err(g, w) for n, g, w in zip(names, got, ref_grads)}
+    loss, ref_loss = float(loss.detach()), float(ref_loss.detach())
+    loss_err = abs(loss - ref_loss)
+    out = {"tp": tp, "loss": loss, "loss_err": loss_err,
+           "grad_rel_err": errs, "launches": launches,
+           "sharded": [n for n, s in zip(names, flat_specs) if s]}
+    if (not loss_err <= loss_tol or not max(errs.values()) <= grad_tol
+            or launches != want_launches
+            or not all(bool(torch.isfinite(g).all())
+                       for g in list(got) + list(ref_grads))):
+        raise AssertionError(f"[tp] {name} at tp {tp} against the "
+                             f"unsharded step: {out}, expected launches "
+                             f"{want_launches}")
+    if DEVICE == "cuda":
+        out["ms_per_step"] = time_ms(tp_step, reps=TP_STEPS_TIMED)
+        out["single_device_ms_per_step"] = time_ms(single_step,
+                                                   reps=TP_STEPS_TIMED)
+        out["coordinate_ms_per_step"] = [
+            time_ms(lambda r=r: coordinate_step(r), reps=TP_STEPS_TIMED)
+            for r in range(tp)]
+    log(f"[tp] {name} {json.dumps(out)}")
+    return out
+
+
+def tp_one_rank(mesh, mlp_x, mlp_y, attn_x, attn_y) -> dict:
+    """(b) ``make_tp_train_step`` on the one-rank ("data", "model") mesh
+    shards nothing: two steps equal ``make_train_step``'s bit for bit
+    (scores, params, updater state), for the MNIST MLP and the attention
+    char-LM. Then the composed LM step on ("data", "model") (1, 1)
+    against phase 12's ("data",) step: two SGD steps, bit for bit."""
+    import torch
+
+    from deeplearning4j_tpu_torch._device import tree_leaves, tree_map
+    from deeplearning4j_tpu_torch.models import transformer_lm as T
+    from deeplearning4j_tpu_torch.models.zoo import mnist_mlp
+    from deeplearning4j_tpu_torch.nn import functional as F
+    from deeplearning4j_tpu_torch.parallel import mesh as pmesh
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import \
+        make_tp_train_step
+
+    def bits(a, b):
+        return all(torch.equal(p, q) for p, q in
+                   zip(tree_leaves(a), tree_leaves(b)))
+
+    out = {}
+    for name, conf, x, y in (("mlp", mnist_mlp(MLP_H1, MLP_H2), mlp_x,
+                              mlp_y),
+                             ("attn", _attn_conf(), attn_x, attn_y)):
+        params = F.init_params(conf, 5, device=DEVICE)
+        runs = []
+        for step in (make_tp_train_step(conf, mesh), F.make_train_step(conf)):
+            p = tree_map(lambda _, a: a.clone(), params)
+            st = F.init_train_state(conf, p)
+            scores = []
+            for i in range(2):
+                p, st, score = step(p, st, i, x, y, 7 + i)
+                scores.append(float(score))
+            runs.append((p, st, scores))
+        equal = bits(runs[0][0], runs[1][0]) and bits(runs[0][1], runs[1][1]) \
+            and runs[0][2] == runs[1][2]
+        out[name] = {"bitwise_equal": equal, "scores": runs[0][2]}
+        if not equal:
+            raise AssertionError(f"TP step on a (1, 1) mesh against "
+                                 f"make_train_step ({name}): not bitwise "
+                                 f"equal, scores {runs[0][2]} vs "
+                                 f"{runs[1][2]}")
+    params, tokens, targets = _train_setup()
+    dm = pmesh.Mesh(("data",), (1,))
+    runs = []
+    for m in (mesh, dm):
+        step = T.make_composed_train_step(m, N_HEADS, 0, device=DEVICE)
+        p = T.shard_lm_params(tree_map(lambda _, a: a.clone(), params), m,
+                              device=DEVICE)
+        tk, tg = T.shard_lm_batch(tokens, targets, m, device=DEVICE)
+        losses = []
+        for _ in range(2):
+            p, loss = step(p, tk, tg)
+            losses.append(float(loss))
+        runs.append((p, losses))
+    equal = bits(runs[0][0], runs[1][0]) and runs[0][1] == runs[1][1]
+    out["composed_data_model"] = {"bitwise_equal": equal,
+                                  "losses": runs[0][1]}
+    if not equal:
+        raise AssertionError(f"composed step on ('data', 'model') (1, 1) "
+                             f"against ('data',): losses {runs[0][1]} vs "
+                             f"{runs[1][1]}")
+    log(f"[tp] one-rank NCCL mesh {json.dumps(out)}")
+    return out
+
+
+def ckpt_card(mesh, work) -> dict:
+    """(c) The flagship's params and Adam moments after CKPT_TRAIN_STEPS
+    f32 steps at B=4, T=2048: ``save_process_shards`` +
+    ``merge_process_manifests`` at world size 1 on a ("data", "expert")
+    mesh, then ``restore_sharded(shardings=)`` onto the card, bit-exact;
+    a synchronous save's ms against an ``AsyncCheckpointer`` save whose
+    writer overlaps ASYNC_OVERLAP_STEPS training steps (step ms with and
+    without the pending save)."""
+    import torch
+
+    from deeplearning4j_tpu_torch._device import tree_leaves
+    from deeplearning4j_tpu_torch.models import transformer_lm as T
+    from deeplearning4j_tpu_torch.optimize.updaters import OptimizerConfig
+    from deeplearning4j_tpu_torch.scaleout.ckpt import (
+        AsyncCheckpointer,
+        Checkpointer,
+        merge_process_manifests,
+        restore_sharded,
+        save_process_shards,
+    )
+    from deeplearning4j_tpu_torch.telemetry.registry import MetricsRegistry
+
+    params, tokens, targets = _train_setup()
+    opt = OptimizerConfig(name="adam", lr=ADAM_LR)
+    step = T.make_single_device_train_step(N_HEADS, optimizer=opt,
+                                           device=DEVICE)
+    st = T.init_lm_opt_state(opt, params, device=DEVICE)
+    for _ in range(CKPT_TRAIN_STEPS):
+        params, st, _loss = step(params, st, tokens, targets)
+    sync()
+    state = {"params": params, "opt": {"m": st["m"], "v": st["v"]}}
+    pspecs = T.lm_param_shardings(params, mesh)
+    specs = {"params": pspecs, "opt": {"m": pspecs, "v": pspecs}}
+    root = os.path.join(work, "ckpt15")
+    t0 = time.perf_counter()
+    save_process_shards(root, 1, state, mesh=mesh, specs=specs)
+    step_dir = merge_process_manifests(root, 1, 1, mesh=mesh)
+    multi_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    got, _ = restore_sharded(step_dir, state, shardings=specs,
+                             device=DEVICE, mesh=mesh)
+    sync()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    exact = all(torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                                  tree_leaves(state)))
+    nbytes = sum(x.numel() * x.element_size() for x in tree_leaves(state))
+    if not exact or not all(x.is_cuda == (DEVICE == "cuda")
+                            for x in tree_leaves(got)):
+        raise AssertionError("multi-process save restored onto the card: "
+                             "not bit-exact")
+    ck = Checkpointer(os.path.join(work, "ckpt15s"),
+                      registry=MetricsRegistry())
+    t0 = time.perf_counter()
+    ck.save(1, state)
+    sync_ms = (time.perf_counter() - t0) * 1e3
+
+    def steps(carry, n):
+        p, s = carry
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            p, s, _loss = step(p, s, tokens, targets)
+        sync()
+        return (p, s), (time.perf_counter() - t0) * 1e3 / n
+
+    carry, plain_ms = steps((params, st), ASYNC_OVERLAP_STEPS)
+    actx = AsyncCheckpointer(Checkpointer(os.path.join(work, "ckpt15a"),
+                                          registry=MetricsRegistry()))
+    t0 = time.perf_counter()
+    actx.save(2, {"params": carry[0], "opt": {"m": carry[1]["m"],
+                                              "v": carry[1]["v"]}})
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    carry, pending_ms = steps(carry, ASYNC_OVERLAP_STEPS)
+    t1 = time.perf_counter()
+    actx.flush()
+    flush_wait_ms = (time.perf_counter() - t1) * 1e3
+    total_ms = (time.perf_counter() - t0) * 1e3
+    actx.close()
+    out = {"state_mib": nbytes / 2**20, "restore_bit_exact": exact,
+           "multi_process_save_ms": multi_ms, "restore_ms": restore_ms,
+           "sync_save_ms": sync_ms, "async_enqueue_ms": enqueue_ms,
+           "step_ms": plain_ms, "step_ms_with_async_save_pending":
+           pending_ms, "async_flush_wait_ms": flush_wait_ms,
+           "async_save_and_steps_ms": total_ms}
+    log(f"[ckpt card] {json.dumps(out)}")
+    return out
+
+
+def guard_card(mesh, work, attn_x, attn_y) -> dict:
+    """(d) The attention char-LM's guarded sync step (``make_sync_train_
+    step(guard=True)`` on the one-rank NCCL mesh; the kernels at T=2048):
+    GUARD_STEPS healthy steps saved and tagged last_good, then a batch
+    with a NaN: the step is skipped with params and updater state bitwise
+    unchanged; after the watchdog's burst it declares divergence;
+    ``rollback()`` restores the last good step, and two resumed steps
+    equal an unpoisoned run from that step within ROLLBACK_TOL of each
+    leaf's max."""
+    import torch
+
+    from deeplearning4j_tpu_torch._device import tree_leaves, tree_map
+    from deeplearning4j_tpu_torch.nn import functional as F
+    from deeplearning4j_tpu_torch.optimize.guardrails import \
+        DivergenceWatchdog
+    from deeplearning4j_tpu_torch.parallel.trainer import \
+        make_sync_train_step
+    from deeplearning4j_tpu_torch.scaleout.ckpt import Checkpointer
+    from deeplearning4j_tpu_torch.telemetry.registry import MetricsRegistry
+
+    conf = _attn_conf()
+    reg = MetricsRegistry()
+    ck = Checkpointer(os.path.join(work, "guard15"), registry=reg)
+    wd = DivergenceWatchdog(checkpointer=ck, registry=reg,
+                            max_consecutive_skips=2,
+                            replay_dir=os.path.join(work, "replay15"))
+    guarded = make_sync_train_step(conf, mesh, guard=True)
+    plain = make_sync_train_step(conf, mesh)
+    w = np.ones((attn_x.shape[0],), np.float32)
+    params = F.init_params(conf, 9, device=DEVICE)
+    states = F.init_train_state(conf, params)
+    it = 0
+    for it in range(1, GUARD_STEPS + 1):
+        params, states, score, gm = guarded(params, states, it, attn_x,
+                                            attn_y, w, it)
+        if wd.observe(it, score, gm) != "ok":
+            raise AssertionError(f"guard: healthy step {it} not ok")
+        ck.save(it, {"params": params, "states": states})
+        wd.note_checkpoint(it)
+    saved = tree_map(lambda _, a: a.clone(), (params, states))
+    bad = attn_x.copy()
+    bad[0, 0, 0] = np.nan
+    verdicts, unchanged = [], True
+    for it in range(GUARD_STEPS + 1, GUARD_STEPS + 4):
+        before = tree_map(lambda _, a: a.clone(), (params, states))
+        params, states, score, gm = guarded(params, states, it, bad, attn_y,
+                                            w, it)
+        unchanged = unchanged and all(torch.equal(a, b) for a, b in zip(
+            tree_leaves((params, states)), tree_leaves(before)))
+        verdicts.append(wd.observe(it, score, gm, batch={"x": bad}))
+        if verdicts[-1] == "diverged":
+            break
+    if not unchanged or verdicts[-1] != "diverged" or \
+            verdicts[0] != "skipped":
+        raise AssertionError(f"guard: verdicts {verdicts}, params "
+                             f"unchanged {unchanged}")
+    template = {"params": params, "states": states}
+    restored, got_step, _ = wd.rollback(template, device=DEVICE)
+    exact = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves((restored["params"], restored["states"])),
+        tree_leaves(saved)))
+    a = (restored["params"], restored["states"])
+    b = saved
+    for i in range(2):
+        a = guarded(*a, GUARD_STEPS + 1 + i, attn_x, attn_y, w, 50 + i)[:2]
+        b = plain(*b, GUARD_STEPS + 1 + i, attn_x, attn_y, w, 50 + i)[:2]
+    err = _max_leaf_rel(a, b)
+    out = {"verdicts": verdicts, "params_unchanged_on_skip": unchanged,
+           "rolled_back_to": got_step, "restore_bit_exact": exact,
+           "resume_max_leaf_rel_err": err, "bundles": len(wd.bundles),
+           "skipped": wd.skipped_steps}
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in tree_leaves((a, b)))
+    out["resumed_finite"] = finite
+    if (got_step != GUARD_STEPS or not exact or not finite
+            or not err <= ROLLBACK_TOL):
+        raise AssertionError(f"guard rollback: {out}")
+    log(f"[guard card] {json.dumps(out)}")
+    return out
+
+
+def slice20bc(smi: str) -> dict:
+    """Phase 15: items 20b and 20c. (a) tensor parallelism at full width,
+    every coordinate's kernel work on the card: the MNIST MLP (batch
+    MLP_BATCH) at tp TP_MLP_DEGREE (K1 twice a step a coordinate) and
+    the attention char-LM at ATTN_* at tp 2 and 4 (K3f, K3k and K3q once
+    a step a coordinate, no K1); then, in a one-rank NCCL group, (b) the
+    TP and composed steps on ("data", "model") (1, 1) bit for bit against
+    their one-device twins, (c) checkpoints of the flagship's trained
+    state, (d) the guard."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.models.zoo import mnist_mlp
+    from deeplearning4j_tpu_torch.parallel import mesh as pmesh
+    from deeplearning4j_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="dl4j_torch_slice20bc_")
+    mx, my = (torch.from_numpy(a).to(DEVICE) for a in _mnist(MLP_BATCH, 15))
+    ax_np, ay_np = _one_hot_tokens((ATTN_B, ATTN_T + 1), ATTN_VOCAB, seed=15)
+    ax, ay = torch.from_numpy(ax_np).to(DEVICE), \
+        torch.from_numpy(ay_np).to(DEVICE)
+    out = {"mlp": tp_coordinates(
+        "mnist_mlp", mnist_mlp(MLP_H1, MLP_H2), mx, my, TP_MLP_DEGREE,
+        MLP_LOSS_TOL, MLP_GRAD_TOL, {"fused_dense": 2 * TP_MLP_DEGREE})}
+    for tp in TP_ATTN_DEGREES:
+        want = {k: tp for k in TRAIN_KERNELS}
+        want["fused_dense"] = 0
+        out[f"attn_tp{tp}"] = tp_coordinates(
+            "attention char-LM", _attn_conf(), ax, ay, tp, ATTN_LOSS_TOL,
+            ATTN_GRAD_TOL, want)
+    multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device=DEVICE)
+    try:
+        backend = dist.get_backend()
+        if backend != ("nccl" if DEVICE == "cuda" else "gloo"):
+            raise AssertionError(f"process group backend {backend}")
+        out["one_rank"] = tp_one_rank(
+            pmesh.Mesh(("data", "model"), (1, 1)), mx, my, ax, ay)
+        out["ckpt"] = ckpt_card(pmesh.Mesh(("data", "expert"), (1, 1)),
+                                work)
+        out["guard"] = guard_card(pmesh.Mesh(("data",), (1,)), work, ax_np,
+                                  ay_np)
+    finally:
+        multihost.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    summary = {
+        "tp_ms_per_step": {k: out[k].get("ms_per_step") for k in
+                           ("mlp", "attn_tp2", "attn_tp4")},
+        "coordinate_ms_per_step": {
+            k: out[k].get("coordinate_ms_per_step") for k in
+            ("mlp", "attn_tp2", "attn_tp4")},
+        "single_device_ms_per_step": {
+            k: out[k].get("single_device_ms_per_step") for k in
+            ("mlp", "attn_tp2", "attn_tp4")},
+        "sync_save_ms": out["ckpt"]["sync_save_ms"],
+        "step_ms": out["ckpt"]["step_ms"],
+        "step_ms_with_async_save_pending":
+            out["ckpt"]["step_ms_with_async_save_pending"],
+        "wall_s": out["wall_s"]}
+    log(f"[slice20bc] {json.dumps(summary)} on {smi}")
+    return out
+
+
 # ---------------------------------------------------------------- main ----
 
 def main() -> int:
@@ -6144,6 +6603,18 @@ def main() -> int:
     for entry in mlp_entries + [e for e in conv_entries
                                 if e["name"] == "fused_dense"]:
         entry["pp_launches"] = s20["pp"]["dense"]["k1_launches"]
+    s20bc = slice20bc(smi)
+    for entry in train_entries:
+        # items 20b and 20c's runs (phase 15): one in-process step of
+        # every coordinate of the attention char-LM at tp 2 and 4
+        entry["tp_launches"] = {
+            f"tp{tp}": s20bc[f"attn_tp{tp}"]["launches"][entry["name"]]
+            for tp in TP_ATTN_DEGREES}
+    for entry in mlp_entries + [e for e in conv_entries
+                                if e["name"] == "fused_dense"]:
+        # the MNIST MLP's in-process step over its tp coordinates
+        entry["tp_launches"] = {
+            f"tp{TP_MLP_DEGREE}": s20bc["mlp"]["launches"]["fused_dense"]}
     log(f"[time] chip_smoke ran {time.perf_counter() - t_start:.1f} s")
 
     print(smi)

@@ -51,8 +51,10 @@ token axes sums the grads. ``lm_param_shardings``, ``shard_lm_params``,
 ``lm_update_sharding`` and ``init_lm_opt_state(mesh=)`` place the params
 and the (ZeRO-sharded) optimizer state. ``make_pp_stages``/``make_pp_loss``
 split the stack at layer boundaries into ``parallel.pipeline`` stages over
-"pipe". The "model" axis is ROADMAP item 20b; the ``profile=``/
-``runprof=``/``tuned=`` seams come with slice 9 and raise.
+"pipe". A "model" axis replicates the LM over its ranks, as JAX's
+``lm_param_shardings`` does (tensor parallelism of a
+``MultiLayerNetwork`` is ``parallel/tensor_parallel.py``); the
+``profile=``/``runprof=``/``tuned=`` seams come with slice 9 and raise.
 """
 
 from __future__ import annotations
@@ -486,20 +488,23 @@ def make_single_device_train_step(n_heads: int, lr: float = 0.1,
 DATA_AXIS = "data"
 SEQ_AXIS = "sp"
 EXPERT_AXIS = "expert"
-_COMPOSED_AXES = (DATA_AXIS, SEQ_AXIS, EXPERT_AXIS)
+MODEL_AXIS = "model"
+_COMPOSED_AXES = (DATA_AXIS, SEQ_AXIS, EXPERT_AXIS, MODEL_AXIS)
 _SLICE_9 = ("{} comes with ROADMAP slice 9 (telemetry, profiling and "
             "tuning)")
 
 
 def _check_composed_mesh(mesh) -> None:
     """A mesh the composed step runs: any subset of ("data", "sp",
-    "expert")."""
+    "expert", "model"). As in JAX, whose ``lm_param_shardings`` places
+    nothing on "model", the params are replicated over "model": each of
+    its ranks computes its (data, sp) shard's work, and every sum runs
+    over the token axes alone."""
     other = [a for a in mesh.axis_names if a not in _COMPOSED_AXES]
     if other or not mesh.axis_names:
         raise NotImplementedError(
             f"the composed step runs meshes over {_COMPOSED_AXES}, got "
-            f"{tuple(mesh.axis_names)}: the 'model' axis (tensor "
-            "parallelism) is ROADMAP item 20b; 'pipe' runs through "
+            f"{tuple(mesh.axis_names)}: 'pipe' runs through "
             "make_pp_stages and make_pp_loss")
 
 
@@ -819,7 +824,9 @@ def make_composed_train_step(mesh, n_heads: int, capacity: int = 0,
                              tuned=None, tune_context=None, *,
                              device: DeviceLike = None):
     """JAX's composed train step on a mesh of any subset of ("data", "sp",
-    "expert"), over the ranks of the process group.
+    "expert", "model"), over the ranks of the process group (the params
+    replicated over "model", as JAX's ``lm_param_shardings`` places
+    them).
 
     ``step(params, tokens, targets) -> (new_params, loss)`` with SGD, or
     ``step(params, opt_state, tokens, targets) -> (new_params,
@@ -1285,3 +1292,33 @@ def lm_checkpoint_meta(params: dict, n_heads: int, top_k: int = 2) -> dict:
     """Checkpoint ``meta`` block carrying what the shapes erase."""
     return {"lm": {**lm_dims(params), "n_heads": int(n_heads),
                    "top_k": int(top_k)}}
+
+
+def lm_replay(n_heads: int, top_k: int = 2, aux_weight: float = 1e-2,
+              attn_impl: Optional[str] = None, *,
+              device: DeviceLike = None):
+    """``tools/step_replay.py`` factory for the LM's replay bundles
+    (``--factory deeplearning4j_tpu_torch.models.transformer_lm:lm_replay
+    --kwargs-json '{"n_heads": ..., "device": "cpu"}'``).
+
+    Returns ``run(payload) -> dict`` re-executing the faulting step's loss
+    and grad from a bundle whose payload is ``{"params": <lm params>,
+    "batch": {"tokens", "targets"}}`` (numpy leaves), on ``device`` (CUDA
+    unless ``device="cpu"``). The forward draws nothing at random, so a
+    non-finite loss reproduces exactly."""
+    from deeplearning4j_tpu_torch.interop import lm_params_from_numpy
+    from deeplearning4j_tpu_torch.telemetry.metrics import global_norm
+
+    dev = resolve_device(device)
+    loss_fn = dense_loss_fn(n_heads, top_k, aux_weight, attn_impl=attn_impl)
+
+    def run(payload: dict) -> dict:
+        params = lm_params_from_numpy(payload["params"], dev)
+        toks = torch.as_tensor(np.asarray(payload["batch"]["tokens"]),
+                               dtype=torch.int64, device=dev)
+        tgts = torch.as_tensor(np.asarray(payload["batch"]["targets"]),
+                               dtype=torch.int64, device=dev)
+        loss, grads = lm_value_and_grad(loss_fn, params, toks, tgts)
+        return {"loss": float(loss), "grad_norm": float(global_norm(grads))}
+
+    return run

@@ -124,38 +124,68 @@ def network_per_example_loss(conf: MultiLayerConfiguration,
       through its decoder with per-timestep softmax); labels are (batch,
       time, vocab). Logits and labels are scored in f32."""
     n = conf.n_layers
+    head = conf.conf(n - 1)
+    check_head(head)
     keys = _layer_keys(key, n)
     for i in range(n - 1):
         x = _maybe_preprocess(conf, i, x)
         x = layer_ops.forward(conf.conf(i), params[i], x, train=train,
                               key=keys[i], drop_connect=conf.use_drop_connect)
     x = _maybe_preprocess(conf, n - 1, x)
-    head = conf.conf(n - 1)
     if head.layer_type == LayerType.OUTPUT:
-        per = output_layer.output_per_example_loss(
-            head, params[n - 1], x, labels, train=train, key=keys[n - 1],
+        logits = output_layer.output_logits(
+            head, params[n - 1], x, train=train, key=keys[n - 1],
             drop_connect=conf.use_drop_connect)
-    elif head.layer_type in (LayerType.LSTM, LayerType.ATTENTION):
+    else:
         # sequence heads own a decoder producing per-timestep logits
         logits = layer_ops.forward(head, params[n - 1], x, train=train,
-                                   key=keys[n - 1]).float()
-        labels = labels.float()
+                                   key=keys[n - 1])
+    return head_per_example_loss(head, logits, labels)
+
+
+def check_head(head) -> None:
+    """``network_per_example_loss``'s head contract."""
+    if head.layer_type not in (LayerType.OUTPUT, LayerType.LSTM,
+                               LayerType.ATTENTION):
+        raise ValueError("network_per_example_loss requires an OUTPUT, "
+                         "LSTM, or ATTENTION head layer")
+
+
+def head_per_example_loss(head, logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """The head layer's (batch,) losses from its logits, in f32: an OUTPUT
+    head as ``output.logits_per_example_loss``; a sequence head (LSTM,
+    ATTENTION) from its per-timestep logits (softmax or sigmoid fused for
+    the cross-entropy family); per-timestep losses averaged over time."""
+    if head.layer_type == LayerType.OUTPUT:
+        per = output_layer.logits_per_example_loss(head, logits, labels)
+    else:
+        logits, labels = logits.float(), labels.float()
         if LossFunction.coerce(head.loss_function) in _CE_FAMILY:
             per = per_example_loss_from_logits(head.loss_function, labels,
                                                logits)
         else:
             per = per_example_loss(head.loss_function, labels, logits)
-    else:
-        raise ValueError("network_per_example_loss requires an OUTPUT, "
-                         "LSTM, or ATTENTION head layer")
     if per.dim() > 1:  # sequence head: average the per-timestep losses
         per = per.mean(dim=tuple(range(1, per.dim())))
     return per
 
 
 def _raw_train_step(conf: MultiLayerConfiguration, policy=None,
-                    donate: bool = False):
-    """The step body shared by make_train_step / make_train_epoch."""
+                    donate: bool = False, *, loss=None, reduce_grads=None,
+                    sumsqs=None):
+    """The step body shared by make_train_step / make_train_epoch and the
+    tensor-parallel step (``parallel.tensor_parallel``).
+    ``loss(params, x, labels, key)`` is the scalar differentiated
+    (default: ``network_loss`` in training mode); ``reduce_grads(grads,
+    score)`` -> ``(grads, score)`` runs on the flat grads and the detached
+    loss before the updater; ``sumsqs[i]`` is layer i's
+    ``apply_updater(sumsq=)``."""
+    if loss is None:
+        def loss(ps, x, labels, key):
+            return network_loss(conf, ps, x, labels, train=True, key=key)
+    if sumsqs is None:
+        sumsqs = [None] * conf.n_layers
 
     def step(params, states, iteration, x, labels, key):
         dev = tree_leaves(params)[0].device
@@ -172,17 +202,20 @@ def _raw_train_step(conf: MultiLayerConfiguration, policy=None,
             if policy is not None:
                 ps = tree_map(lambda _, a: a.to(policy.compute_dtype), ps)
                 xin = x.to(policy.compute_dtype)
-            score = network_loss(conf, ps, xin, labels, train=True,
-                                 key=kdrop)
+            score = loss(ps, xin, labels, kdrop)
             # a leaf the loss does not reach (a pretraining layer's
             # visible bias) gets a zero grad, as jax.grad gives it
-            grads = tree_unflatten(params, list(torch.autograd.grad(
-                score, leaves, allow_unused=True, materialize_grads=True)))
+            grads = list(torch.autograd.grad(
+                score, leaves, allow_unused=True, materialize_grads=True))
+        score = score.detach()
+        if reduce_grads is not None:
+            grads, score = reduce_grads(grads, score)
+        grads = tree_unflatten(params, grads)
         new_params, new_states = [], []
         with torch.no_grad():
             for i in range(conf.n_layers):
                 upd, st = apply_updater(conf.conf(i), iteration, grads[i],
-                                        params[i], states[i])
+                                        params[i], states[i], sumsqs[i])
                 if donate:
                     for p, u in zip(tree_leaves(params[i]),
                                     tree_leaves(upd)):
@@ -192,7 +225,7 @@ def _raw_train_step(conf: MultiLayerConfiguration, policy=None,
                     new_params.append(
                         tree_zip_map(lambda p, u: p - u, params[i], upd))
                 new_states.append(commit(states[i], st, donate))
-        return tuple(new_params), tuple(new_states), score.detach()
+        return tuple(new_params), tuple(new_states), score
 
     return step
 

@@ -61,11 +61,20 @@ def attend_block(conf: NeuralNetConfiguration,
     attention math ((B,H,T,Hd) in and out) so every path shares the
     projections."""
     xn = _layernorm(x, params[LN_GAIN_KEY], params[LN_BIAS_KEY])
-    h = conf.n_heads
-    q = _split_heads(xn @ params[Q_KEY], h)
-    k = _split_heads(xn @ params[K_KEY], h)
-    v = _split_heads(xn @ params[V_KEY], h)
-    return x + _merge_heads(attn_core(q, k, v)) @ params[OUT_KEY]
+    return x + attend_heads(params, xn, conf.n_heads, attn_core)
+
+
+def attend_heads(params: Dict[str, torch.Tensor], xn: torch.Tensor,
+                 n_heads: int, attn_core) -> torch.Tensor:
+    """The block's attention term of the layernormed input ``xn``: the
+    q/k/v projections split into ``n_heads`` heads, ``attn_core``, the
+    merge and the output projection. Over a rank's columns of
+    ``wq``/``wk``/``wv`` and rows of ``wo`` (its heads) it is the rank's
+    partial sum of the term (``parallel.tensor_parallel``)."""
+    q = _split_heads(xn @ params[Q_KEY], n_heads)
+    k = _split_heads(xn @ params[K_KEY], n_heads)
+    v = _split_heads(xn @ params[V_KEY], n_heads)
+    return _merge_heads(attn_core(q, k, v)) @ params[OUT_KEY]
 
 
 def _forward(conf: NeuralNetConfiguration, params: Dict[str, torch.Tensor],

@@ -56,12 +56,30 @@ def output_per_example_loss(conf: NeuralNetConfiguration,
                             drop_connect: bool = False) -> torch.Tensor:
     """Per-example pre-reduction losses, shape (batch,); the scalar loss is
     ``ops.losses.finalize_loss(conf.loss_function, mean)``."""
+    return logits_per_example_loss(
+        conf, output_logits(conf, params, x, train=train, key=key,
+                            drop_connect=drop_connect), labels)
+
+
+def output_logits(conf: NeuralNetConfiguration,
+                  params: Dict[str, torch.Tensor], x: torch.Tensor, *,
+                  train: bool = False, key: Optional[int] = None,
+                  drop_connect: bool = False) -> torch.Tensor:
+    """The head's logits: its dropout, then ``pre_output``."""
     kdrop = kdc = None
     if key is not None:
         kdrop, kdc = split(key)
     x = apply_dropout(x, conf.dropout, train, kdrop)
-    logits = pre_output(conf, params, x, train=train, key=kdc,
-                        drop_connect=drop_connect)
+    return pre_output(conf, params, x, train=train, key=kdc,
+                      drop_connect=drop_connect)
+
+
+def logits_per_example_loss(conf: NeuralNetConfiguration,
+                            logits: torch.Tensor,
+                            labels: torch.Tensor) -> torch.Tensor:
+    """The head's per-example losses from its logits, in f32: the fused
+    log-softmax/log-sigmoid path for the ``FUSABLE`` pairs, else the
+    activation then the loss."""
     logits = logits.to(torch.float32)
     labels = labels.to(torch.float32)
     if (conf.activation_function, conf.loss_function) in FUSABLE:

@@ -49,10 +49,13 @@ def _momentum_at(conf: NeuralNetConfiguration, iteration: torch.Tensor):
 
 
 def apply_updater(conf: NeuralNetConfiguration, iteration: torch.Tensor,
-                  grads, params, state: UpdaterState
+                  grads, params, state: UpdaterState, sumsq=None
                   ) -> Tuple[Any, UpdaterState]:
     """Returns (updates, new_state); the caller applies
-    ``params - updates``."""
+    ``params - updates``. ``sumsq(update) -> Σu²`` over the layer's whole
+    update replaces the local sum in the unit-norm constraint where the
+    layer's leaves are shards of it (``parallel.mesh.LeafShards.sumsq``,
+    tensor parallelism)."""
     hist, vel = state["hist"], state["v"]
 
     if conf.reset_ada_grad_iterations > 0:
@@ -85,7 +88,8 @@ def apply_updater(conf: NeuralNetConfiguration, iteration: torch.Tensor,
                               update, params)
 
     if conf.constrain_gradient_to_unit_norm:
-        norm = torch.sqrt(sum((u * u).sum() for u in tree_leaves(update)))
+        norm = torch.sqrt(sum((u * u).sum() for u in tree_leaves(update))
+                          if sumsq is None else sumsq(update))
         update = tree_zip_map(lambda u: u / (norm + 1e-12), update)
 
     return update, {"hist": new_hist, "v": new_vel}

@@ -10,7 +10,7 @@ runs them through the backend.
 
 Axis names used throughout the framework:
 - "data"   — data parallelism (the reference's only axis)
-- "model"  — tensor parallelism (ROADMAP item 20b)
+- "model"  — tensor parallelism (parallel/tensor_parallel.py)
 - "sp"     — sequence parallelism (ring and Ulysses attention)
 - "expert" — expert parallelism (the MoE dispatch)
 - "pipe"   — pipeline stages
@@ -483,6 +483,29 @@ def split_rows_ad(mesh: Mesh, t: torch.Tensor, axis: str) -> torch.Tensor:
 def sum_forward_ad(mesh: Mesh, t: torch.Tensor, axes: Axes) -> torch.Tensor:
     """``Mesh.all_reduce`` under autograd, replicated result."""
     return _SumForward.apply(t, mesh, axes)
+
+
+def gather_dim(mesh: Mesh, t: torch.Tensor, axes: Sequence[str],
+               dim: int) -> torch.Tensor:
+    """Every rank's ``t`` over ``axes`` concatenated along ``dim``, in the
+    order of a spec entry naming ``axes`` (the first axis the major one):
+    one all-gather per axis, the minor one first. No autograd."""
+    for a in reversed(tuple(axes)):
+        t = mesh.all_gather(t.movedim(dim, 0), a).movedim(0, dim)
+    return t.contiguous()
+
+
+def gather_cols_ad(mesh: Mesh, t: torch.Tensor, axis: str) -> torch.Tensor:
+    """Every rank's ``t`` over ``axis`` concatenated along the LAST dim,
+    under autograd (backward: this rank's columns of the replicated
+    cotangent): Megatron's gather of a column-sharded activation."""
+    return gather_rows_ad(mesh, t.movedim(-1, 0), axis).movedim(0, -1)
+
+
+def split_cols_ad(mesh: Mesh, t: torch.Tensor, axis: str) -> torch.Tensor:
+    """This rank's block of the LAST dim over ``axis`` under autograd
+    (forward: a slice, no wire bytes; backward: the gathered gradient)."""
+    return split_rows_ad(mesh, t.movedim(-1, 0), axis).movedim(0, -1)
 
 
 def data_parallel_mesh(n_devices: Optional[int] = None) -> Mesh:

@@ -15,8 +15,11 @@ Parity with the reference's two ParameterAveraging modes
   averaged, weighted by each shard's real rows, in one all-reduce.
 
 Every rank runs the same loop over the same global batches and takes its
-own shard: contiguous row blocks in rank order, as the JAX package's
-``P("data")`` splits a batch over its mesh. Every rank gets the same key
+own shard: contiguous row blocks in the order of the ranks' "data"
+coordinates, as the JAX package's ``P("data")`` splits a batch over its
+mesh. On a mesh with other axes too (``mesh_2d``'s "model") the ranks
+that differ only there take the same rows and hold identical replicas:
+every sum runs over "data" alone, as JAX's ``psum(..., "data")``. Every rank gets the same key
 for a step, as JAX's replicated key does, and draws dropout masks from it
 over its local shape. A batch that does not divide the ranks is padded by
 repeating its last row with weight 0, so it never enters the loss or the
@@ -87,7 +90,8 @@ def _local_grad_step(conf, params, states, iteration, x, y, w, key,
     if sync_grads:
         lsum, wsum = lsum.detach(), wsum.detach()
         if not ablate_collectives:
-            *grads, lsum, wsum = _flat_all_reduce(mesh, grads + [lsum, wsum])
+            *grads, lsum, wsum = _flat_all_reduce(
+                mesh, grads + [lsum, wsum], DATA_AXIS)
         wsum = torch.clamp_min(wsum, 1e-8)
         score = finalize_loss(head.loss_function, lsum / wsum)
         if LossFunction.coerce(head.loss_function) == LossFunction.RMSE_XENT:
@@ -197,8 +201,10 @@ def _local_grad_step(conf, params, states, iteration, x, y, w, key,
 
 def _shard_rows(a, mesh: Mesh, device: torch.device) -> torch.Tensor:
     """This rank's contiguous block of rows of the global batch ``a``
-    (array or tensor, rows a multiple of the ranks), on ``device``."""
-    n = a.shape[0] // mesh.size
+    (array or tensor, rows a multiple of the "data" axis), on ``device``:
+    block i of ``mesh.shape["data"]`` at the rank's "data" coordinate
+    i."""
+    n = a.shape[0] // mesh.shape[DATA_AXIS]
     r = mesh.coords[DATA_AXIS]
     return F.to_device(a[r * n:(r + 1) * n], device)
 
@@ -233,11 +239,11 @@ def make_sync_train_step(conf: MultiLayerConfiguration, mesh: Mesh,
                          ablate_collectives: bool = False,
                          with_metrics: bool = False, guard=None,
                          profile=None, optimizer=None, runprof=None):
-    """Per-step averaging: grads all-reduced every iteration.
+    """Per-step averaging: grads all-reduced over "data" every iteration.
 
     step(params, states, iteration, x, y, w, key) -> (params, states,
     score[, metrics]). ``x``, ``y``, ``w`` are the GLOBAL batch (rows a
-    multiple of the ranks; ``w`` the per-row weight, 0 = padded row),
+    multiple of the "data" axis; ``w`` the per-row weight, 0 = padded row),
     the same on every rank; each rank takes its own rows. ``key`` is an
     ``ops.rng`` int, the same on every rank.
 
@@ -287,8 +293,8 @@ def make_local_fit_step(conf: MultiLayerConfiguration, mesh: Mesh,
                         local_iterations: int):
     """Per-fit averaging: each rank runs ``local_iterations`` steps on its
     own shard with no cross-rank traffic (the key of step i folded from
-    i), then params, updater state and the last score are averaged,
-    weighted by each shard's real rows, in one all-reduce."""
+    i), then params, updater state and the last score are averaged over
+    "data", weighted by each shard's real rows, in one all-reduce."""
 
     def local_fit(params, states, iteration0, x, y, w, key):
         dev, iteration0, x, y, w = _sharded_inputs(params, mesh, iteration0,
@@ -305,7 +311,7 @@ def make_local_fit_step(conf: MultiLayerConfiguration, mesh: Mesh,
         wsum = torch.sum(w)
         leaves = tree_leaves((params, states)) + [score]
         *summed, wtot = _flat_all_reduce(
-            mesh, [t * wsum for t in leaves] + [wsum])
+            mesh, [t * wsum for t in leaves] + [wsum], DATA_AXIS)
         wtot = torch.clamp_min(wtot, 1e-8)
         avg = [t / wtot for t in summed]
         params, states = tree_unflatten((params, states), avg[:-1])

@@ -7,18 +7,20 @@ metrics registry under the JAX package's names (``ckpt_saves_total``,
 ``ckpt_save_ms``, ...), and applies retention: keep the newest
 ``keep_last`` committed steps, delete older ones, and sweep interrupted
 (manifest-less) save directories once a same-or-newer step has committed.
-``restore()`` reads a step back onto one device, CUDA unless the caller
-passes ``device="cpu"``.
+``restore()`` reads a step back, CUDA unless the caller passes
+``device="cpu"``: whole leaves, or with ``shardings=`` and ``mesh=`` this
+rank's chunks. ``save_process``/``merge_save`` are the multi-process save
+of a state sharded over a mesh: every rank writes the chunks it owns and
+a part manifest, and the coordinator commits the merged manifest last.
+Saves and restores run under ``ckpt.save``/``ckpt.merge_save``/
+``ckpt.restore`` spans of the process tracer (``telemetry.trace``) when
+one is configured.
 
 ``save_net``/``restore_net`` write and read a ``MultiLayerNetwork``'s
 full training state (``net_state``), and ``CheckpointIterationListener``
 saves it every ``save_every`` iterations through the listener chain
 (``optimize/listeners.dispatch_listeners``): a raising save is logged and
 skipped, never killing the run.
-
-Not ported yet: the ``ckpt.save``/``ckpt.restore`` trace spans (the port's
-``telemetry/trace``, ROADMAP slice 9); the multi-process ``save_process``/
-``merge_save`` and ``shardings=`` (ROADMAP slices 7 and 8).
 """
 
 from __future__ import annotations
@@ -39,13 +41,26 @@ from deeplearning4j_tpu_torch.scaleout.ckpt.reshard import (
     restore_sharded,
     verify_checksums,
 )
-from deeplearning4j_tpu_torch.scaleout.ckpt.sharded_io import save_sharded
+from deeplearning4j_tpu_torch.scaleout.ckpt.sharded_io import (
+    merge_process_manifests,
+    save_process_shards,
+    save_sharded,
+)
+from deeplearning4j_tpu_torch.telemetry import trace as _trace
+
+def replicated_shardings(template):
+    """A spec tree placing every leaf of ``template`` whole (``()``): the
+    restore layout of data-parallel params and updater state."""
+    from deeplearning4j_tpu_torch._device import tree_map
+
+    return tree_map(lambda _p, _x: (), template)
+
 
 class Checkpointer:
     """Checkpoint store with retention and telemetry.
 
-    save(step, state[, meta])          → committed step dir
-    restore(template[, step, device])  → (state, step, meta)
+    save(step, state[, meta, mesh, specs])          → committed step dir
+    restore(template[, shardings, step, device, mesh]) → (state, step, meta)
     latest_step() / step_dirs()        → what a resume would load
     """
 
@@ -72,7 +87,8 @@ class Checkpointer:
         return os.path.join(self.root, "LAST_GOOD.json")
 
     def mark_last_good(self, step: int) -> None:
-        """Tag ``step`` as the rollback target. The tag is a marker file
+        """Tag ``step`` as the divergence watchdog's rollback target
+        (``optimize.guardrails.DivergenceWatchdog.note_checkpoint``). The tag is a marker file
         next to the step dirs (atomic tmp+replace), so it survives the
         process and is visible to every reader of the root; ``gc()`` never
         collects the tagged step."""
@@ -93,23 +109,31 @@ class Checkpointer:
 
     # ------------------------------------------------------------- save ----
     def save(self, step: int, state, meta: Optional[Dict] = None,
-             mesh=None) -> str:
+             mesh=None, specs=None) -> str:
+        """Save the WHOLE ``state`` (``specs``: each leaf's spec on
+        ``mesh``, see ``sharded_io.save_sharded``)."""
         reg, p = self.registry, self.prefix
-        t0 = time.perf_counter()
-        # save_sharded copies every leaf to the host (a synchronizing
-        # .cpu()), so nothing is left enqueued when the clock stops
-        step_dir = save_sharded(self.root, step, state, meta=meta, mesh=mesh)
-        save_ms = (time.perf_counter() - t0) * 1000.0
-        manifest = mf.read_manifest(step_dir)
-        n_chunks = sum(len(e.chunks) for e in manifest.leaves)
-        reg.counter(f"{p}_saves_total").inc()
-        reg.counter(f"{p}_bytes_total").inc(float(manifest.total_bytes))
-        reg.histogram(f"{p}_save_ms").observe(save_ms)
-        reg.gauge(f"{p}_last_step").set(float(step))
-        reg.gauge(f"{p}_last_bytes").set(float(manifest.total_bytes))
-        reg.gauge(f"{p}_last_shards").set(float(n_chunks))
-        self.gc()
-        return step_dir
+        with _trace.maybe_span("ckpt.save",
+                               attrs={"step": int(step)}) as sp:
+            t0 = time.perf_counter()
+            # save_sharded copies every leaf to the host (a synchronizing
+            # .cpu()), so nothing is left enqueued when the clock stops
+            step_dir = save_sharded(self.root, step, state, meta=meta,
+                                    mesh=mesh, specs=specs)
+            save_ms = (time.perf_counter() - t0) * 1000.0
+            manifest = mf.read_manifest(step_dir)
+            n_chunks = sum(len(e.chunks) for e in manifest.leaves)
+            reg.counter(f"{p}_saves_total").inc()
+            reg.counter(f"{p}_bytes_total").inc(float(manifest.total_bytes))
+            reg.histogram(f"{p}_save_ms").observe(save_ms)
+            reg.gauge(f"{p}_last_step").set(float(step))
+            reg.gauge(f"{p}_last_bytes").set(float(manifest.total_bytes))
+            reg.gauge(f"{p}_last_shards").set(float(n_chunks))
+            if sp is not None:
+                sp.set_attr("bytes", int(manifest.total_bytes))
+                sp.set_attr("chunks", int(n_chunks))
+            self.gc()
+            return step_dir
 
     def maybe_save(self, step: int, state_fn: Callable[[], object],
                    save_every: int, meta: Optional[Dict] = None,
@@ -118,6 +142,41 @@ class Checkpointer:
         if save_every <= 0 or step <= 0 or step % save_every:
             return None
         return self.save(step, state_fn(), meta=meta, mesh=mesh)
+
+    # ------------------------------------------------- multi-process save ----
+    def save_process(self, step: int, state,
+                     process_index: Optional[int] = None, *, mesh=None,
+                     specs=None) -> str:
+        """Every rank's half of a multi-process save: this rank's owned
+        chunks of its LOCAL ``state`` plus an atomic part manifest
+        (``sharded_io.save_process_shards``). The commit happens on the
+        coordinator in ``merge_save``; until then the step is invisible."""
+        return save_process_shards(self.root, step, state,
+                                   process_index=process_index, mesh=mesh,
+                                   specs=specs)
+
+    def merge_save(self, step: int, n_processes: int,
+                   meta: Optional[Dict] = None, mesh=None,
+                   timeout_s: float = 120.0) -> str:
+        """Coordinator only: the manifest merge barrier (waits for every
+        part manifest, checks coverage, commits LAST) with the telemetry
+        and retention of ``save``."""
+        reg, p = self.registry, self.prefix
+        with _trace.maybe_span("ckpt.merge_save",
+                               attrs={"step": int(step),
+                                      "n_processes": int(n_processes)}):
+            t0 = time.perf_counter()
+            step_dir = merge_process_manifests(
+                self.root, step, n_processes, meta=meta, mesh=mesh,
+                timeout_s=timeout_s)
+            merge_ms = (time.perf_counter() - t0) * 1000.0
+            manifest = mf.read_manifest(step_dir)
+            reg.counter(f"{p}_saves_total").inc()
+            reg.counter(f"{p}_bytes_total").inc(float(manifest.total_bytes))
+            reg.histogram(f"{p}_save_ms").observe(merge_ms)
+            reg.gauge(f"{p}_last_step").set(float(step))
+            self.gc()
+            return step_dir
 
     # ---------------------------------------------------------- restore ----
     def latest_step(self) -> Optional[int]:
@@ -151,25 +210,30 @@ class Checkpointer:
         return step_dir
 
     def restore(self, template, shardings=None, step: Optional[int] = None,
-                device: DeviceLike = None) -> Tuple[object, int, Dict]:
+                device: DeviceLike = None, mesh=None
+                ) -> Tuple[object, int, Dict]:
         """Load the latest (or a specific) committed step into the template
-        structure, as tensors on ``device`` (CUDA unless ``device="cpu"``).
-        Returns ``(state, step, meta)``."""
+        structure, as tensors on ``device`` (CUDA unless ``device="cpu"``):
+        whole leaves, or with ``shardings`` (a spec tree) and ``mesh`` this
+        rank's chunks of them. Returns ``(state, step, meta)``."""
         reg, p = self.registry, self.prefix
-        step_dir = self._dir_for(step)
-        if self.verify_on_restore:
-            problems = verify_checksums(step_dir)
-            if problems:
-                raise ValueError(
-                    f"checkpoint {step_dir} failed checksum "
-                    "verification: " + "; ".join(problems))
-        t0 = time.perf_counter()
-        state, manifest = restore_sharded(step_dir, template, shardings,
-                                          device=device)
-        restore_ms = (time.perf_counter() - t0) * 1000.0
-        reg.histogram(f"{p}_restore_ms").observe(restore_ms)
-        reg.counter(f"{p}_restores_total").inc()
-        return state, manifest.step, dict(manifest.meta or {})
+        with _trace.maybe_span("ckpt.restore") as sp:
+            step_dir = self._dir_for(step)
+            if self.verify_on_restore:
+                problems = verify_checksums(step_dir)
+                if problems:
+                    raise ValueError(
+                        f"checkpoint {step_dir} failed checksum "
+                        "verification: " + "; ".join(problems))
+            t0 = time.perf_counter()
+            state, manifest = restore_sharded(step_dir, template, shardings,
+                                              device=device, mesh=mesh)
+            restore_ms = (time.perf_counter() - t0) * 1000.0
+            reg.histogram(f"{p}_restore_ms").observe(restore_ms)
+            reg.counter(f"{p}_restores_total").inc()
+            if sp is not None:
+                sp.set_attr("step", int(manifest.step))
+            return state, manifest.step, dict(manifest.meta or {})
 
     def restore_net(self, step: Optional[int] = None,
                     device: DeviceLike = None):

@@ -1,12 +1,14 @@
 """Counterpart of ``deeplearning4j_tpu/scaleout/ckpt/reshard.py``: the read
 side of the sharded checkpoint format, onto one device.
 
-A checkpoint saved on any mesh restores here: every leaf is assembled on
-the host from the saved chunks that cover it (``assemble_region``, with the
-same coverage check as the JAX package), CRC-checked on first touch, and
-placed on the target device as a torch tensor. Restoring straight into a
-sharded layout (the JAX ``shardings=`` argument) needs the port's mesh,
-which comes with ROADMAP slices 7 and 8; until then it raises.
+A checkpoint saved on any mesh restores here: every leaf, or with
+``shardings=`` this rank's chunk of it, is assembled on the host from the
+saved chunks that cover it (``assemble_region``, with the same coverage
+check as the JAX package), CRC-checked on first touch, and placed on the
+target device as a torch tensor. A rank reads only the saved chunks its
+target rectangle touches: the rectangle ``parallel.sharding.local_chunk``
+(``apply_shardings``, ``shard_lm_params``) would give it, whatever mesh
+the save ran on.
 
 Strictness is the JAX package's: a missing leaf, a shape mismatch, a lossy
 dtype narrowing or an uncovered region raise.
@@ -27,17 +29,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch._device import DeviceLike, resolve_device, \
-    tree_map
+from deeplearning4j_tpu_torch._device import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.scaleout.ckpt.manifest import (
     LeafEntry,
     Manifest,
     committed_steps,
     read_manifest,
 )
-
-_SHARDED_RESTORE_SLICE = ("ROADMAP slices 7 and 8 (the port's mesh and the "
-                          "sharded half of scaleout/ckpt)")
 
 # manifest dtype name -> torch dtype, for every dtype a checkpoint of this
 # tree holds
@@ -242,39 +240,59 @@ def _to_tensor(arr: np.ndarray, dtype: str,
 
 
 def restore_sharded(step_dir: str, template, shardings=None,
-                    verify_crc: bool = True, *, device: DeviceLike = None):
+                    verify_crc: bool = True, *, device: DeviceLike = None,
+                    mesh=None):
     """Restore the tree saved in ``step_dir`` into the structure of
     ``template`` (a tree of dicts, tuples and lists whose leaves carry
-    ``shape`` and ``dtype``: tensors, on any device including ``meta``, or
-    numpy arrays). Returns ``(state, manifest)``, every leaf a tensor on
-    ``device`` (CUDA unless ``device="cpu"``).
+    the WHOLE leaves' ``shape`` and ``dtype``: tensors, on any device
+    including ``meta``, or numpy arrays). Returns ``(state, manifest)``,
+    every leaf a tensor on ``device`` (CUDA unless ``device="cpu"``).
+
+    ``shardings``: a spec tree mirroring ``template`` (``parallel.
+    sharding``'s tuples; None or a missing entry: the whole leaf), with
+    ``mesh`` (anything with ``shape`` and ``coords``: this rank's place on
+    the target mesh). A leaf with a spec is built from this rank's
+    rectangle alone, read from the covering saved chunks, whatever mesh
+    the save ran on: the chunk ``apply_shardings`` would give the rank.
 
     Strict by construction: missing leaves, shape mismatches, and lossy
     dtype narrowing raise (see ``check_compatible``); every chunk read is
     CRC-verified (``verify_crc=False`` opts out) so a corrupt shard fails
     the restore with a ``CorruptShardError`` naming the file.
     """
-    if shardings is not None:
-        raise NotImplementedError(
-            f"restore into sharded layouts (shardings=) comes with "
-            f"{_SHARDED_RESTORE_SLICE}; the port restores onto one device")
+    from deeplearning4j_tpu_torch._device import tree_leaves, tree_paths, \
+        tree_unflatten
+    from deeplearning4j_tpu_torch.parallel.sharding import local_region, \
+        spec_leaves
+
+    if shardings is not None and mesh is None:
+        raise ValueError("restore_sharded(shardings=) needs mesh=, the "
+                         "rank's place on the mesh the specs name")
     dev = resolve_device(device)
     manifest = read_manifest(step_dir)
     by_path = {entry.path: entry for entry in manifest.leaves}
+    leaves = tree_leaves(template)
+    specs = spec_leaves(shardings, template) if shardings is not None \
+        else [None] * len(leaves)
+    out = []
     with _ChunkStore(step_dir, verify_crc=verify_crc) as store:
-        def one(path, t_leaf):
+        for path, t_leaf, spec in zip(tree_paths(template), leaves, specs):
             if t_leaf is None:  # an empty subtree, as in a JAX pytree
-                return None
+                out.append(None)
+                continue
             key = keystr(path)
             entry = by_path.get(key)
             if entry is None:
                 raise KeyError(f"checkpoint is missing leaf {key}")
             dtype = check_compatible(entry.shape, entry.dtype, t_leaf, key)
-            return _to_tensor(assemble_region(entry, store, None, dtype),
-                             dtype, dev)
-
-        state = tree_map(one, template)
-    return state, manifest
+            index = None
+            if spec:
+                starts, sizes = local_region(entry.shape, spec, mesh.shape,
+                                             mesh.coords)
+                index = tuple(slice(a, a + n) for a, n in zip(starts, sizes))
+            out.append(_to_tensor(assemble_region(entry, store, index,
+                                                  dtype), dtype, dev))
+    return tree_unflatten(template, out), manifest
 
 
 _KEYSTR_SEG = re.compile(r"\['([^']*)'\]")

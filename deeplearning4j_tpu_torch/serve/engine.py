@@ -67,7 +67,7 @@ The engine runs on CUDA unless built with ``device="cpu"``, and raises when
 CUDA is absent. Metrics land in the port's registry under ``serve_*``.
 ``from_checkpoint`` builds an engine from an LM checkpoint of either
 package (scaleout/ckpt), ``from_live_params`` from a params tree already in
-memory. The runtime profiler (``runprof=``) and ``tuned=`` come with
+memory, whole or sharded over a mesh. The runtime profiler (``runprof=``) and ``tuned=`` come with
 slice 9: passing either raises.
 """
 
@@ -354,15 +354,24 @@ class DecodeEngine:
         return cls(params, int(n_heads), **kwargs)
 
     @classmethod
-    def from_live_params(cls, params, n_heads: int, *,
-                         device: DeviceLike = None, **kwargs):
+    def from_live_params(cls, params, n_heads: int, *, shardings=None,
+                         mesh=None, device: DeviceLike = None, **kwargs):
         """Cold start from a params tree already in memory, e.g. a live
         trainer's: every leaf is copied device to device onto the serving
         device (CUDA unless ``device="cpu"``), never through the host. The
         engine is token-identical to one built from the same params
-        directly. Redistribution from a tree sharded over several cards
-        comes with ROADMAP slices 7 and 8."""
+        directly. With ``shardings`` (a spec tree such as
+        ``lm_param_shardings``') and ``mesh``, ``params`` is this rank's
+        sharded tree: every rank of the mesh calls this, each sharded leaf
+        is all-gathered rank to rank (``scaleout.ckpt.redistribute_tree``'s
+        rebind off the mesh), and each rank gets the whole engine."""
         dev = resolve_device(device)
+        if shardings is not None:
+            from deeplearning4j_tpu_torch.scaleout.ckpt.redistribution \
+                import Placement, placements, redistribute_tree
+
+            params = redistribute_tree(
+                params, Placement(), placements(shardings, params, mesh))
         kwargs.setdefault("weight_version", "live-params")
         return cls(tree_map(lambda _, x: x.to(dev), params), int(n_heads),
                    device=dev, **kwargs)

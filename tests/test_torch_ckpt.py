@@ -236,13 +236,16 @@ def test_restore_is_strict_like_jax(jparams, tmp_path):
     with pytest.raises(KeyError, match="missing leaf"):
         ck.restore(dict(template, extra=torch.empty(1, device="meta")),
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="slices 7 and 8"):
-        ck.restore(template, shardings=object(), device="cpu")
-    for call in (lambda: ck.save(2, ptree, mesh=object()),
-                 lambda: save_process_shards(root, 2, ptree),
-                 lambda: merge_process_manifests(root, 2, 2)):
-        with pytest.raises(NotImplementedError, match="slice 8"):
-            call()
+    # a restore into specs needs the rank's place on their mesh, a save
+    # with specs the mesh they name; a merge waits for every part
+    with pytest.raises(ValueError, match="needs mesh="):
+        ck.restore(template, shardings={"embed": (None, "model")},
+                   device="cpu")
+    with pytest.raises(ValueError, match="needs the mesh"):
+        ck.save(2, ptree, specs={"embed": ()})
+    save_process_shards(root, 2, ptree)
+    with pytest.raises(TimeoutError, match="1/2 part manifests"):
+        merge_process_manifests(root, 2, 2, timeout_s=0.2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ck.restore(template)

@@ -366,9 +366,12 @@ def test_selected_moe_impl_and_mesh_rules_match_jax():
                     JT.selected_moe_impl(jm, n, impl)
     fake = types.SimpleNamespace(axis_names=("data",), shape={"data": 4})
     assert TT.selected_moe_impl(fake, 64) is None
-    # a "model" axis is tensor parallelism: ROADMAP item 20b
-    with pytest.raises(NotImplementedError, match="item 20b"):
-        TT.make_composed_train_step(Mesh(("data", "model"), (1, 1)), H,
+    # a "model" axis replicates the LM over its ranks, as JAX's
+    # lm_param_shardings does; "pipe" runs through make_pp_loss
+    TT.make_composed_train_step(Mesh(("data", "model"), (1, 1)), H,
+                                device="cpu")
+    with pytest.raises(NotImplementedError, match="make_pp_stages"):
+        TT.make_composed_train_step(Mesh(("data", "pipe"), (1, 1)), H,
                                     device="cpu")
     params = lm_params_from_numpy(
         _np(JT.init_lm_params(jax.random.PRNGKey(1), V, D, H, 3, FF, 1)),

@@ -19,7 +19,6 @@ import pytest
 
 # names of unported slices, by subpackage (ROADMAP Queue 1)
 UNPORTED = {
-    "optimize": {"DivergenceWatchdog"},                       # item 20
     "utils": {"DiskBasedQueue", "Viterbi", "clamp", "entropy",
               "information_gain", "normalize_to_range", "rounded",
               "sigmoid", "sum_of_squares", "uniform"},         # item 21d

@@ -355,10 +355,13 @@ def test_param_shardings_equal_jax(dp, tp):
     stacked = sharding.stack_along_leading_axis(
         [{"a": torch.ones(2)}, {"a": torch.zeros(2)}])
     assert stacked["a"].shape == (2, 2)
-    for call in (lambda: sharding.shard_leading_axis(stacked, fake, "model"),
-                 lambda: sharding.apply_shardings((), got, fake)):
-        with pytest.raises(NotImplementedError, match="item 20b"):
-            call()
+    # placing over "model" (tensor parallelism) takes the rank's chunk
+    fake.coords = {"data": 0, "model": tp - 1}
+    if tp <= 2:
+        assert torch.equal(
+            sharding.shard_leading_axis(stacked, fake, "model")["a"],
+            stacked["a"][tp - 1:])
+    assert sharding.apply_shardings((), got, fake) == ()
 
 
 def test_profile_seams_raise_naming_slice_9():
