@@ -312,7 +312,28 @@ Phases, each fatal on failure:
    exactly n_layers x microbatches a step), and pipeline_from_conf on a 1024→1024 tanh
    dense layer, 4 microbatches of 512 rows (K1 once a microbatch, the
    output the layer's dense.forward);
-15. output: the card's name and power limit from nvidia-smi, one JSON line
+15. items 20b and 20c (tensor parallelism, checkpoints over a mesh, the
+   guard's host half; ``slice20bc``);
+16. item 20d (elastic parameter averaging; ``slice20d``), at the width of
+   JAX's largest elastic stage (d_in 64, d_hidden 256, batch 512, lr
+   0.05, sync_every 48): (a) from one init and one batch stream,
+   run_steps' 48 steps on the card against the CPU in three variants
+   (SGD, guard=True, Adam): params within 1e-5 of each leaf's max, losses
+   1e-5 relative; a nan_at_step batch skipped on the card with params
+   (and Adam's moments) bitwise unchanged; local steps/s on the card; (b)
+   an ElasticMaster in this process and two worker processes
+   (``--device cuda``) sharing the card, the victim crashing mid-round 0:
+   3 rounds on the survivor equal simulate_elastic on the card within
+   1e-6, workers_failed 1, exits 0 and 23; seconds a round, the
+   survivor's local steps/s, kill to burial; (c) a second cluster of
+   three workers, one poisoned by nan_at_step: quarantined
+   (workers_quarantined 1), the master's watchtower fires
+   worker_divergence, visible through ClusterAggregator.collect_alerts()
+   over TCP, the survivors finish (the final params equal
+   simulate_elastic without the poisoned rounds within 1e-6), an
+   AsyncCheckpointer saves every version, and a fresh master's resume()
+   restores the last bit for bit; quarantine to firing;
+17. output: the card's name and power limit from nvidia-smi, one JSON line
    listing each kernel (K3f at the serving shape; K3f, K3k, K3q at the
    training shape in f32 and bf16 with their launches over the timed f32
    training run; K1 at both MLP layer shapes in f32 and bf16 with its
@@ -4121,12 +4142,16 @@ def _free_port() -> int:
 
 
 def _max_leaf_rel(got, want) -> float:
-    """max over leaves of max |got - want| / max |want|; inf where a leaf
-    of either tree is not finite (a NaN would pass every ``>`` test)."""
+    """max over leaves (tensors or host arrays) of max |got - want| /
+    max |want|; inf where a leaf of either tree is not finite (a NaN would
+    pass every ``>`` test)."""
+    import torch
+
     from deeplearning4j_tpu_torch._device import tree_leaves
 
     errs = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-            for a, b in zip(tree_leaves(got), tree_leaves(want))]
+            for a, b in zip(map(torch.as_tensor, tree_leaves(got)),
+                            map(torch.as_tensor, tree_leaves(want)))]
     return max(errs) if all(math.isfinite(e) for e in errs) else math.inf
 
 
@@ -6501,6 +6526,409 @@ def slice20bc(smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------- phase 16: item 20d ----
+
+# JAX's largest elastic stage (bench.py's elastic trace A/B)
+ELASTIC_WIDTH = dict(d_in=64, d_hidden=256, batch=512, lr=0.05)
+ELASTIC_SYNC = 48
+ELASTIC_ROUNDS = 3
+ELASTIC_TOL = 1e-5       # card against CPU: of each leaf's max; loss rel.
+ELASTIC_SIM_TOL = 1e-6   # a cluster's params against simulate_elastic
+ELASTIC_DEAD_S = 2.0     # heartbeat staleness that buries a worker
+ELASTIC_WAIT_S = 180.0   # the longest wait on a worker process
+ELASTIC_NAN_STEP = ELASTIC_SYNC + 5   # (c)'s poisoned batch, in round 1
+ELASTIC_MODEL = "deeplearning4j_tpu_torch.scaleout.elastic:" \
+    "synthetic_regression_model"
+
+
+def _elastic_model(device, **kw):
+    from deeplearning4j_tpu_torch.scaleout.elastic import (
+        SyntheticRegressionModel,
+    )
+
+    return SyntheticRegressionModel(**{**ELASTIC_WIDTH, **kw}, device=device)
+
+
+def _host_abs(got: dict, want: dict) -> float:
+    """max over leaves of max |got - want| on host arrays; inf where a
+    leaf is not finite."""
+    errs = [float(np.max(np.abs(np.asarray(got[k]) - np.asarray(want[k]))))
+            for k in sorted(want)]
+    return max(errs) if all(math.isfinite(e) for e in errs) else math.inf
+
+
+def elastic_card_parity() -> dict:
+    """(a) run_steps on the card against the CPU from one init and one
+    batch stream (the draws are CPU generators, so both models draw the
+    same), 48 steps in each variant; then the guarded skip on the card;
+    then local steps/s."""
+    import torch
+
+    from deeplearning4j_tpu_torch._device import tree_leaves
+
+    init = {k: v.cpu() for k, v in _elastic_model("cpu").init_params()
+            .items()}
+    out = {}
+    for name, kw in (("sgd", {}), ("guard", {"guard": True}),
+                     ("adam", {"optimizer": "adam"})):
+        card, cpu = _elastic_model(DEVICE, **kw), _elastic_model("cpu", **kw)
+        pc, lc = card.run_steps({k: v.to(DEVICE) for k, v in init.items()},
+                                0, ELASTIC_SYNC, worker_seed=1)
+        ph, lh = cpu.run_steps(init, 0, ELASTIC_SYNC, worker_seed=1)
+        rel, lrel = _max_leaf_rel(pc, ph), abs(lc - lh) / abs(lh)
+        if not (rel <= ELASTIC_TOL and lrel <= ELASTIC_TOL):
+            raise AssertionError(f"elastic {name}: card against CPU params "
+                                 f"{rel:.3g}, loss {lrel:.3g}")
+        out[name] = {"params_rel": rel, "loss_rel": lrel, "loss": lc}
+    for name, kw in (("guard", {"guard": True}),
+                     ("adam_guard", {"guard": True, "optimizer": "adam"})):
+        m = _elastic_model(DEVICE, nan_at_step=2, **kw)
+        p0, _ = m.run_steps(init, 0, 2, worker_seed=1)
+        state = [x.clone() for x in tree_leaves(m._opt_state or {})]
+        p1, _ = m.run_steps(p0, 2, 1, worker_seed=1)   # the NaN batch
+        # params, both moments and the step count, bitwise
+        same = all(np.array_equal(p0[k], p1[k]) for k in p0) and all(
+            torch.equal(a, b) for a, b in
+            zip(state, tree_leaves(m._opt_state or {}), strict=True))
+        if m.skipped_steps != 1 or not same:
+            raise AssertionError(f"elastic {name}: NaN batch not skipped "
+                                 f"bitwise ({m.skipped_steps} skips)")
+    m = _elastic_model(DEVICE)
+    p, _ = m.run_steps(init, 0, ELASTIC_SYNC, worker_seed=1)   # warm-up
+    walls = []
+    for r in range(3):
+        sync()
+        t0 = time.perf_counter()
+        p, _ = m.run_steps(p, (r + 1) * ELASTIC_SYNC, ELASTIC_SYNC,
+                           worker_seed=1)
+        walls.append(time.perf_counter() - t0)
+    out["steps_per_s"] = ELASTIC_SYNC / statistics.median(walls)
+    log(f"[elastic] card against CPU: {json.dumps(out)}")
+    return out
+
+
+def _spawn_elastic(address, blob, wid, seed, extra=(), kwargs=None,
+                   entry=("-m", "deeplearning4j_tpu_torch.scaleout.elastic")):
+    proc = subprocess.Popen(
+        [sys.executable, *entry, "--connect", address, "--blob", blob, "--model", ELASTIC_MODEL,
+         "--kwargs-json", json.dumps({**ELASTIC_WIDTH, **(kwargs or {})}),
+         "--device", DEVICE, "--worker-id", wid, "--worker-seed", str(seed),
+         "--sync-every", str(ELASTIC_SYNC), "--round-timeout-s",
+         str(ELASTIC_WAIT_S), *extra],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=REPO)
+    proc.lines = []
+    proc.drain = threading.Thread(target=_drain, daemon=True,
+                                  args=(proc, proc.lines))
+    proc.drain.start()
+    return proc
+
+
+def _reap(procs: dict) -> dict:
+    """Every worker's exit code, waiting at most ELASTIC_WAIT_S; a worker
+    still running is killed and fails the phase."""
+    codes, hung = {}, []
+    deadline = time.monotonic() + ELASTIC_WAIT_S
+    for wid, proc in procs.items():
+        try:
+            codes[wid] = proc.wait(timeout=max(1.0, deadline
+                                               - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            codes[wid] = proc.wait(timeout=30)
+            hung.append(wid)
+    if hung:
+        raise AssertionError(f"elastic workers {hung} did not exit")
+    return codes
+
+
+def _worker_steps_per_s(trace_dir: str, process: str) -> float:
+    """Local steps/s inside a worker's ``worker.steps`` spans after its
+    first round (the protocol's waits and the process's warm-up
+    excluded), from its span file."""
+    n = ms = 0.0
+    with open(os.path.join(trace_dir, f"spans_{process}.jsonl")) as fh:
+        for line in fh:
+            rec = json.loads(line)
+            if (rec.get("ev") == "E" and rec["name"] == "worker.steps"
+                    and rec["attrs"]["round"] >= 1):
+                n += rec["attrs"]["n_steps"]
+                ms += rec["dur_ms"]
+    return n / (ms / 1000.0)
+
+
+def _baseline_steps_per_s(device: str) -> float:
+    """The survivor's local steps with no protocol around them: round 0's
+    window (warm-up), then the windows of rounds 1.. of worker seed 1,
+    each from host params as a worker adopts them, timed as its
+    ``worker.steps`` spans are."""
+    m = _elastic_model(device)
+    p, _ = m.run_steps(m.init_params(), 0, ELASTIC_SYNC, worker_seed=1)
+    wall = 0.0
+    for r in range(1, ELASTIC_ROUNDS):
+        t0 = time.perf_counter()
+        p, _ = m.run_steps(p, r * ELASTIC_SYNC, ELASTIC_SYNC, worker_seed=1)
+        wall += time.perf_counter() - t0
+    return (ELASTIC_ROUNDS - 1) * ELASTIC_SYNC / wall
+
+
+def elastic_survivor(argv: list) -> None:
+    """The survivor's process: the worker CLI on ``argv``, then, alone on
+    the card once the cluster has finished, ``_baseline_steps_per_s`` in
+    the same process, so the two rates differ by the protocol and not by
+    the process that ran them. Prints ``ELASTIC_BASELINE {json}``."""
+    from deeplearning4j_tpu_torch.scaleout.elastic import worker_main
+
+    worker_main(argv)
+    device = argv[argv.index("--device") + 1]
+    print("ELASTIC_BASELINE " + json.dumps(
+        {"steps_per_s": _baseline_steps_per_s(device)}), flush=True)
+
+
+def elastic_cluster(work: str) -> dict:
+    """(b) a master in this process, a survivor and a victim process on
+    the card; the victim crashes after one step of round 0. The
+    survivor's local steps/s and the cluster's are set against the
+    baseline that ``elastic_survivor`` times in the survivor's own
+    process after the cluster."""
+    from deeplearning4j_tpu_torch.scaleout.elastic import (
+        ElasticMaster,
+        simulate_elastic,
+    )
+    from deeplearning4j_tpu_torch.telemetry.registry import MetricsRegistry
+
+    blob = "file://" + os.path.join(work, "blob_b")
+    trace_dir = os.path.join(work, "trace_b")
+    master = ElasticMaster(_elastic_model(DEVICE), blob,
+                           sync_every=ELASTIC_SYNC, min_workers=1,
+                           worker_timeout_s=ELASTIC_DEAD_S,
+                           register_timeout_s=ELASTIC_WAIT_S,
+                           round_timeout_s=ELASTIC_WAIT_S,
+                           registry=MetricsRegistry())
+    procs = {}
+    times = {}
+    stop = threading.Event()
+
+    def watch():
+        beats = None
+        while not stop.is_set():
+            count = master.tracker.count("hb.victim")
+            if count != beats:
+                beats, times["last_beat"] = count, time.monotonic()
+            if "exit" not in times and procs["victim"].poll() is not None:
+                times["exit"] = time.monotonic()
+            if "burial" not in times and \
+                    master.tracker.count("workers_failed") >= 1:
+                times["burial"] = time.monotonic()
+            stop.wait(0.005)
+
+    try:
+        t0 = time.perf_counter()
+        procs["survivor"] = _spawn_elastic(
+            master.address, blob, "survivor", 1,
+            extra=["--trace-dir", trace_dir],
+            entry=("-c", "import sys, chip_smoke as cs; "
+                   "cs.elastic_survivor(sys.argv[1:])"))
+        procs["victim"] = _spawn_elastic(
+            master.address, blob, "victim", 2,
+            extra=["--crash-at-round", "0", "--crash-after-steps", "1"])
+        threading.Thread(target=watch, daemon=True).start()
+        master.wait_for_workers(2)
+        start_s = time.perf_counter() - t0
+        round_s = []
+        for r in range(ELASTIC_ROUNDS):
+            t1 = time.perf_counter()
+            final = master.train(rounds=1, finish=r == ELASTIC_ROUNDS - 1)
+            round_s.append(time.perf_counter() - t1)
+        codes = _reap(procs)
+    finally:
+        stop.set()
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+        master.shutdown()
+    failed = master.tracker.count("workers_failed")
+    if codes != {"survivor": 0, "victim": 23} or failed != 1:
+        raise AssertionError(
+            f"elastic cluster: exits {codes}, workers_failed {failed}:\n"
+            + "".join(procs["survivor"].lines[-20:]
+                      + procs["victim"].lines[-20:]))
+    ref, _ = simulate_elastic(_elastic_model(DEVICE), [1],
+                              sync_every=ELASTIC_SYNC, rounds=ELASTIC_ROUNDS)
+    err = _host_abs(final, ref)
+    if not err <= ELASTIC_SIM_TOL:
+        raise AssertionError(f"elastic cluster: survivor params {err:.3g} "
+                             "from simulate_elastic")
+    procs["survivor"].drain.join(timeout=30)
+    line = [x for x in procs["survivor"].lines
+            if x.startswith("ELASTIC_BASELINE ")]
+    if not line:
+        raise AssertionError("elastic cluster: the survivor printed no "
+                             "baseline:\n"
+                             + "".join(procs["survivor"].lines[-20:]))
+    baseline = json.loads(line[0].split(" ", 1)[1])["steps_per_s"]
+    survivor = _worker_steps_per_s(trace_dir, "survivor")
+    cluster = ELASTIC_SYNC / statistics.mean(round_s[1:])
+    out = {"start_s": start_s, "round_s": round_s,
+           "s_a_round": statistics.mean(round_s[1:]),
+           "exit_seen_to_burial_s": times["burial"] - times["exit"],
+           "last_beat_to_burial_s": times["burial"] - times["last_beat"],
+           "baseline_steps_per_s": baseline,
+           "survivor_steps_per_s": survivor,
+           "cluster_steps_per_s": cluster,
+           "survivor_over_baseline": survivor / baseline,
+           "cluster_over_baseline": cluster / baseline,
+           "params_abs_err": err, "exits": codes}
+    log(f"[elastic] cluster: {json.dumps(out)}")
+    return out
+
+
+def elastic_watch_ckpt(work: str) -> dict:
+    """(c) three workers, the third poisoned by nan_at_step in round 1;
+    the master watches and checkpoints every version; then a fresh
+    master resumes."""
+    from deeplearning4j_tpu_torch.scaleout.ckpt import (
+        AsyncCheckpointer,
+        Checkpointer,
+    )
+    from deeplearning4j_tpu_torch.scaleout.elastic import (
+        ElasticMaster,
+        simulate_elastic,
+    )
+    from deeplearning4j_tpu_torch.scaleout.remote_tracker import (
+        StateTrackerClient,
+    )
+    from deeplearning4j_tpu_torch.telemetry.federation import (
+        ClusterAggregator,
+    )
+    from deeplearning4j_tpu_torch.telemetry.registry import MetricsRegistry
+
+    poison = {"nan_at_step": ELASTIC_NAN_STEP, "nan_worker_seed": 3}
+    blob = "file://" + os.path.join(work, "blob_c")
+    root = os.path.join(work, "ckpt_c")
+    reg = MetricsRegistry()
+    ck = AsyncCheckpointer(Checkpointer(root, keep_last=ELASTIC_ROUNDS,
+                                        registry=reg))
+    master = ElasticMaster(_elastic_model(DEVICE), blob,
+                           sync_every=ELASTIC_SYNC, min_workers=1,
+                           worker_timeout_s=30.0,
+                           register_timeout_s=ELASTIC_WAIT_S,
+                           round_timeout_s=ELASTIC_WAIT_S, registry=reg,
+                           checkpointer=ck, checkpoint_every=1, watch=True,
+                           watch_dir=os.path.join(work, "watch_c"))
+    procs = {}
+    times = {}
+    stop = threading.Event()
+    engine = master.watchtower.engine
+
+    def watch():
+        while not stop.is_set():
+            if "quarantine" not in times and reg.counter(
+                    "elastic_workers_quarantined_total").value >= 1:
+                times["quarantine"] = time.monotonic()
+            if "quarantine" in times and any(
+                    s["rule"] == "worker_divergence"
+                    and s["state"] == "firing" for s in engine.states()):
+                times["firing"] = time.monotonic()
+                return
+            stop.wait(0.005)
+
+    view = None
+    try:
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        for wid, seed in (("w1", 1), ("w2", 2), ("poisoned", 3)):
+            procs[wid] = _spawn_elastic(master.address, blob, wid, seed,
+                                        kwargs=poison)
+        master.wait_for_workers(3)
+        final = master.train(rounds=ELASTIC_ROUNDS, finish=False)
+        watcher.join(timeout=30)
+        client = StateTrackerClient(master.address)
+        try:
+            view = ClusterAggregator(client, stale_after_s=3600.0,
+                                     registry=MetricsRegistry()
+                                     ).collect_alerts()
+        finally:
+            client.close()
+        master.tracker.finish()
+        codes = _reap(procs)
+    finally:
+        stop.set()
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+        master.shutdown()   # ticks the watchtower, flushes the saves
+    quarantined = master.tracker.count("workers_quarantined")
+    by = {(a["process"], a["rule"]): a["state"] for a in view["alerts"]}
+    if (quarantined != 1 or "firing" not in times
+            or by.get(("master", "worker_divergence")) != "firing"
+            or codes != {"w1": 0, "w2": 0, "poisoned": 0}):
+        raise AssertionError(
+            f"elastic watch: quarantined {quarantined}, times {times}, "
+            f"alerts {by}, exits {codes}:\n"
+            + "".join(procs["poisoned"].lines[-20:]))
+    ref, _ = simulate_elastic(_elastic_model(DEVICE, **poison), [1, 2, 3],
+                              sync_every=ELASTIC_SYNC, rounds=ELASTIC_ROUNDS,
+                              schedule={0: [0, 1, 2], 1: [0, 1], 2: [0, 1]})
+    err = _host_abs(final, ref)
+    saves = reg.counter("ckpt_async_saves_total").value
+    if not (err <= ELASTIC_SIM_TOL and saves == ELASTIC_ROUNDS
+            and reg.counter("ckpt_async_failures_total").value == 0):
+        raise AssertionError(f"elastic watch: params {err:.3g} from "
+                             f"simulate_elastic, {saves} async saves")
+    fresh = ElasticMaster(_elastic_model(DEVICE),
+                          "file://" + os.path.join(work, "blob_c2"),
+                          sync_every=ELASTIC_SYNC,
+                          checkpointer=Checkpointer(root),
+                          registry=MetricsRegistry())
+    try:
+        t0 = time.perf_counter()
+        resumed = fresh.resume()
+        resume_ms = (time.perf_counter() - t0) * 1000.0
+        exact = all(np.array_equal(fresh.params()[k], final[k])
+                    for k in final)
+    finally:
+        fresh.shutdown()
+    if resumed != ELASTIC_ROUNDS or not exact:
+        raise AssertionError(f"elastic resume: version {resumed}, "
+                             f"bit-exact {exact}")
+    out = {"quarantine_to_firing_s": times["firing"] - times["quarantine"],
+           "params_abs_err": err, "async_saves": saves,
+           "resume_ms": resume_ms, "exits": codes,
+           "cluster_firing": view["firing"]}
+    log(f"[elastic] watch and checkpoint: {json.dumps(out)}")
+    return out
+
+
+def slice20d(smi: str) -> dict:
+    """Phase 16: item 20d, elastic parameter averaging on the card."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="dl4j_torch_slice20d_")
+    try:
+        out = {"parity": elastic_card_parity()}
+        out["cluster"] = elastic_cluster(work)
+        out["watch"] = elastic_watch_ckpt(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    summary = {
+        "in_process_steps_per_s": out["parity"]["steps_per_s"],
+        **{k: out["cluster"][k] for k in (
+            "baseline_steps_per_s", "survivor_steps_per_s",
+            "cluster_steps_per_s", "survivor_over_baseline",
+            "cluster_over_baseline")},
+        "s_a_round": out["cluster"]["s_a_round"],
+        "exit_seen_to_burial_s": out["cluster"]["exit_seen_to_burial_s"],
+        "last_beat_to_burial_s": out["cluster"]["last_beat_to_burial_s"],
+        "quarantine_to_firing_s": out["watch"]["quarantine_to_firing_s"],
+        "wall_s": out["wall_s"]}
+    log(f"[slice20d] {json.dumps(summary)} on {smi}")
+    return out
+
+
 # ---------------------------------------------------------------- main ----
 
 def main() -> int:
@@ -6615,6 +7043,7 @@ def main() -> int:
         # the MNIST MLP's in-process step over its tp coordinates
         entry["tp_launches"] = {
             f"tp{TP_MLP_DEGREE}": s20bc["mlp"]["launches"]["fused_dense"]}
+    slice20d(smi)   # no kernel on its path: the JAX model is plain jnp
     log(f"[time] chip_smoke ran {time.perf_counter() - t_start:.1f} s")
 
     print(smi)

@@ -201,6 +201,17 @@ def _tree_to_bytes(tree, meta: Optional[Dict] = None) -> bytes:
     return buf.getvalue()
 
 
+def _read_tree_bytes(data: bytes) -> Tuple[List[str], List[np.ndarray],
+                                            Dict]:
+    """``(keystr paths, numpy leaves, meta)`` from ``_tree_to_bytes``
+    output (or the JAX package's)."""
+    with np.load(io.BytesIO(data)) as z:
+        paths = json.loads(bytes(z["__paths__"]).decode())
+        meta = json.loads(bytes(z["__meta__"]).decode())
+        leaves = [np.asarray(z[f"leaf_{i}"]) for i in range(len(paths))]
+    return paths, leaves, meta
+
+
 def dump_replay_bundle(replay_dir: str, step: int, payload,
                        meta: Optional[Dict] = None) -> str:
     """Persist the faulting step as ONE atomic npz: ``payload`` is a
@@ -228,11 +239,7 @@ def load_replay_bundle(path: str, template=None) -> Tuple[object, Dict]:
     from deeplearning4j_tpu_torch._device import tree_unflatten
 
     with open(path, "rb") as fh:
-        data = fh.read()
-    with np.load(io.BytesIO(data)) as z:
-        paths = json.loads(bytes(z["__paths__"]).decode())
-        meta = json.loads(bytes(z["__meta__"]).decode())
-        leaves = [np.asarray(z[f"leaf_{i}"]) for i in range(len(paths))]
+        paths, leaves, meta = _read_tree_bytes(fh.read())
     if template is not None:
         want = [p for p, _ in _leaves_with_keystr(template)]
         if want != paths:

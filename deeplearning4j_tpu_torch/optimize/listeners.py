@@ -20,9 +20,6 @@ log = logging.getLogger(__name__)
 # listener(model, iteration, score)
 IterationListener = Callable[[object, int, float], None]
 
-_STEP_LOG_SLICE = "ROADMAP slice 9 (telemetry/step_log.py)"
-
-
 def dispatch_listeners(listeners: Sequence[IterationListener], model,
                        iteration: int, score: float) -> None:
     """Call every listener, logging (not raising) per-listener failures."""
@@ -139,11 +136,11 @@ class TimingIterationListener:
 
 class MetricsIterationListener:
     """The listener chain into the port's metrics registry: each callback
-    sets gauge ``<prefix>_score``, bumps ``<prefix>_iterations_total`` and
+    sets gauge ``<prefix>_score``, bumps ``<prefix>_iterations_total``,
     observes the gap since the last callback into the
-    ``<prefix>_iteration_ms`` histogram. The JSONL step log
-    (``step_log_path=``) comes with ROADMAP slice 9 and raises until
-    then."""
+    ``<prefix>_iteration_ms`` histogram and, with ``step_log_path=``,
+    appends a JSONL step event (``telemetry/step_log.py``: ``step``,
+    ``wall_ms``, ``score``) that ``tools/telemetry_report.py`` reads."""
 
     def __init__(self, registry=None, step_log_path: Optional[str] = None,
                  prefix: str = "train"):
@@ -152,16 +149,19 @@ class MetricsIterationListener:
             default_registry,
         )
 
-        if step_log_path:
-            raise NotImplementedError(
-                f"MetricsIterationListener(step_log_path=) needs the JSONL "
-                f"step log, which comes with {_STEP_LOG_SLICE}")
         self.registry = (registry if registry is not None
                          else default_registry())
         if not isinstance(self.registry, MetricsRegistry):
             raise TypeError(f"registry must be a MetricsRegistry, got "
                             f"{type(self.registry).__name__}")
         self.prefix = prefix
+        self._writer = None
+        if step_log_path:
+            from deeplearning4j_tpu_torch.telemetry.step_log import (
+                StepLogWriter,
+            )
+
+            self._writer = StepLogWriter(step_log_path)
         self._last: Optional[float] = None
 
     def __call__(self, model, iteration: int, score: float) -> None:
@@ -173,3 +173,10 @@ class MetricsIterationListener:
         reg.gauge(f"{p}_score").set(float(score))
         if wall_ms is not None:
             reg.histogram(f"{p}_iteration_ms").observe(wall_ms)
+        if self._writer is not None:
+            self._writer.write(iteration, wall_ms=wall_ms,
+                               score=float(score))
+
+    def close(self) -> None:
+        if self._writer is not None:
+            self._writer.close()

@@ -29,9 +29,11 @@ sees when a replica process takes a kill -9.
 
 Each replica owns its engine, and so its KV cache and its sampling
 ``torch.Generator``; replicas in one process share nothing but the
-params they were built from. The alert watchtower (``--watch``) comes
-with ROADMAP item 21a; the replica's lock is a plain ``threading.Lock``
-(the lock-order watchdog comes with item 21d).
+params they were built from. ``--watch`` arms a watchtower
+(``telemetry/alerts.arm_watchtower``) over the engine's registry: every
+load publish ticks it, so SLO-burn verdicts ride the load row's
+``alerts_firing`` and the tracker's alert rows. The replica's lock is a
+plain ``threading.Lock`` (the lock-order watchdog comes with item 21d).
 """
 
 from __future__ import annotations
@@ -65,14 +67,15 @@ class FleetReplica:
     as ``DistributedWorker`` does) or an in-process tracker object (unit
     tests; both loops then share it). ``start()`` spawns the serve and
     heartbeat threads; ``stop()`` deregisters and joins them; ``die()``
-    is the in-process stand-in for kill -9. The load row's
-    ``alerts_firing`` stays 0: a watchtower (``watchtower=`` in the JAX
-    package) comes with the alert engine, ROADMAP item 21a."""
+    is the in-process stand-in for kill -9. With ``watchtower=`` (a
+    ``telemetry.alerts.Watchtower``) each load publish ticks it and the
+    load row's ``alerts_firing`` counts its firing rules."""
 
     def __init__(self, engine, tracker, replica_id: str, *,
                  heartbeat_s: Optional[float] = None,
                  poll_s: Optional[float] = None,
-                 publish_s: float = 0.25):
+                 publish_s: float = 0.25,
+                 watchtower=None):
         from deeplearning4j_tpu_torch.telemetry.federation import (
             MetricsPusher,
         )
@@ -97,6 +100,7 @@ class FleetReplica:
         else:
             self.tracker = tracker
             self._hb_tracker = tracker
+        self.watchtower = watchtower
         self._pusher = MetricsPusher(self.tracker, self.replica_id,
                                      registry=engine.registry,
                                      interval_s=self.publish_s)
@@ -110,6 +114,7 @@ class FleetReplica:
         self._serve_thread: Optional[threading.Thread] = None
         self._hb_thread: Optional[threading.Thread] = None
         self._last_publish = 0.0
+        self._alerts_firing = 0
 
     @classmethod
     def from_live_params(cls, params, n_heads: int, tracker,
@@ -222,7 +227,7 @@ class FleetReplica:
             "tokens_total": stats["tokens_total"],
             "requests_total": stats["requests_total"],
             "prefix_hit_rate": prefix_stats.get("hit_rate"),
-            "alerts_firing": 0,
+            "alerts_firing": self._alerts_firing,
         }
         try:
             self.tracker.put_kv(LOAD_PREFIX + self.replica_id,
@@ -243,6 +248,10 @@ class FleetReplica:
             now = time.monotonic()
             if now - self._last_publish >= self.publish_s:
                 self._last_publish = now
+                if self.watchtower is not None:
+                    self._alerts_firing = sum(
+                        1 for a in self.watchtower.tick()
+                        if a.get("state") == "firing")
                 self._publish_load()
             if not worked:
                 self._stop.wait(self.poll_s)
@@ -357,8 +366,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="the engine's device (default cuda)")
     p.add_argument("--watch", action="store_true",
-                   help="arm a watchtower (not ported yet: ROADMAP item "
-                        "21a)")
+                   help="arm a watchtower: SLO-burn verdicts ride the "
+                        "load row's alerts_firing and the tracker's alert "
+                        "rows")
     return p
 
 
@@ -373,10 +383,6 @@ def replica_main(argv=None) -> int:
     )
 
     args = build_parser().parse_args(argv)
-    if args.watch:
-        raise SystemExit(
-            "--watch (the alert engine and the watchtower) comes with "
-            "ROADMAP item 21a")
     if (args.synthetic is None) == (args.checkpoint is None):
         raise SystemExit("exactly one of --synthetic / --checkpoint")
     resolve_device(args.device)  # raises when CUDA is asked for and absent
@@ -390,9 +396,17 @@ def replica_main(argv=None) -> int:
             serve_dtype=_serve_dtype(args), prefix_cache=args.prefix_cache,
             device=args.device)
     rid = args.replica_id or f"replica-{os.getpid()}"
+    watchtower = None
+    if args.watch:
+        from deeplearning4j_tpu_torch.telemetry.alerts import arm_watchtower
+
+        watchtower = arm_watchtower(registry=engine.registry,
+                                    tracker_address=args.tracker,
+                                    process=rid, start=False)
     replica = FleetReplica(engine, args.tracker, rid,
                            heartbeat_s=args.heartbeat_s,
-                           poll_s=args.poll_s, publish_s=args.publish_s)
+                           poll_s=args.poll_s, publish_s=args.publish_s,
+                           watchtower=watchtower)
     replica.start()
     print(f"FLEET_REPLICA_READY {rid}", flush=True)
     try:
@@ -406,6 +420,8 @@ def replica_main(argv=None) -> int:
     except KeyboardInterrupt:
         pass
     replica.stop()
+    if watchtower is not None:
+        watchtower.stop()
     return 0
 
 

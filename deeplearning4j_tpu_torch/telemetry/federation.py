@@ -32,16 +32,15 @@ into one cluster view:
   "this is what it looked like when we last heard from it"), the flag
   says how much to trust it.
 - **alerts** (:meth:`ClusterAggregator.collect_alerts`): reads the alert
-  rows an alert engine publishes under ``federation.alerts.<process>``.
-  The engine itself (``telemetry/alerts.py``) comes with ROADMAP item
-  21a; this module keeps a copy of its schema and KV prefix.
+  rows each ``telemetry/alerts.AlertEngine`` publishes under
+  ``federation.alerts.<process>`` (the engine's schema and KV prefix).
 
 Both halves report their own health under ``federation_*`` in their
 local registries (pushes, push failures, collects, process/stale-process
-gauges). The UI's ``/api/cluster`` and ``/metrics?scope=cluster`` and the
-Prometheus rendering come with ROADMAP item 21c;
-:meth:`ClusterAggregator.prometheus_snapshot` already builds the
-snapshot they render. The pusher's lock is a plain ``threading.Lock``
+gauges). :meth:`ClusterAggregator.prometheus_snapshot` builds the
+cluster snapshot that ``telemetry/prometheus.render_snapshot`` renders;
+the UI's ``/api/cluster`` and ``/metrics?scope=cluster`` routes come with
+ROADMAP item 21c. The pusher's lock is a plain ``threading.Lock``
 (the lock-order watchdog comes with item 21d).
 """
 
@@ -54,14 +53,15 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from deeplearning4j_tpu_torch.telemetry.alerts import (
+    ALERT_KV_PREFIX,
+    SCHEMA as ALERT_SCHEMA,
+)
+
 log = logging.getLogger(__name__)
 
 SCHEMA = "dl4j-tpu-fedmetrics-v1"
 KV_PREFIX = "federation.metrics."
-# the alert rows' schema and KV prefix, as telemetry/alerts.py of the JAX
-# package publishes them
-ALERT_SCHEMA = "dl4j-tpu-alerts-v1"
-ALERT_KV_PREFIX = "federation.alerts."
 
 
 # ------------------------------------------------------------- push side ----
@@ -302,7 +302,7 @@ class ClusterAggregator:
 
     def prometheus_snapshot(self) -> Dict[str, Any]:
         """The cluster view as a registry-snapshot-shaped dict ready for
-        a Prometheus renderer (ROADMAP item 21c): the merged instruments
+        ``telemetry/prometheus.render_snapshot``: the merged instruments
         plus per-process ``federation_process_up`` (1 fresh / 0 stale)
         and ``federation_process_age_seconds`` gauges (how ``/metrics
         ?scope=cluster`` marks a lapsed pusher)."""

@@ -1,8 +1,12 @@
-"""Importable performer factories for the port's distributed-runner worker
-processes (``python -m deeplearning4j_tpu_torch.scaleout.distributed_runner
---performer _torch_dist_helpers:<factory>``), the counterparts of
-tests/_dist_helpers.py's. The worker CLI calls each factory with its JSON
-kwargs and ``device=``; these import torch and the port only."""
+"""Importable factories for the port's worker processes, the counterparts
+of tests/_dist_helpers.py's: performers for ``python -m
+deeplearning4j_tpu_torch.scaleout.distributed_runner --performer
+_torch_dist_helpers:<factory>`` and the elastic toy model for ``python -m
+deeplearning4j_tpu_torch.scaleout.elastic --model
+_torch_dist_helpers:elastic_toy_model``. Each worker CLI calls its factory
+with its JSON kwargs and ``device=``; these import torch and the port
+only (the framework-free ``FaultyTrackerProxy`` stays in
+tests/_dist_helpers.py, used from the test process)."""
 
 import os
 import time
@@ -58,3 +62,19 @@ class CrashAfterOnePerformer(AveragingPerformer):
 
 def crashing_performer(device=None) -> CrashAfterOnePerformer:
     return CrashAfterOnePerformer()
+
+
+# ------------------------------------------------------------- elastic ----
+
+def elastic_toy_model(**kwargs):
+    """Small deterministic ElasticModel for multi-process elastic tests,
+    with the JAX helper's tiny defaults; kwargs (``device=`` included)
+    override them."""
+    from deeplearning4j_tpu_torch.scaleout.elastic import (
+        SyntheticRegressionModel,
+    )
+
+    defaults = dict(d_in=4, d_hidden=8, batch=8, lr=0.05, seed=0,
+                    mesh_devices=2)
+    defaults.update(kwargs)
+    return SyntheticRegressionModel(**defaults)

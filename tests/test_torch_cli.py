@@ -493,13 +493,13 @@ def test_train_runtime_parallel_two_gloo_ranks_match_jax(conf_path, iris_csv,
 
 
 def test_fleet_subcommand_exits_naming_its_slice():
-    """``fleet`` forwards to serve.fleet.replica_main; its one unported
-    flag, ``--watch``, exits naming ROADMAP item 21a before any engine
-    is built."""
-    with pytest.raises(SystemExit, match="item 21a"):
+    """``fleet`` forwards to serve.fleet.replica_main, ``--watch``
+    included, which exits naming what is wrong (two model sources)
+    before any engine is built."""
+    with pytest.raises(SystemExit, match="exactly one"):
         driver.main(["fleet", "--replica", "--tracker", "127.0.0.1:1",
                      "--synthetic", "61,16,2,4,32,2", "--device", "cpu",
-                     "--watch"])
+                     "--watch", "--checkpoint", "x"])
 
 
 def test_gs_store_raises_naming_its_slice(monkeypatch):

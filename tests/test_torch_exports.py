@@ -22,20 +22,14 @@ UNPORTED = {
     "utils": {"DiskBasedQueue", "Viterbi", "clamp", "entropy",
               "information_gain", "normalize_to_range", "rounded",
               "sigmoid", "sum_of_squares", "uniform"},         # item 21d
-    "telemetry": {                                            # item 21a
-        "AlertEngine", "AlertRule", "DEFAULT_INTERVAL",
-        "MemoryWatermarkSampler", "MetricsHistory",
-        "PROMETHEUS_CONTENT_TYPE", "ProfileStore", "ProfiledStep",
-        "RunProfiledStep", "RunProfiler", "StepLogWriter", "StepProfile",
-        "StepTiming", "TrainTelemetry", "Watchtower", "arm_watchtower",
-        "attribute", "chrome_trace_events", "default_profile_store",
-        "default_rules", "default_runprof", "find_sessions", "get_engine",
-        "get_history", "get_runprof", "load_session", "maybe_runprof",
-        "profile_compiled", "profile_lowered",
-        "read_spill", "read_step_log", "render_prometheus",
-        "render_snapshot", "replay_spill", "resolve_runprof",
-        "sanitize_name", "set_engine", "set_history", "set_runprof",
-        "summarize_session", "summarize_step_log"},
+    "telemetry": {                                         # item 21a-ii
+        "DEFAULT_INTERVAL", "MemoryWatermarkSampler", "ProfileStore",
+        "ProfiledStep", "RunProfiledStep", "RunProfiler", "StepProfile",
+        "StepTiming", "TrainTelemetry", "attribute", "chrome_trace_events",
+        "default_profile_store", "default_runprof", "find_sessions",
+        "get_runprof", "load_session", "maybe_runprof", "profile_compiled",
+        "profile_lowered", "resolve_runprof", "set_runprof",
+        "summarize_session"},
 }
 
 # names only the port exports

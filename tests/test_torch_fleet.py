@@ -13,7 +13,9 @@ plus
   one mid-stream, every request finishes token-identical to the port's
   engine, the victim's heartbeat gauge reads -1.0, ``requeued_total`` is
   at least 1, and the replacement ``rC`` (started through the CLI driver)
-  joins. The JAX test's alert-engine assertions wait for item 21a.
+  joins; as in JAX's test, ``fleet_replica_down`` fires between the kill
+  and the burial and resolves after it, and the survivor ``rB`` runs
+  with ``--watch``: its watchtower's alert rows reach the tracker.
 
 Subprocess replicas write to a file (a pipe nobody drains can block a
 child), wait with timeouts and are killed in a ``finally``. Heartbeat
@@ -529,11 +531,15 @@ def test_from_live_params_builds_a_replica(params):
 # ------------------------------------------------------- the process ----
 
 def test_replica_main_refuses_watch_and_a_missing_card():
+    """``--watch`` parses (the watchtower is armed after the engine is
+    built, so the run reaches replica_main's own checks first); one
+    model source is required; ``--device`` defaults to cuda."""
     from deeplearning4j_tpu_torch.serve.fleet import replica_main
 
     base = ["--replica", "--tracker", "127.0.0.1:1", "--synthetic", SYNTH]
-    with pytest.raises(SystemExit, match="item 21a"):
-        replica_main(base + ["--device", "cpu", "--watch"])
+    with pytest.raises(SystemExit, match="exactly one"):
+        replica_main(base + ["--device", "cpu", "--watch", "--checkpoint",
+                             "x"])
     with pytest.raises(SystemExit, match="exactly one"):
         replica_main(base + ["--checkpoint", "x", "--device", "cpu"])
     if not torch.cuda.is_available():
@@ -561,15 +567,16 @@ def test_jax_cli_fleet_rejects_leading_options_the_port_forwards():
     from deeplearning4j_tpu_torch.cli import driver
 
     argv = ["fleet", "--replica", "--tracker", "127.0.0.1:1",
-            "--synthetic", SYNTH, "--device", "cpu", "--watch"]
+            "--synthetic", SYNTH, "--device", "cpu", "--watch",
+            "--checkpoint", "x"]
     with pytest.raises(SystemExit) as ei:
-        jdriver.main(argv[:-3])
+        jdriver.main(argv[:-5])
     assert ei.value.code == 2
-    with pytest.raises(SystemExit, match="item 21a"):
+    with pytest.raises(SystemExit, match="exactly one"):
         driver.main(argv)
 
 
-def _spawn_replica(address, rid, log_dir, cli=False):
+def _spawn_replica(address, rid, log_dir, cli=False, watch=False):
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     entry = (["deeplearning4j_tpu_torch.cli.driver", "fleet"] if cli
@@ -580,7 +587,8 @@ def _spawn_replica(address, rid, log_dir, cli=False):
          "--replica", "--tracker", address, "--replica-id", rid,
          "--synthetic", SYNTH, "--seed", "0", "--serve-dtype", "none",
          "--slots", "2", "--max-len", str(MAXLEN), "--device", "cpu",
-         "--heartbeat-s", "0.05", "--poll-s", "0.005", "--publish-s", "0.1"],
+         "--heartbeat-s", "0.05", "--poll-s", "0.005", "--publish-s", "0.1",
+         *(["--watch"] if watch else [])],
         stdout=out, stderr=subprocess.STDOUT, text=True, cwd=REPO, env=env)
     proc.log = out
     return proc
@@ -611,7 +619,21 @@ def test_chaos_kill9_mid_stream_completes_token_identical(tmp_path):
     mid-stream: every request completes token-identical to one engine on
     the same seeded synthetic params, the victim is buried (-1.0 gauge,
     failed_replicas), its requests requeued, and the replacement started
-    by ``cold_start`` through the CLI driver joins the membership."""
+    by ``cold_start`` through the CLI driver joins the membership. A
+    watch over the router's registry fires ``fleet_replica_down`` between
+    the kill and the burial and resolves once the sentinel retires the
+    series; ``rB``'s ``--watch`` publishes its alert rows."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.telemetry.alerts import (
+        AlertEngine,
+        default_rules,
+    )
+    from deeplearning4j_tpu_torch.telemetry.federation import (
+        ClusterAggregator,
+    )
+    from deeplearning4j_tpu_torch.telemetry.history import MetricsHistory
+
     prompts = _prompts(6, seed=11)
     max_new = 12
     sparams, h = synthetic_params(SYNTH, 0)
@@ -626,7 +648,8 @@ def test_chaos_kill9_mid_stream_completes_token_identical(tmp_path):
         client = StateTrackerClient(addr)
         try:
             for rid in ("rA", "rB"):
-                procs[rid] = _spawn_replica(addr, rid, str(tmp_path))
+                procs[rid] = _spawn_replica(addr, rid, str(tmp_path),
+                                            watch=rid == "rB")
             for rid, proc in procs.items():
                 _wait_ready(proc, rid)
 
@@ -639,6 +662,13 @@ def test_chaos_kill9_mid_stream_completes_token_identical(tmp_path):
             router = _router(client, registry=reg, stale_after_s=0.3,
                              dead_after_s=1.0, poll_s=0.01,
                              cold_start=cold_start)
+            rule = dataclasses.replace(
+                [r for r in default_rules()
+                 if r.name == "fleet_replica_down"][0], stale_s=0.4)
+            hist = MetricsHistory(registry=reg)
+            alerts = AlertEngine(hist, rules=[rule],
+                                 registry=MetricsRegistry())
+            down_fired = False
             _step_until(router,
                         lambda: router.fleet_snapshot()["alive"] >= 2,
                         timeout_s=60.0, msg="both replicas alive")
@@ -649,6 +679,10 @@ def test_chaos_kill9_mid_stream_completes_token_identical(tmp_path):
             while router.has_work():
                 assert time.monotonic() < deadline, "chaos did not drain"
                 router.step()
+                hist.sample_once()
+                if any(st["state"] == "firing"
+                       for st in alerts.evaluate_once()):
+                    down_fired = True
                 if not killed and any(
                         r.t_done is None and r.replica == "rA"
                         and len(r.generated) >= 1 for r in reqs):
@@ -666,6 +700,16 @@ def test_chaos_kill9_mid_stream_completes_token_identical(tmp_path):
                              {"replica": "rA"}).value == -1.0
             assert reg.counter("fleet_requeued_total").value == \
                 snap["requeued_total"]
+            assert down_fired, "fleet_replica_down never fired"
+            hist.sample_once()
+            final = {st["rule"]: st["state"]
+                     for st in alerts.evaluate_once()}
+            assert final["fleet_replica_down"] != "firing"
+            view = ClusterAggregator(client, stale_after_s=3600.0,
+                                     registry=MetricsRegistry()
+                                     ).collect_alerts()
+            assert "rB" in [p["process"] for p in view["processes"]]
+            assert any(a["process"] == "rB" for a in view["alerts"])
             assert spawned, "cold_start never ran"
             _step_until(
                 router,

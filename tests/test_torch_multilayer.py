@@ -351,18 +351,24 @@ def test_fit_without_labels_raises():
         net.fit(DataSet(np.zeros((4, 784), np.float32)))
 
 
-def test_unported_paths_raise_and_name_their_slice():
-    """What still raises names its slice: the step log of
-    MetricsIterationListener (slice 9). What raised naming slice 5 now
-    runs: fit of the SdA conf (pretrain, finetune, backprop), pretrain,
-    finetune and set_listeners."""
+def test_unported_paths_raise_and_name_their_slice(tmp_path):
+    """What raised naming its slice now runs: the step log of
+    MetricsIterationListener (slice 9: a JSONL record a callback), and,
+    from slice 5, fit of the SdA conf (pretrain, finetune, backprop),
+    pretrain, finetune and set_listeners."""
     from deeplearning4j_tpu_torch.optimize.listeners import (
         CollectScoresListener,
         MetricsIterationListener,
     )
 
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        MetricsIterationListener(step_log_path="steps.jsonl")
+    from deeplearning4j_tpu_torch.telemetry.step_log import read_step_log
+
+    steps = MetricsIterationListener(
+        step_log_path=str(tmp_path / "steps.jsonl"))
+    steps(None, 0, 1.0)
+    steps.close()
+    assert [(r["step"], r["score"]) for r in
+            read_step_log(str(tmp_path / "steps.jsonl"))] == [(0, 1.0)]
     x, y = synthetic_mnist(8, seed=1)
     ds = DataSet(x, np.eye(10, dtype=np.float32)[y])
     sda = jzoo.stacked_denoising_autoencoder(hidden=(16, 8),

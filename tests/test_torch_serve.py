@@ -269,7 +269,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'scaleout.distributed_runner', 'scaleout.provision', "
         "'telemetry.federation', 'serve.router', 'serve.fleet', "
         "'parallel.mesh', 'parallel.moe', 'parallel.ring_attention', "
-        "'parallel.pipeline'):\n"
+        "'parallel.pipeline', 'scaleout.elastic', 'telemetry.step_log', "
+        "'telemetry.prometheus', 'telemetry.history', 'telemetry.alerts'):\n"
         "    assert 'deeplearning4j_tpu_torch.' + m in names, m\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n")

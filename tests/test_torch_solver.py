@@ -15,6 +15,7 @@ search into ~7e-6 absolute after 10 iterations). Checkpoint round trips
 are exact (``torch.equal``, ``np.array_equal``).
 """
 
+import json
 import os
 
 import torch
@@ -372,7 +373,7 @@ def _metric_names(snapshot):
             for kind, rows in snapshot.items()}
 
 
-def test_metrics_listener_names_match_jax():
+def test_metrics_listener_names_match_jax(tmp_path):
     treg, jreg = MetricsRegistry(), JReg()
     tl = tlisteners.MetricsIterationListener(registry=treg, prefix="pre")
     jl = jlisteners.MetricsIterationListener(registry=jreg, prefix="pre")
@@ -383,9 +384,21 @@ def test_metrics_listener_names_match_jax():
     assert _metric_names(tsnap) == _metric_names(jsnap)
     assert [r["name"] for r in tsnap["histograms"]] == ["pre_iteration_ms"]
     assert tsnap["histograms"][0]["count"] == 2
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        tlisteners.MetricsIterationListener(registry=treg,
-                                            step_log_path="steps.jsonl")
+    # the step log both listeners write: the same records but ts and wall
+    logs = {}
+    for pkg, mod, reg in (("torch", tlisteners, MetricsRegistry()),
+                          ("jax", jlisteners, JReg())):
+        path = str(tmp_path / f"steps_{pkg}.jsonl")
+        lst = mod.MetricsIterationListener(registry=reg,
+                                           step_log_path=path)
+        for i, s in enumerate((3.0, 2.0, 1.5)):
+            lst(None, i, s)
+        lst.close()
+        logs[pkg] = [{k: v for k, v in json.loads(line).items()
+                      if k not in ("ts", "wall_ms")}
+                     for line in open(path)]
+    assert logs["torch"] == logs["jax"] == [
+        {"step": i, "score": s} for i, s in enumerate((3.0, 2.0, 1.5))]
     timing = tlisteners.TimingIterationListener(registry=treg)
 
     class Tracker:
