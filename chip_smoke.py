@@ -333,7 +333,28 @@ Phases, each fatal on failure:
    simulate_elastic without the poisoned rounds within 1e-6), an
    AsyncCheckpointer saves every version, and a fresh master's resume()
    restores the last bit for bit; quarantine to firing;
-17. output: the card's name and power limit from nvidia-smi, one JSON line
+17. item 21a-ii (the step profile, the runtime profiler, TrainTelemetry,
+   ``train --profile``; ``slice21a2``) at the flagship's full width,
+   training at B=4, T=2048, f32: (a) make_single_device_train_step(
+   profile=True)'s first call equal (torch.equal) to the unwrapped step's
+   from the same params, K3f, K3k, K3q n_layers each in it; at B=1,
+   T=256 (flash) the card's profile FLOPs equal the CPU's exactly; the
+   profile (FLOPs, bytes, peak bytes beside the allocator's peak) and
+   attribute() against the unwrapped step's median (CUDA events); (b) 24
+   steps under runprof=RunProfiler(update_every=8), a session of 8 steps
+   from step 8: runprof_measured_mfu in (0, 1], runprof_step_ms within
+   [0.8, 1.25] of the unwrapped median, the final session JSON (8
+   records, summary, Chrome events) read back by load_session; (c) phase
+   3's burst through DecodeEngine(runprof=): streams equal phase 3's, one
+   serve_decode timing a decode tick, K3f's launches equal phase 3's; (d)
+   ``train --profile DIR`` of the MNIST MLP through the CLI: the trace
+   holds csrc/fused_dense.cu's kernel, K1's launches and the saved params
+   equal the unprofiled run's; (e) TrainTelemetry(interval=8) over 16
+   metric steps: no record() off an edge synchronises (sync debug mode
+   "error"), the records equal the metrics read one by one; (f)
+   MemoryWatermarkSampler over (a): the allocator's peak at least the
+   params plus the grads;
+18. output: the card's name and power limit from nvidia-smi, one JSON line
    listing each kernel (K3f at the serving shape; K3f, K3k, K3q at the
    training shape in f32 and bf16 with their launches over the timed f32
    training run; K1 at both MLP layer shapes in f32 and bf16 with its
@@ -383,12 +404,17 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit); f32 is the
-# CUDA cores' rate, outside the tensor cores
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_BYTES = 3.35e12
+# the card's peaks and each kernel's cost at given shapes have one copy,
+# in the package: the step profile's defaults (H100 80GB HBM3, 700 W; f32
+# is the CUDA cores' rate, outside the tensor cores) and ops._kernels'
+# cost functions
+from deeplearning4j_tpu_torch.ops import _kernels as costs
+from deeplearning4j_tpu_torch.telemetry.xprofile import (
+    DEFAULT_HBM_BYTES_PER_SEC as PEAK_BYTES,
+    DEFAULT_PEAK_FLOPS as PEAK_BF16_FLOPS,
+    PEAK_F32_FLOPS,
+    PEAK_TF32_FLOPS,
+)
 # the peak of an f32 row whose work is products: the least time the card
 # has for f32-accurate products is min(FLOP on the CUDA cores, 3 FLOP of
 # TF32 through the 3xTF32 split), which K1 and K3f take
@@ -653,9 +679,8 @@ def flash_measure() -> dict:
                          reps=20)
     library_ms = device_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True), reps=20)
-    flops = 4.0 * b * h * t * t * dh / 2          # causal half of QK^T + PV
-    nbytes = 4 * b * h * t * dh * 2 + b * h * t * 4  # q,k,v read, o written
-    #                                                 (bf16), lse (f32)
+    flops, _, nbytes = costs.flash_attention_fwd_cost(b, h, t, dh, True,
+                                                      q.element_size())
     entry = _kernel_entry(
         "flash_attention_fwd", "deeplearning4j_tpu/ops/flash_attention.py:405",
         kernel_ms, plain_ms, flops, nbytes, PEAK_BF16_FLOPS, err, library_ms,
@@ -782,15 +807,16 @@ def train_shape_measure() -> list:
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
 
     b, h, t, dh = TRAIN_B, N_HEADS, TRAIN_T, D_MODEL // N_HEADS
-    pairs = b * h * t * t / 2 * dh * 2        # FLOPs of one causal product
     entries = []
     for dtype, peak in ((torch.float32, F32_PRODUCTS),
                         (torch.bfloat16, PEAK_BF16_FLOPS)):
         q, k, v = _qkv((b, h, t, dh), dtype, seed=21)
         do = _qkv((b, h, t, dh), dtype, seed=22)[0]
-        elt = q.element_size()
-        tile = b * h * t * dh * elt           # bytes of one (B,H,T,Dh) tensor
-        row = b * h * t * 4                   # bytes of lse or delta
+        fwd_c, dkv_c, dq_c = (
+            cost(b, h, t, dh, True, q.element_size()) for cost in (
+                costs.flash_attention_fwd_cost,
+                costs.flash_attention_bwd_dkv_cost,
+                costs.flash_attention_bwd_dq_cost))
         o, lse = fa.flash_attention_fwd(q, k, v, True)
         delta = fa.attention_delta(o, do)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta, True)
@@ -832,21 +858,21 @@ def train_shape_measure() -> list:
         group = [
             _kernel_entry("flash_attention_fwd",
                           "deeplearning4j_tpu/ops/flash_attention.py:405",
-                          fwd_ms, fwd_plain, 2 * pairs, 4 * tile + row, peak,
+                          fwd_ms, fwd_plain, fwd_c.flops, fwd_c.bytes, peak,
                           err_fwd, sdpa_fwd_dev, shape,
                           ms_with_launch=fwd_host),
             _kernel_entry("flash_attention_bwd_dkv",
                           "jax/experimental/pallas/ops/tpu/"
                           "flash_attention.py:1121 (_flash_attention_bwd_dkv,"
                           " via deeplearning4j_tpu/ops/flash_attention.py:405)",
-                          dkv_ms, dkv_plain, 4 * pairs, 6 * tile + 2 * row,
+                          dkv_ms, dkv_plain, dkv_c.flops, dkv_c.bytes,
                           peak, err_dkv, sdpa_bwd, shape,
                           library_covers=pair_note, ms_with_launch=dkv_host),
             _kernel_entry("flash_attention_bwd_dq",
                           "jax/experimental/pallas/ops/tpu/"
                           "flash_attention.py:1456 (_flash_attention_bwd_dq,"
                           " via deeplearning4j_tpu/ops/flash_attention.py:405)",
-                          dq_ms, dq_plain, 3 * pairs, 5 * tile + 2 * row,
+                          dq_ms, dq_plain, dq_c.flops, dq_c.bytes,
                           peak, err_dq, sdpa_bwd, shape,
                           library_covers=pair_note, ms_with_launch=dq_host)]
         for e in group:
@@ -913,11 +939,15 @@ def device_busy(prof, wall_s: float) -> dict:
                                for k, us in list(by_name.items())[:6]}}
 
 
-def serve(params, attn_impl, prompt_lens, seed, profiled=False) -> dict:
+def serve(params, attn_impl, prompt_lens, seed, profiled=False,
+          runprof=None) -> dict:
     """One engine, every request submitted before run_until_idle(); the
     kernel's launches are counted from 0 over exactly that run. With
     ``profiled`` the run goes under torch.profiler (its times then carry
-    the profiler's cost) and the device busy share is reported."""
+    the profiler's cost) and the device busy share is reported;
+    ``runprof`` arms the engine's runtime profiler. The result carries
+    the generated streams and the engine's decode ticks, warm-up
+    included."""
     import contextlib
 
     from torch.profiler import ProfilerActivity, profile
@@ -929,7 +959,8 @@ def serve(params, attn_impl, prompt_lens, seed, profiled=False) -> dict:
     registry = MetricsRegistry()
     engine = DecodeEngine(params, N_HEADS, n_slots=N_SLOTS, max_len=MAX_LEN,
                           serve_dtype="bf16", attn_impl=attn_impl,
-                          registry=registry, seed=seed, device=DEVICE)
+                          registry=registry, seed=seed, runprof=runprof,
+                          device=DEVICE)
     rng = np.random.RandomState(seed)
     # warm-up over the same buckets: the timed run then shows the steady
     # state, not each shape's first-use cost in the libraries below torch
@@ -981,6 +1012,8 @@ def serve(params, attn_impl, prompt_lens, seed, profiled=False) -> dict:
     if profiled:
         out.update(device_busy(prof, wall))
     log(f"[serve] {json.dumps(out)}")
+    out["streams"] = [list(r.generated) for r in reqs]
+    out["engine_decode_steps"] = engine.decode_steps
     return out
 
 
@@ -1826,10 +1859,10 @@ def dense_measure(layers=MLP_DENSE_LAYERS) -> list:
                                                                "relu"))
             lib = device_ms(lambda: torch.relu(torch.addmm(b, x, w)))
             host_ms = time_ms(lambda: pk.fused_dense_fwd(x, w, b, "relu"))
-            elt = x.element_size()
+            cost = costs.fused_dense_cost(m, k, n, "relu", x.element_size())
             entry = _kernel_entry(
                 "fused_dense", "deeplearning4j_tpu/ops/pallas_kernels.py:79",
-                ms, plain, 2.0 * m * k * n, elt * (m * k + k * n + n + m * n),
+                ms, plain, cost.flops, cost.bytes,
                 peak, err, lib,
                 f"{label}: ({m},{k})@({k},{n}) relu {str(dtype)[6:]}",
                 library_covers="torch.relu(torch.addmm(b, x, w)): two calls",
@@ -1839,9 +1872,9 @@ def dense_measure(layers=MLP_DENSE_LAYERS) -> list:
                 f"the interval), plain {plain:.4f} ms, addmm+relu "
                 f"{lib:.4f} ms, "
                 f"bound {entry['bound_ms'] * 1e3:.3f} us ({entry['bound_by']}:"
-                f" {2.0 * m * k * n / 1e9:.3f} GFLOP, "
-                f"{elt * (m * k + k * n + n + m * n) / 1e6:.2f} MB); kernel "
-                f"at {2.0 * m * k * n / ms / 1e9:.2f} TFLOP/s; max abs err "
+                f" {cost.flops / 1e9:.3f} GFLOP, "
+                f"{cost.bytes / 1e6:.2f} MB); kernel "
+                f"at {cost.flops / ms / 1e9:.2f} TFLOP/s; max abs err "
                 f"{err:.3g}")
             entries.append(entry)
     return entries
@@ -2099,13 +2132,9 @@ LSTM_BENCH_SHAPES = ((LSTM_BATCH, LSTM_VOCAB), (256, 128))
 # within one bf16 step (2^-7 of the larger magnitude): both round one f32
 # value once, which may differ in its last f32 ulp
 CELL_F32_TOL, BF16_STEP = 1e-6, 2.0 ** -7
-# ~25 f32 operations an element (3 sigmoids, 2 tanh, 3 products, 1 sum; a
-# transcendental counted as 4): far below the bytes at any shape
-CELL_OPS_PER_ELT = 25
-# K2b, the cell's backward: the same 5 transcendentals, the sigmoids' sums
-# and quotients and 22 products, sums and differences, ~48 an element; K2b
-# moves 13 (B, H) streams (12 without dc_new), so bytes bound it too
-CELL_BWD_OPS_PER_ELT = 48
+# K2's and K2b's operations an element (ops._kernels.CELL_OPS_PER_ELT and
+# CELL_BWD_OPS_PER_ELT) are far below the bytes at any shape: K2b moves 13
+# (B, H) streams (12 without dc_new), so bytes bound it too
 # one LSTM step through K2 and K2b against set_lstm_gates(False), f32: loss
 # absolute, grads as max abs error over the leaf's max (the two cells
 # compute the same f32 ops; 64 timesteps of recurrence may carry an ulp)
@@ -2147,14 +2176,6 @@ def _cell_grads(b, h, c_dtype, seed, last_step=False):
         return None, dh
     dc = torch.randn((b, h), generator=gen, device=DEVICE).to(c_dtype)
     return dc, dh.contiguous()
-
-
-def _cell_bwd_bytes(ifog, c, dc) -> int:
-    """Bytes K2b must move: ifog read and d_ifog written (4H each), c_prev,
-    c_new, dh and dc_new (when given) read and dc_prev written."""
-    b, h = c.shape
-    streams = 5 if dc is not None else 4
-    return b * h * (8 * ifog.element_size() + streams * c.element_size())
 
 
 def _cell_err(got, want) -> tuple:
@@ -2320,10 +2341,11 @@ def lstm_cell_measure(floor: dict) -> list:
                 lib_note = ("aten._thnn_fused_lstm_cell(input_gates, "
                             "hidden_gates=0, cx): gate order i,f,g,o, "
                             "inputs pre-permuted; reads one more (B, 4H)")
-            elt = c.element_size()
+            cost = costs.lstm_gates_cost(b, h, ifog.element_size(),
+                                         c.element_size())
             entry = _kernel_entry(
                 "lstm_gates", "deeplearning4j_tpu/ops/pallas_kernels.py:176",
-                ms, plain, float(CELL_OPS_PER_ELT * b * h), 7 * b * h * elt,
+                ms, plain, cost.flops, cost.bytes,
                 PEAK_F32_FLOPS, err, lib,
                 f"B={b} H={h} {str(dtype)[6:]}", library_covers=lib_note,
                 launches_cover="64 timesteps x the timed fit_epochs steps",
@@ -2334,7 +2356,7 @@ def lstm_cell_measure(floor: dict) -> list:
                 f" plain {plain:.4f} ms, library "
                 f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
                 f"{entry['bound_ms'] * 1e3:.3f} us ({entry['bound_by']}: "
-                f"{7 * b * h * elt / 1e6:.3f} MB); max abs err {err:.3g}")
+                f"{cost.bytes / 1e6:.3f} MB); max abs err {err:.3g}")
             if dtype == torch.float32:
                 entries.append(entry)
     return entries
@@ -2389,11 +2411,14 @@ def lstm_cell_bwd_measure(floor: dict) -> list:
                             "dc_new, c_prev, c_new, workspace, False): gate "
                             "order i,f,g,o, activated gates precomputed as "
                             "its workspace (K2b recomputes them from ifog)")
-            nbytes = _cell_bwd_bytes(ifog, c, dc)
+            cost = costs.lstm_gates_bwd_cost(b, h, ifog.element_size(),
+                                             c.element_size(), dc is not None,
+                                             dh is not None)
+            nbytes = cost.bytes
             entry = _kernel_entry(
                 "lstm_gates_bwd",
                 "deeplearning4j_tpu/ops/pallas_kernels.py:240",
-                ms, plain, float(CELL_BWD_OPS_PER_ELT * b * h), nbytes,
+                ms, plain, cost.flops, nbytes,
                 PEAK_F32_FLOPS, err, lib, f"B={b} H={h} {str(dtype)[6:]}",
                 replaces_note=("_lstm_gates_bwd, the lax backward of K2 that "
                                "XLA fuses: no pallas_call"),
@@ -6929,6 +6954,347 @@ def slice20d(smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 17 ----
+
+# item 21a-ii: the armed steps' timing bounds against the unwrapped step,
+# the runtime profiler's window and session, TrainTelemetry's window
+PROF_STEPS, PROF_WINDOW, PROF_SESSION_AT = 24, 8, 8
+PROF_SMALL_B, PROF_SMALL_T = 1, 256
+PROF_STEP_MS_BAND = (0.8, 1.25)
+TELE_INTERVAL, TELE_STEPS = 8, 16
+
+
+def _leaves_equal(a, b) -> bool:
+    import torch
+
+    from deeplearning4j_tpu_torch._device import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def _median_step_ms(step, params, tokens, targets, reps: int = 8) -> float:
+    """Median CUDA-event span of one call of ``step`` (chained: each call
+    takes the params the last returned)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params = step(params, tokens, targets)[0]
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def profile_step_phase(registry) -> dict:
+    """(a) the step profile at full width, (f) the watermark sampler over
+    it, and the profile FLOPs of the card against the CPU's at B=1,
+    T=256."""
+    import torch
+
+    from deeplearning4j_tpu_torch._device import tree_leaves, tree_map
+    from deeplearning4j_tpu_torch.models.transformer_lm import (
+        make_single_device_train_step,
+    )
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.telemetry.xprofile import (
+        MemoryWatermarkSampler,
+        attribute,
+    )
+
+    params, tokens, targets = _train_setup()
+    plain = make_single_device_train_step(N_HEADS, device=DEVICE)
+    profiled = make_single_device_train_step(N_HEADS, profile=True,
+                                             device=DEVICE)
+    want = plain(params, tokens, targets)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    with MemoryWatermarkSampler(registry=registry, interval_s=0.01) as mem:
+        got = profiled(params, tokens, targets)
+        sync()
+    launches = {n: _kernels.LAUNCHES[n] for n in TRAIN_KERNELS}
+    if not _leaves_equal(want, got):
+        raise AssertionError("profile=True changed the step's outputs")
+    if launches != dict.fromkeys(TRAIN_KERNELS, N_LAYERS):
+        raise AssertionError(f"the profiled step launched {launches}, "
+                             f"expected n_layers each")
+    prof = profiled.step_profile
+    allocator_peak = torch.cuda.max_memory_allocated()
+    param_bytes = sum(x.numel() * x.element_size()
+                      for x in tree_leaves(params))
+    peak_gauge = registry.gauge("profile_memory_peak_bytes",
+                                {"device": "cuda:0"}).value
+    if not peak_gauge >= 2 * param_bytes:
+        raise AssertionError(f"memory sampler peak {peak_gauge} below the "
+                             f"params plus grads {2 * param_bytes}")
+    median_ms = _median_step_ms(plain, params, tokens, targets)
+    attr = attribute(prof, median_ms / 1e3)
+    # the same step at B=1, T=256 (flash) on the card and on the CPU
+    small = tokens[:PROF_SMALL_B, :PROF_SMALL_T], \
+        targets[:PROF_SMALL_B, :PROF_SMALL_T]
+    flops = {}
+    for dev in ("cuda", "cpu"):
+        step = make_single_device_train_step(N_HEADS, attn_impl="flash",
+                                             profile=True, device=dev)
+        step(tree_map(lambda _, x: x.to(dev), params),
+             *(x.to(dev) for x in small))
+        flops[dev] = step.step_profile.flops
+    if flops["cuda"] != flops["cpu"]:
+        raise AssertionError(f"profile FLOPs at B={PROF_SMALL_B} "
+                             f"T={PROF_SMALL_T}: card {flops['cuda']} vs "
+                             f"CPU {flops['cpu']}")
+    out = {"flops": prof.flops, "transcendentals": prof.transcendentals,
+           "bytes_accessed": prof.bytes_accessed,
+           "peak_bytes": prof.peak_bytes, "temp_bytes": prof.temp_bytes,
+           "max_memory_allocated": allocator_peak,
+           "param_bytes": param_bytes, "sampler_peak_bytes": peak_gauge,
+           "sampler_watermarks": mem.watermarks(),
+           "kernels": prof.kernels, "launches": launches,
+           "median_step_ms": median_ms,
+           "attribute": {k: attr[k] for k in (
+               "measured_mfu", "hbm_utilization", "arithmetic_intensity",
+               "ridge_intensity", "bound")},
+           "small_flops": flops}
+    log(f"[profile] {json.dumps(out)}")
+    return out
+
+
+def runprof_phase(median_ms: float, work: str) -> dict:
+    """(b) PROF_STEPS armed steps with a PROF_WINDOW-step session."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer_lm import (
+        make_single_device_train_step,
+    )
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.telemetry.registry import (
+        MetricsRegistry,
+        flat_record,
+    )
+    from deeplearning4j_tpu_torch.telemetry.runprof import (
+        RunProfiler,
+        load_session,
+    )
+
+    params, tokens, targets = _train_setup()
+    registry = MetricsRegistry()
+    prof = RunProfiler(registry=registry, update_every=PROF_WINDOW,
+                       session_dir=work)
+    step = make_single_device_train_step(N_HEADS, runprof=prof,
+                                         device=DEVICE)
+    sync()
+    _kernels.reset_launches()
+    for i in range(PROF_STEPS):
+        if i == PROF_SESSION_AT:
+            prof.start_session(steps=PROF_WINDOW)
+        params, loss = step(params, tokens, targets)
+    sync()
+    launches = {n: _kernels.LAUNCHES[n] for n in TRAIN_KERNELS}
+    if launches != dict.fromkeys(TRAIN_KERNELS, N_LAYERS * PROF_STEPS):
+        raise AssertionError(f"runprof steps launched {launches}")
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError("runprof steps: loss not finite")
+    flat = flat_record(registry, prefixes=("runprof_",))
+    mfu, step_ms = flat.get("runprof_measured_mfu"), flat["runprof_step_ms"]
+    if mfu is None or not 0.0 < mfu <= 1.0:
+        raise AssertionError(f"runprof_measured_mfu {mfu} outside (0, 1]")
+    lo, hi = PROF_STEP_MS_BAND
+    if not lo * median_ms <= step_ms <= hi * median_ms:
+        raise AssertionError(f"runprof_step_ms {step_ms} outside "
+                             f"[{lo}, {hi}] x the unwrapped median "
+                             f"{median_ms} ms")
+    (path,) = prof.sessions_completed
+    sess = load_session(path)
+    if not (len(sess["steps"]) == PROF_WINDOW and not sess["partial"]
+            and sess["summary"]["steps"] == PROF_WINDOW
+            and len(sess["chrome_trace"]) >= PROF_WINDOW):
+        raise AssertionError(f"runprof session {path}: "
+                             f"{len(sess['steps'])} records, summary "
+                             f"{sess['summary']}")
+    timings = prof.timings("lm_single_device")
+    armed_median = statistics.median(t.wall_ms for t in timings[1:])
+    out = {"gauges": flat, "unwrapped_median_ms": median_ms,
+           "armed_median_wall_ms": armed_median,
+           "armed_median_device_ms": statistics.median(
+               t.device_ms for t in timings[1:]),
+           "armed_median_dispatch_ms": statistics.median(
+               t.dispatch_ms for t in timings[1:]),
+           "session_summary": sess["summary"], "launches": launches}
+    log(f"[runprof] {json.dumps(out)}")
+    return out
+
+
+def runprof_engine_phase(phase3: dict) -> dict:
+    """(c) phase 3's burst through DecodeEngine(runprof=)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer_lm import init_lm_params
+    from deeplearning4j_tpu_torch.telemetry.registry import MetricsRegistry
+    from deeplearning4j_tpu_torch.telemetry.runprof import RunProfiler
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = init_lm_params(gen, VOCAB, D_MODEL, N_HEADS, N_EXPERTS, D_FF,
+                            n_layers=N_LAYERS, device=DEVICE)
+    prof = RunProfiler(registry=MetricsRegistry(), update_every=PROF_WINDOW)
+    run = serve(params, None, PROMPT_LENS, seed=1, runprof=prof)
+    ticks = prof.snapshot()["labels"]["serve_decode"]["steps_total"]
+    if run["streams"] != phase3["streams"]:
+        raise AssertionError("DecodeEngine(runprof=) streams differ from "
+                             "phase 3's")
+    if ticks != run["engine_decode_steps"]:
+        raise AssertionError(f"{ticks} serve_decode timings for "
+                             f"{run['engine_decode_steps']} decode ticks")
+    if run["kernel_launches"] != phase3["kernel_launches"]:
+        raise AssertionError(f"K3f launched {run['kernel_launches']} times "
+                             f"armed, {phase3['kernel_launches']} in phase 3")
+    timings = prof.timings("serve_decode")
+    out = {"decode_ticks": ticks, "launches": run["kernel_launches"],
+           "tokens_per_s": run["tokens_per_s"],
+           "phase3_tokens_per_s": phase3["tokens_per_s"],
+           "median_tick_wall_ms": statistics.median(
+               t.wall_ms for t in timings),
+           "median_tick_device_ms": statistics.median(
+               t.device_ms for t in timings),
+           "median_tick_host_ms": statistics.median(
+               t.host_ms for t in timings)}
+    log(f"[runprof] engine {json.dumps(out)}")
+    return out
+
+
+def cli_profile_phase(work: str) -> dict:
+    """(d) ``train --profile DIR`` of the MNIST MLP through the CLI against
+    the same run unprofiled."""
+    import glob
+
+    from deeplearning4j_tpu_torch.models.zoo import mnist_mlp
+    from deeplearning4j_tpu_torch.ops import _kernels
+
+    _write_csv(f"{work}/train.csv", CLI_TRAIN_ROWS, seed=31)
+    with open(f"{work}/mlp.json", "w") as f:
+        f.write(mnist_mlp(MLP_H1, MLP_H2).to_json())
+    common = ["train", "--conf", f"{work}/mlp.json", "--input",
+              f"{work}/train.csv", "--epochs", CLI_EPOCHS, "--batch",
+              MLP_BATCH, "--labels", 10, "--device", DEVICE]
+    runs = {}
+    for name, extra in (("profiled", ["--profile", f"{work}/trace"]),
+                        ("plain", [])):
+        _kernels.reset_launches()
+        _, wall = _cli(common + ["--model", f"{work}/{name}.npz", *extra])
+        runs[name] = {"launches": _kernels.LAUNCHES["fused_dense"],
+                      "wall_s": wall,
+                      "params": np.load(f"{work}/{name}.npz")["params"]}
+    (trace,) = glob.glob(f"{work}/trace/*.json")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    k1 = [e for e in events if e.get("cat") == "kernel"
+          and "fused_dense_kernel" in str(e.get("name"))]
+    if not k1:
+        raise AssertionError("train --profile: no fused_dense_kernel event "
+                             "in the trace")
+    if runs["profiled"]["launches"] != runs["plain"]["launches"]:
+        raise AssertionError(f"train --profile launched K1 "
+                             f"{runs['profiled']['launches']} times, "
+                             f"unprofiled {runs['plain']['launches']}")
+    if not np.array_equal(runs["profiled"]["params"],
+                          runs["plain"]["params"]):
+        raise AssertionError("train --profile saved other params than the "
+                             "unprofiled run")
+    out = {"launches": runs["plain"]["launches"],
+           "trace_k1_events": len(k1),
+           "trace_k1_us": sum(float(e.get("dur", 0)) for e in k1),
+           "profiled_wall_s": runs["profiled"]["wall_s"],
+           "plain_wall_s": runs["plain"]["wall_s"]}
+    log(f"[cli] train --profile {json.dumps(out)}")
+    return out
+
+
+def telemetry_phase() -> dict:
+    """(e) TrainTelemetry over TELE_STEPS metric steps of the flagship."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer_lm import (
+        make_single_device_train_step,
+    )
+    from deeplearning4j_tpu_torch.telemetry import (
+        MetricsRegistry,
+        TrainTelemetry,
+    )
+
+    params, tokens, targets = _train_setup()
+    step = make_single_device_train_step(N_HEADS, with_metrics=True,
+                                         device=DEVICE)
+    tele = TrainTelemetry(registry=MetricsRegistry(),
+                          interval=TELE_INTERVAL,
+                          tokens_per_step=TRAIN_B * TRAIN_T)
+    kept = []
+    for i in range(TELE_STEPS):
+        params, loss, metrics = step(params, tokens, targets)
+        kept.append(metrics)
+        if (i + 1) % TELE_INTERVAL:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                tele.record(i, metrics)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        else:
+            tele.record(i, metrics)
+    tele.close()
+    one_by_one = [{k: (v.tolist() if isinstance(v, torch.Tensor) else v)
+                   for k, v in m.items()} for m in kept]
+    got = [{k: r[k] for k in m} for r, m in zip(tele.records, one_by_one)]
+    if len(tele.records) != TELE_STEPS or got != one_by_one:
+        raise AssertionError("TrainTelemetry's records differ from the "
+                             "metrics read one by one")
+    out = {"steps": TELE_STEPS, "interval": TELE_INTERVAL,
+           "metrics": sorted(one_by_one[0]),
+           "last_loss": one_by_one[-1]["loss"]}
+    log(f"[telemetry] {json.dumps(out)}")
+    return out
+
+
+def slice21a2(smi: str, phase3: dict) -> dict:
+    """Phase 17: item 21a-ii on the card."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.telemetry.registry import MetricsRegistry
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="dl4j_torch_slice21a2_")
+    try:
+        out = {"profile": profile_step_phase(MetricsRegistry())}
+        out["runprof"] = runprof_phase(out["profile"]["median_step_ms"],
+                                       work)
+        out["engine"] = runprof_engine_phase(phase3)
+        out["cli"] = cli_profile_phase(work)
+        out["telemetry"] = telemetry_phase()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    summary = {
+        "flops": out["profile"]["flops"],
+        "bytes_accessed": out["profile"]["bytes_accessed"],
+        "peak_bytes": out["profile"]["peak_bytes"],
+        "max_memory_allocated": out["profile"]["max_memory_allocated"],
+        "unwrapped_median_ms": out["profile"]["median_step_ms"],
+        "attribute": out["profile"]["attribute"],
+        "runprof_step_ms": out["runprof"]["gauges"]["runprof_step_ms"],
+        "runprof_measured_mfu":
+            out["runprof"]["gauges"]["runprof_measured_mfu"],
+        "armed_median_wall_ms": out["runprof"]["armed_median_wall_ms"],
+        "decode_ticks": out["engine"]["decode_ticks"],
+        "cli_k1_launches": out["cli"]["launches"],
+        "wall_s": out["wall_s"]}
+    log(f"[slice21a2] {json.dumps(summary)} on {smi}")
+    return out
+
+
 # ---------------------------------------------------------------- main ----
 
 def main() -> int:
@@ -7044,6 +7410,16 @@ def main() -> int:
         entry["tp_launches"] = {
             f"tp{TP_MLP_DEGREE}": s20bc["mlp"]["launches"]["fused_dense"]}
     slice20d(smi)   # no kernel on its path: the JAX model is plain jnp
+    s21 = slice21a2(smi, main_run)
+    for entry in train_entries:
+        # item 21a-ii's armed runs (phase 17): the profiled call, the 24
+        # steps under the runtime profiler
+        entry["profile_launches"] = {
+            "step_profile": s21["profile"]["launches"][entry["name"]],
+            "runprof": s21["runprof"]["launches"][entry["name"]]}
+    serve_entry["runprof_launches"] = s21["engine"]["launches"]
+    for entry in mlp_entries:
+        entry["cli_profile_launches"] = s21["cli"]["launches"]
     log(f"[time] chip_smoke ran {time.perf_counter() - t_start:.1f} s")
 
     print(smi)

@@ -16,10 +16,9 @@ package's order, so a model trained by either CLI loads in the other.
 ``parallel.ParameterAveragingTrainer`` over the process group's ranks.
 ``fleet`` forwards its arguments to ``serve.fleet.replica_main`` (a
 serving-fleet replica; its own parser owns the flags, ``--device``
-among them).
-
-Not ported yet, raising ``SystemExit`` that names its slice:
-``train --profile`` (slice 9).
+among them). ``train --profile DIR`` records the training under
+``utils.profiling.trace`` (torch.profiler: CPU activity and, on the card,
+the CUDA kernels) and writes a Chrome trace into DIR.
 """
 
 from __future__ import annotations
@@ -107,12 +106,25 @@ def _save_model(net: MultiLayerNetwork, path: str) -> None:
 
 
 def train(args) -> int:
-    if args.profile:
-        raise SystemExit("train --profile (a device trace of training) "
-                         "comes with ROADMAP slice 9 (telemetry and "
-                         "profiling)")
-    if args.runtime == "parallel":
-        return _train_parallel(args)
+    import contextlib
+
+    if getattr(args, "profile", None):
+        from deeplearning4j_tpu_torch.utils.profiling import trace as _trace
+
+        profile_ctx = _trace(args.profile)
+    else:
+        profile_ctx = contextlib.nullcontext()
+    with profile_ctx:
+        if args.runtime == "parallel":
+            rc = _train_parallel(args)
+        else:
+            rc = _train_local(args)
+    if getattr(args, "profile", None) and args.verbose:
+        print(f"wrote a torch.profiler trace to {args.profile}")
+    return rc
+
+
+def _train_local(args) -> int:
     net = _load_model(args.conf, None, args.device)
     it = _make_iterator(args.input, args.batch, args.labels,
                         args.features, args.label_index)
@@ -317,8 +329,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common(p_train, needs_model_in=False)
     p_train.add_argument("--epochs", type=int, default=1)
     p_train.add_argument("--profile", default=None, metavar="DIR",
-                         help="capture a device trace of training into DIR "
-                              "(not ported yet: ROADMAP slice 9)")
+                         help="capture a device trace of training into DIR")
     p_train.add_argument("--runtime", choices=["local", "parallel"],
                          default="local",
                          help="'parallel' = data-parallel over the ranks of "

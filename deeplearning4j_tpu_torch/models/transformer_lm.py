@@ -53,8 +53,13 @@ and the (ZeRO-sharded) optimizer state. ``make_pp_stages``/``make_pp_loss``
 split the stack at layer boundaries into ``parallel.pipeline`` stages over
 "pipe". A "model" axis replicates the LM over its ranks, as JAX's
 ``lm_param_shardings`` does (tensor parallelism of a
-``MultiLayerNetwork`` is ``parallel/tensor_parallel.py``); the
-``profile=``/``runprof=``/``tuned=`` seams come with slice 9 and raise.
+``MultiLayerNetwork`` is ``parallel/tensor_parallel.py``).
+
+Every step builder takes ``profile=`` (a ``telemetry.xprofile``
+``StepProfile`` of the first call, on ``step.step_profile``) and
+``runprof=`` (the runtime profiler's phase timings), composed as
+``maybe_runprof(maybe_profiled(step, ...))``; neither changes a number.
+``tuned=`` comes with ROADMAP item 21b and raises.
 """
 
 from __future__ import annotations
@@ -367,15 +372,28 @@ def _loss_and_grads(loss_fn, params, tokens, targets, dev,
     return loss, metrics, grads
 
 
+def _seam(step, profile, runprof, label: str):
+    """``profile=`` then ``runprof=``: the runtime profiler reuses the
+    profiled call's FLOPs and collectives."""
+    from deeplearning4j_tpu_torch.telemetry.runprof import maybe_runprof
+    from deeplearning4j_tpu_torch.telemetry.xprofile import maybe_profiled
+
+    return maybe_runprof(maybe_profiled(step, profile, label), runprof,
+                         label)
+
+
 def _make_sgd_step(loss_fn, lr: float, with_metrics: bool, dev,
                    donate: bool = False, guard=None,
-                   loss_and_grads=_loss_and_grads, shards=None):
+                   loss_and_grads=_loss_and_grads, shards=None,
+                   profile=None, profile_label: str = "lm_step",
+                   runprof=None):
     """The SGD step: ``step(params, tokens, targets) -> (new_params, loss)``,
     plus the guard block (``guard``) or the metrics dict
     (``with_metrics``, guard block merged in) as a third output.
     ``loss_and_grads`` is ``_loss_and_grads``' contract (the composed
     step passes its own); ``shards`` (``parallel.mesh.LeafShards``) makes
-    the norms global where leaves are split over the mesh."""
+    the norms global where leaves are split over the mesh. ``profile``
+    and ``runprof`` arm the seams under ``profile_label``."""
     def step(params, tokens, targets):
         loss, metrics, grads = loss_and_grads(loss_fn, params, tokens,
                                               targets, dev, with_metrics)
@@ -397,13 +415,14 @@ def _make_sgd_step(loss_fn, lr: float, with_metrics: bool, dev,
             return new_params, loss
         return new_params, loss, block
 
-    return step
+    return _seam(step, profile, runprof, profile_label)
 
 
 def _make_opt_step(loss_fn, lr: float, with_metrics: bool,
                    optimizer: OptimizerConfig, dev, donate: bool = False,
                    guard=None, zero=None, loss_and_grads=_loss_and_grads,
-                   shards=None):
+                   shards=None, profile=None,
+                   profile_label: str = "lm_step", runprof=None):
     """The optimizer-threaded step: ``step(params, opt_state, tokens,
     targets) -> (new_params, new_opt_state, loss[, metrics/guard
     block])``. The loss and grads are the SGD step's; only the update
@@ -439,7 +458,7 @@ def _make_opt_step(loss_fn, lr: float, with_metrics: bool,
             return new_params, new_state, loss
         return new_params, new_state, loss, block
 
-    return step
+    return _seam(step, profile, runprof, profile_label)
 
 
 def make_single_device_train_step(n_heads: int, lr: float = 0.1,
@@ -447,7 +466,9 @@ def make_single_device_train_step(n_heads: int, lr: float = 0.1,
                                   attn_impl: Optional[str] = None,
                                   with_metrics: bool = False,
                                   donate: bool = False, guard=None,
-                                  optimizer=None, *,
+                                  profile=None, optimizer=None,
+                                  runprof=None, tuned=None,
+                                  tune_context=None, *,
                                   device: DeviceLike = None):
     """The flagship's single-device train step (the parity oracle with
     ``attn_impl="dense"``; the single-chip training path with the default
@@ -466,21 +487,31 @@ def make_single_device_train_step(n_heads: int, lr: float = 0.1,
     tensors in place and returns them: callers rebind, as they do with
     JAX's donated buffers. The default returns new tensors and leaves the
     inputs untouched. Tokens and targets (tensors or arrays) are moved to
-    ``device`` (CUDA unless ``device="cpu"``), where the params must be."""
+    ``device`` (CUDA unless ``device="cpu"``), where the params must be.
+
+    ``profile=`` (True or a label) captures the first call's
+    ``StepProfile`` on ``step.step_profile``; ``runprof=`` (True, a label
+    or a ``RunProfiler``) phase-times every call; both under the label
+    ``lm_single_device``, as in JAX. ``tuned=``/``tune_context=`` come
+    with ROADMAP item 21b and raise."""
+    if tuned or tune_context is not None:
+        raise NotImplementedError(_ITEM_21B.format("tuned="))
     dev = resolve_device(device)
     loss_fn = dense_loss_fn(n_heads, top_k, aux_weight, attn_impl=attn_impl,
                             with_metrics=with_metrics)
     guard_cfg = GuardConfig.coerce(guard)
     opt_cfg = OptimizerConfig.coerce(optimizer)
+    seams = {"profile": profile, "runprof": runprof,
+             "profile_label": "lm_single_device"}
     if opt_cfg is None:
         return _make_sgd_step(loss_fn, lr, with_metrics, dev, donate=donate,
-                              guard=guard_cfg)
+                              guard=guard_cfg, **seams)
     if opt_cfg.sharded:
         raise ValueError(
             "update_sharding='sharded' needs a dp mesh axis — the "
             "single-device step has no replicas to shard the update over")
     return _make_opt_step(loss_fn, lr, with_metrics, opt_cfg.resolved(), dev,
-                          donate=donate, guard=guard_cfg)
+                          donate=donate, guard=guard_cfg, **seams)
 
 
 # ------------------------------------------------- composed parallelism ----
@@ -490,8 +521,7 @@ SEQ_AXIS = "sp"
 EXPERT_AXIS = "expert"
 MODEL_AXIS = "model"
 _COMPOSED_AXES = (DATA_AXIS, SEQ_AXIS, EXPERT_AXIS, MODEL_AXIS)
-_SLICE_9 = ("{} comes with ROADMAP slice 9 (telemetry, profiling and "
-            "tuning)")
+_ITEM_21B = "{} comes with ROADMAP item 21b (the autotuner)"
 
 
 def _check_composed_mesh(mesh) -> None:
@@ -856,14 +886,13 @@ def make_composed_train_step(mesh, n_heads: int, capacity: int = 0,
 
     On the card each rank's attention runs the flash kernels (the ring's
     pairs through K3f, K3k, K3q). ``device`` (CUDA unless
-    ``device="cpu"``) is the rank's device when the mesh has none;
-    ``profile=``, ``runprof=`` and ``tuned=`` raise (ROADMAP slice 9)."""
+    ``device="cpu"``) is the rank's device when the mesh has none.
+    ``profile=`` and ``runprof=`` arm the seams under JAX's label
+    ``lm_composed[<axes>]`` (the profile records the step's collectives);
+    ``tuned=`` comes with ROADMAP item 21b and raises."""
     _check_composed_mesh(mesh)
-    if profile or runprof:
-        raise NotImplementedError(_SLICE_9.format(
-            "a compiled-step profile (profile=, runprof=)"))
     if tuned or tune_context is not None:
-        raise NotImplementedError(_SLICE_9.format("tuned="))
+        raise NotImplementedError(_ITEM_21B.format("tuned="))
     dev = _mesh_device(mesh, device)
     loss_fn = composed_loss_fn(mesh, n_heads, capacity, top_k, aux_weight,
                                attn_impl=attn_impl, moe_impl=moe_impl,
@@ -872,16 +901,19 @@ def make_composed_train_step(mesh, n_heads: int, capacity: int = 0,
     grads_fn = partial(_composed_loss_and_grads, mesh=mesh)
     guard_cfg = GuardConfig.coerce(guard)
     shards = _lm_shards(mesh)
+    seams = {"profile": profile, "runprof": runprof,
+             "profile_label": "lm_composed[" + "x".join(mesh.axis_names)
+             + "]"}
     opt_cfg = OptimizerConfig.coerce(optimizer)
     if opt_cfg is None:
         return _make_sgd_step(loss_fn, lr, with_metrics, dev, donate=donate,
                               guard=guard_cfg, loss_and_grads=grads_fn,
-                              shards=shards)
+                              shards=shards, **seams)
     opt_cfg = opt_cfg.resolved()
     zero = lm_update_sharding(mesh) if opt_cfg.sharded else None
     return _make_opt_step(loss_fn, lr, with_metrics, opt_cfg, dev,
                           donate=donate, guard=guard_cfg, zero=zero,
-                          loss_and_grads=grads_fn, shards=shards)
+                          loss_and_grads=grads_fn, shards=shards, **seams)
 
 
 # ----------------------------------------------------------------- dp×pp ----

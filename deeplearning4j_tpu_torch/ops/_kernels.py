@@ -1,4 +1,4 @@
-"""Build, load and count the port's CUDA kernels.
+"""Build, load, count and cost the port's CUDA kernels.
 
 Each ``csrc/*.cu`` source is compiled at first use by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface under
@@ -11,6 +11,11 @@ module of the package on a host without ``nvcc``.
 ``LAUNCHES`` holds one integer per kernel; a wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that the main path
 went through the kernel.
+
+Each kernel has one cost function here (``*_cost``): its FLOPs,
+transcendental operations and the bytes it must move at given shapes. The
+wrappers report them into a step profile (``telemetry.xprofile``) on both
+routes, and ``chip_smoke.py`` bounds each kernel's time by them.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, List
+
+from deeplearning4j_tpu_torch._capture import KernelCost
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -160,3 +167,95 @@ def load(name: str) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib
+
+
+# ------------------------------------------------------------------ costs --
+#
+# Causal attention computes the scores on or below the diagonal: half of
+# the (T, T) products and exponentials, as the kernels' tile walk skips
+# the blocks above it. ``_pairs`` states that halving once for K3f, K3k
+# and K3q.
+
+
+def _pairs(b: int, h: int, t: int, causal: bool) -> float:
+    """(query, key) pairs the attention scores: B·H·T², halved when
+    causal."""
+    n = float(b) * h * t * t
+    return n / 2 if causal else n
+
+
+def flash_attention_fwd_cost(b: int, h: int, t: int, dh: int, causal: bool,
+                             elt: int) -> KernelCost:
+    """K3f: two products over the pairs (Q·Kᵀ and P·V), one exp per pair;
+    q, k, v read and o written (``elt`` bytes an element), lse (f32)
+    written."""
+    pairs = _pairs(b, h, t, causal)
+    tile = float(b) * h * t * dh * elt
+    return KernelCost(4.0 * pairs * dh, pairs, 4 * tile + 4.0 * b * h * t)
+
+
+def flash_attention_bwd_dkv_cost(b: int, h: int, t: int, dh: int,
+                                 causal: bool, elt: int) -> KernelCost:
+    """K3k: four products over the pairs (S = Q·Kᵀ again, dP = dO·Vᵀ,
+    dV = Pᵀ·dO, dK = dSᵀ·Q), one exp per pair; q, k, v, do read, dk and dv
+    written, lse and delta (f32) read."""
+    pairs = _pairs(b, h, t, causal)
+    tile = float(b) * h * t * dh * elt
+    return KernelCost(8.0 * pairs * dh, pairs,
+                      6 * tile + 8.0 * b * h * t)
+
+
+def flash_attention_bwd_dq_cost(b: int, h: int, t: int, dh: int,
+                                causal: bool, elt: int) -> KernelCost:
+    """K3q: three products over the pairs (S, dP, dQ = dS·K), one exp per
+    pair; q, k, v, do read, dq written, lse and delta (f32) read."""
+    pairs = _pairs(b, h, t, causal)
+    tile = float(b) * h * t * dh * elt
+    return KernelCost(6.0 * pairs * dh, pairs,
+                      5 * tile + 8.0 * b * h * t)
+
+
+# activations whose epilogue is a transcendental an element
+_TRANSCENDENTAL_ACTS = ("tanh", "sigmoid")
+
+
+def fused_dense_cost(m: int, k: int, n: int, activation: str,
+                     elt: int) -> KernelCost:
+    """K1: the (M, K)·(K, N) product (the bias and activation epilogue is
+    not counted as FLOPs); one transcendental an output for tanh and
+    sigmoid; x, w, b read and the output written."""
+    out = float(m) * n
+    return KernelCost(2.0 * m * k * n,
+                      out if activation in _TRANSCENDENTAL_ACTS else 0.0,
+                      float(elt) * (m * k + k * n + n + m * n))
+
+
+# ~25 f32 operations an element of K2 (3 sigmoids, 2 tanh, 3 products, 1
+# sum; a transcendental counted as 4) and ~48 of K2b (the same 5
+# transcendentals, the sigmoids' sums and quotients and 22 products, sums
+# and differences)
+CELL_OPS_PER_ELT = 25
+CELL_BWD_OPS_PER_ELT = 48
+
+
+def lstm_gates_cost(b: int, h: int, ifog_elt: int,
+                    c_elt: int) -> KernelCost:
+    """K2: ``CELL_OPS_PER_ELT`` operations and 5 transcendentals an
+    element of (B, H); ifog (B, 4H) and c_prev read, c_new and h_new
+    written."""
+    n = float(b) * h
+    return KernelCost(CELL_OPS_PER_ELT * n, 5 * n,
+                      n * (4 * ifog_elt + 3 * c_elt))
+
+
+def lstm_gates_bwd_cost(b: int, h: int, ifog_elt: int, c_elt: int,
+                        has_dc: bool = True,
+                        has_dh: bool = True) -> KernelCost:
+    """K2b: ``CELL_BWD_OPS_PER_ELT`` operations and 5 transcendentals an
+    element; ifog read and d_ifog written (4H each), c_prev and c_new
+    read, dc_new and dh read when given, dc_prev written."""
+    n = float(b) * h
+    streams = 3 + int(bool(has_dc)) + int(bool(has_dh))
+    return KernelCost(CELL_BWD_OPS_PER_ELT * n, 5 * n,
+                      n * (8 * ifog_elt + streams * c_elt))
+

@@ -34,6 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from deeplearning4j_tpu_torch._capture import priced
 from deeplearning4j_tpu_torch.ops import _kernels
 from deeplearning4j_tpu_torch.parallel.ring_attention import (
     reference_attention,
@@ -261,6 +262,19 @@ def _check_bwd_values(q, do, lse, delta) -> None:
                              f"got {tuple(x.shape)}/{x.dtype}/{x.device}")
 
 
+def _fwd_cost(q, k, v, causal=False):
+    return _kernels.flash_attention_fwd_cost(*q.shape, bool(causal),
+                                             q.element_size())
+
+
+def _bwd_cost(cost):
+    def of(q, k, v, lse, do, delta, causal=False):
+        return cost(*q.shape, bool(causal), q.element_size())
+
+    return of
+
+
+@priced("flash_attention_fwd", _fwd_cost)
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -288,6 +302,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
+@priced("flash_attention_bwd_dkv",
+        _bwd_cost(_kernels.flash_attention_bwd_dkv_cost))
 def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, lse: torch.Tensor,
                             do: torch.Tensor, delta: torch.Tensor,
@@ -319,6 +335,8 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
     return dk, dv
 
 
+@priced("flash_attention_bwd_dq",
+        _bwd_cost(_kernels.flash_attention_bwd_dq_cost))
 def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, lse: torch.Tensor,
                            do: torch.Tensor, delta: torch.Tensor,

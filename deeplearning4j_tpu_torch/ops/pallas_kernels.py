@@ -45,6 +45,7 @@ from typing import Optional
 
 import torch
 
+from deeplearning4j_tpu_torch._capture import priced
 from deeplearning4j_tpu_torch.ops import _kernels
 from deeplearning4j_tpu_torch.ops.activations import activation as _activation
 from deeplearning4j_tpu_torch.ops.activations import derivative as _derivative
@@ -125,6 +126,12 @@ def _check_kernel_inputs(x, w, b) -> None:
                              "CUDA tensors")
 
 
+def _dense_cost(x, w, b, activation="linear"):
+    return _kernels.fused_dense_cost(x.shape[0], x.shape[1], w.shape[1],
+                                     activation, x.element_size())
+
+
+@priced("fused_dense", _dense_cost)
 def fused_dense_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                     activation: str = "linear") -> torch.Tensor:
     """``act(x @ w + b)``, output in x's dtype, no graph.
@@ -270,6 +277,13 @@ def _check_lstm_inputs(ifog: torch.Tensor, c_prev: torch.Tensor) -> None:
     _check_cuda((("ifog", ifog), ("c_prev", c_prev)))
 
 
+def _cell_cost(ifog, c_prev):
+    return _kernels.lstm_gates_cost(c_prev.shape[0], c_prev.shape[1],
+                                    ifog.element_size(),
+                                    c_prev.element_size())
+
+
+@priced("lstm_gates", _cell_cost)
 def lstm_gates_fwd(ifog: torch.Tensor, c_prev: torch.Tensor):
     """(c_new, h_new) in c_prev's dtype, no graph.
 
@@ -367,6 +381,13 @@ def _check_lstm_bwd_inputs(ifog, c_prev, c_new, dc_new, dh):
     return strides
 
 
+def _cell_bwd_cost(ifog, c_prev, c_new, dc_new, dh):
+    return _kernels.lstm_gates_bwd_cost(
+        c_prev.shape[0], c_prev.shape[1], ifog.element_size(),
+        c_prev.element_size(), dc_new is not None, dh is not None)
+
+
+@priced("lstm_gates_bwd", _cell_bwd_cost)
 def lstm_gates_bwd(ifog: torch.Tensor, c_prev: torch.Tensor,
                    c_new: torch.Tensor, dc_new: Optional[torch.Tensor],
                    dh: Optional[torch.Tensor]):

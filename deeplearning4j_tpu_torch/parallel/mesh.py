@@ -26,7 +26,9 @@ this rank's sub-group. ``COLLECTIVES`` counts the calls they make to
 ``torch.distributed``, as the kernel wrappers count launches in
 ``ops._kernels.LAUNCHES``: a run can show that a synchronous step made
 exactly one all-reduce. With no process group every collective is the
-identity; a group of one rank still issues them.
+identity; a group of one rank still issues them. Each call is also
+recorded, with its payload bytes and group size, into an active step
+profile (``telemetry.xprofile``), which turns it into wire bytes.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, \
 import torch
 import torch.distributed as dist
 
+from deeplearning4j_tpu_torch import _capture
+
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 SEQ_AXIS = "sp"
@@ -47,6 +51,10 @@ PIPE_AXIS = "pipe"
 COLLECTIVES: Dict[str, int] = {"all_reduce": 0, "all_gather": 0,
                                "all_to_all": 0, "send_recv": 0,
                                "broadcast": 0}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def reset_collectives() -> None:
@@ -182,8 +190,12 @@ class Mesh:
         if axes is not None and not self._axes(axes):
             return t
         if self.grouped:
-            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group(axes))
+            group = self.group(axes)
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
             COLLECTIVES["all_reduce"] += 1
+            if _capture._active is not None:
+                _capture.collective("all_reduce", _nbytes(t),
+                                    dist.get_world_size(group))
         return t
 
     def all_gather(self, t: torch.Tensor, axis: Axes = None) -> torch.Tensor:
@@ -199,6 +211,8 @@ class Mesh:
         dist.all_gather_into_tensor(out, t.contiguous(),
                                     group=self.group(axis))
         COLLECTIVES["all_gather"] += 1
+        if _capture._active is not None:
+            _capture.collective("all_gather", _nbytes(out), n)
         return out
 
     def all_to_all(self, t: torch.Tensor, axis: Axes,
@@ -212,8 +226,12 @@ class Mesh:
             return t
         t = t.contiguous()
         out = torch.empty_like(t)
-        dist.all_to_all_single(out, t, group=group or self.group(axis))
+        group = group or self.group(axis)
+        dist.all_to_all_single(out, t, group=group)
         COLLECTIVES["all_to_all"] += 1
+        if _capture._active is not None:
+            _capture.collective("all_to_all", _nbytes(t),
+                                dist.get_world_size(group))
         return out
 
     def factor_group(self, axis: str, outer: int, inner: int) -> tuple:
@@ -248,6 +266,9 @@ class Mesh:
             dist.broadcast(t, src=self.peer(axis, index),
                            group=self.group(axis))
             COLLECTIVES["broadcast"] += 1
+            if _capture._active is not None:
+                _capture.collective("broadcast", _nbytes(t),
+                                    self.shape[axis])
         return t
 
     def exchange(self, axis: str, send: Iterable[torch.Tensor] = (),
@@ -275,6 +296,11 @@ class Mesh:
             return lambda: recv
         works = dist.batch_isend_irecv(ops)
         COLLECTIVES["send_recv"] += 1
+        if _capture._active is not None:
+            # one hop of the buffer each rank holds (JAX's permute result)
+            _capture.collective(
+                "send_recv", max(sum(_nbytes(t) for t in send),
+                                 sum(_nbytes(t) for t in recv)), n)
 
         def wait():
             for w in works:

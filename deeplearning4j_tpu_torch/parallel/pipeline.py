@@ -45,8 +45,7 @@ from deeplearning4j_tpu_torch.parallel.mesh import (
     gather_rows_ad,
 )
 
-_SLICE_9 = ("{} comes with ROADMAP slice 9 (telemetry, profiling and "
-            "tuning)")
+_ITEM_21B = "{} comes with ROADMAP item 21b (the autotuner)"
 
 
 def _schedule_ticks(n_micro: int, n_stages: int, hop: int) -> int:
@@ -366,8 +365,11 @@ def make_pipeline_train_step(stage_fn: Callable, loss_fn: Callable, mesh,
     y_mbs) -> (params, opt_state, loss[, metrics])`` with state from
     ``init_pp_opt_state`` (ZeRO over ``batch_axis`` when sharded).
     ``overlap=True`` runs the double-buffered handoff: loss and params
-    bit-identical to the strict schedule. ``profile=``, ``runprof=`` and
-    ``tuned=`` come with ROADMAP slice 9 and raise."""
+    bit-identical to the strict schedule. ``profile=`` and ``runprof=``
+    arm the seams under JAX's label (``pipeline[pipe]``,
+    ``pipeline[pipexdata]``, ``+overlap``); the profile records the stage
+    handoffs as collective-permutes. ``tuned=`` comes with ROADMAP item
+    21b and raises."""
     from deeplearning4j_tpu_torch.optimize.guardrails import (
         GuardConfig,
         guarded_sgd_update,
@@ -379,12 +381,19 @@ def make_pipeline_train_step(stage_fn: Callable, loss_fn: Callable, mesh,
     )
     from deeplearning4j_tpu_torch.telemetry.metrics import train_step_metrics
 
-    if profile or runprof:
-        raise NotImplementedError(_SLICE_9.format(
-            "a compiled-step profile (profile=, runprof=)"))
+    from deeplearning4j_tpu_torch.telemetry.runprof import maybe_runprof
+    from deeplearning4j_tpu_torch.telemetry.xprofile import maybe_profiled
+
     if tuned or tune_context is not None:
-        raise NotImplementedError(_SLICE_9.format("tuned="))
+        raise NotImplementedError(_ITEM_21B.format("tuned="))
     guard = GuardConfig.coerce(guard)
+    label = (f"pipeline[{axis}" + (f"x{batch_axis}]" if batch_axis else "]")
+             + ("+overlap" if overlap else ""))
+
+    def _seam(step):
+        return maybe_runprof(maybe_profiled(step, profile, label), runprof,
+                             label)
+
     opt_cfg = OptimizerConfig.coerce(optimizer)
     if opt_cfg is not None:
         opt_cfg = opt_cfg.resolved()
@@ -435,7 +444,7 @@ def make_pipeline_train_step(stage_fn: Callable, loss_fn: Callable, mesh,
                 block = finish(params, grads, loss, per, block)
             return (new, loss) if block is None else (new, loss, block)
 
-        return step
+        return _seam(step)
 
     def opt_step(params, opt_state, x_mbs, y_mbs):
         loss, per, grads = loss_and_grads(params, x_mbs, y_mbs)
@@ -456,4 +465,4 @@ def make_pipeline_train_step(stage_fn: Callable, loss_fn: Callable, mesh,
             return new, state, loss
         return new, state, loss, block
 
-    return opt_step
+    return _seam(opt_step)

@@ -46,10 +46,6 @@ from deeplearning4j_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
 from deeplearning4j_tpu_torch.parallel.mesh import \
     flat_all_reduce as _flat_all_reduce
 
-_PROFILE_SLICE = ("a compiled-step profile (profile=, runprof=) comes with "
-                  "ROADMAP slice 9 (telemetry and profiling)")
-
-
 def _local_grad_step(conf, params, states, iteration, x, y, w, key,
                      sync_grads: bool, mesh: Mesh,
                      ablate_collectives: bool = False,
@@ -261,13 +257,16 @@ def make_sync_train_step(conf: MultiLayerConfiguration, mesh: Mesh,
     ``update_sharding="sharded"`` runs the ZeRO update, each rank its
     ``1/dp`` chunk, and all-gathers the params.
 
-    ``profile=`` and ``runprof=`` come with ROADMAP slice 9 and raise.
+    ``profile=`` (True or a label) captures the first call's
+    ``StepProfile`` (its grad all-reduce among the collectives);
+    ``runprof=`` phase-times every call; both under JAX's label
+    ``dp_sync[<data axis size>]``.
     """
     from deeplearning4j_tpu_torch.optimize.guardrails import GuardConfig
     from deeplearning4j_tpu_torch.optimize.updaters import OptimizerConfig
+    from deeplearning4j_tpu_torch.telemetry.runprof import maybe_runprof
+    from deeplearning4j_tpu_torch.telemetry.xprofile import maybe_profiled
 
-    if profile or runprof:
-        raise NotImplementedError(_PROFILE_SLICE)
     guard = GuardConfig.coerce(guard)
     opt_cfg = OptimizerConfig.coerce(optimizer)
     if opt_cfg is not None:
@@ -286,7 +285,9 @@ def make_sync_train_step(conf: MultiLayerConfiguration, mesh: Mesh,
                                 with_metrics=with_metrics, guard=guard,
                                 optimizer=opt_cfg, zero=zero)
 
-    return step
+    label = f"dp_sync[{mesh.shape[DATA_AXIS]}]"
+    return maybe_runprof(maybe_profiled(step, profile, label), runprof,
+                         label)
 
 
 def make_local_fit_step(conf: MultiLayerConfiguration, mesh: Mesh,

@@ -115,10 +115,6 @@ log = logging.getLogger(__name__)
 
 VERSION_KEY = "elastic.version"
 
-_RUNTIME_PROFILING = ("{} comes with ROADMAP item 21a-ii (sessions, "
-                      "runtime and compile-time profiling)")
-
-
 class ElasticTrainingError(RuntimeError):
     """The run can no longer make progress (survivor set below
     ``min_workers``, or a round barrier timed out with no contributions)."""
@@ -226,8 +222,10 @@ class SyntheticRegressionModel(ElasticModel):
     the moments live in the ZeRO layout over a one-rank "data" mesh
     (every leaf one row); Adam's arithmetic is the replicated one's.
 
-    ``profile=`` and a truthy ``runprof=`` raise ``NotImplementedError``
-    (ROADMAP item 21a-ii)."""
+    ``profile=True`` captures the first local step's ``StepProfile``
+    (``self.step_profile``); ``runprof=`` (None: the ``DL4J_TPU_RUNPROF``
+    knob; False: off) phase-times every local step; both under JAX's label
+    ``elastic_worker``. Neither changes a number."""
 
     def __init__(self, d_in: int = 8, d_hidden: int = 16, batch: int = 32,
                  lr: float = 0.05, seed: int = 0, mesh_devices: int = 2,
@@ -236,9 +234,6 @@ class SyntheticRegressionModel(ElasticModel):
                  nan_worker_seed: Optional[int] = None,
                  profile: bool = False, optimizer=None, runprof=None,
                  device: DeviceLike = None):
-        if profile or runprof:
-            raise NotImplementedError(_RUNTIME_PROFILING.format(
-                "a profiled elastic step (profile=, runprof=)"))
         self.device = resolve_device(device)
         self.d_in, self.d_hidden = int(d_in), int(d_hidden)
         self.batch, self.lr, self.seed = int(batch), float(lr), int(seed)
@@ -248,6 +243,8 @@ class SyntheticRegressionModel(ElasticModel):
         self.nan_at_step = nan_at_step
         self.nan_worker_seed = nan_worker_seed
         self.optimizer = optimizer
+        self.profile = profile
+        self.runprof = runprof
         self.skipped_steps = 0
         self._built = False
         self._opt_state = None
@@ -323,7 +320,22 @@ class SyntheticRegressionModel(ElasticModel):
             if self._opt_state is None:
                 self._opt_state = init_opt_state(self._opt_cfg, params,
                                                  self._zero)
+        from deeplearning4j_tpu_torch.telemetry.runprof import maybe_runprof
+        from deeplearning4j_tpu_torch.telemetry.xprofile import \
+            maybe_profiled
+
+        self._run_step = maybe_runprof(
+            maybe_profiled(self._step, self.profile, "elastic_worker"),
+            self.runprof, "elastic_worker")
         self._built = True
+
+    @property
+    def step_profile(self):
+        """The first local step's StepProfile once a profiled step has
+        run (None before the first ``run_steps`` or without
+        ``profile=True``)."""
+        return getattr(getattr(self, "_run_step", None), "step_profile",
+                       None)
 
     def _step(self, params, x, y):
         """One local step: ``(params, loss, nonfinite flag or None)``."""
@@ -396,7 +408,7 @@ class SyntheticRegressionModel(ElasticModel):
         flags = []  # device scalars; ONE fetch after the loop
         for i in range(int(n_steps)):
             x, y = self._batch_for(worker_seed, start_step + i)
-            params, loss, nf = self._step(
+            params, loss, nf = self._run_step(
                 params, torch.tensor(x, device=self.device),
                 torch.tensor(y, device=self.device))
             if nf is not None:

@@ -67,8 +67,13 @@ The engine runs on CUDA unless built with ``device="cpu"``, and raises when
 CUDA is absent. Metrics land in the port's registry under ``serve_*``.
 ``from_checkpoint`` builds an engine from an LM checkpoint of either
 package (scaleout/ckpt), ``from_live_params`` from a params tree already in
-memory, whole or sharded over a mesh. The runtime profiler (``runprof=``) and ``tuned=`` come with
-slice 9: passing either raises.
+memory, whole or sharded over a mesh. ``runprof=`` (True, a label or a
+``telemetry.runprof.RunProfiler``; the ``DL4J_TPU_RUNPROF`` knob when
+None) arms the runtime profiler at construction: one ``serve_decode``
+``StepTiming`` a decode tick, its host phase the tick's scheduler work
+(admission, chunked prefill, retirement), its device phase the decode
+step's span on the stream (CUDA events; on the CPU the call's wall).
+``tuned=`` comes with ROADMAP item 21b and raises.
 """
 
 from __future__ import annotations
@@ -183,12 +188,13 @@ class DecodeEngine:
             default_registry,
         )
 
-        for name, value in (("runprof", runprof), ("tuned", tuned)):
-            if value is not None and value is not False:
-                raise NotImplementedError(
-                    f"DecodeEngine({name}=...) comes with ROADMAP slice 9 "
-                    "(the runtime profiler and the autotuner); pass "
-                    f"{name}=None")
+        from deeplearning4j_tpu_torch.telemetry.runprof import \
+            resolve_runprof
+
+        if tuned is not None and tuned is not False:
+            raise NotImplementedError(
+                "DecodeEngine(tuned=...) comes with ROADMAP item 21b (the "
+                "autotuner); pass tuned=None")
         self.device = resolve_device(device)
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
@@ -213,6 +219,14 @@ class DecodeEngine:
         self.weight_version = weight_version
         self.registry = registry if registry is not None else \
             default_registry()
+        # the runtime profiler: one serve_decode timing a decode tick (no
+        # step profile, so runprof_measured_mfu stays unborn)
+        self._runprof = resolve_runprof(runprof)
+        if self._runprof is not None and self._runprof._registry is None:
+            # an engine on a private registry keeps its profiler there too
+            self._runprof._registry = self.registry
+        if self._runprof is not None:
+            self._runprof.arm("serve_decode")
         params = tree_map(lambda _, x: x.to(self.device), params)
         self.params = prepare_serve_params(params, serve_dtype)
         self.weight_bytes = params_nbytes(self.params)
@@ -713,6 +727,7 @@ class DecodeEngine:
         tracer = _trace.get_tracer()
         step_span = (tracer.start_span("engine.step", parent=False)
                      if tracer is not None else None)
+        t_sched0 = time.perf_counter()  # the runtime profiler's phase clock
         with self._lock:
             tokens_before = self.tokens_total
             free = self._free_slots()
@@ -750,6 +765,9 @@ class DecodeEngine:
                         <= self.max_len for r in active))
             if spec_tick:
                 decode_ms = self._spec_step(active, step_span)
+                # k+1 draft steps with their reads and a verify: no clean
+                # dispatch/device split, the whole wall goes to the device
+                rp_dispatch_ms, rp_device_ms = 0.0, decode_ms
             else:
                 # every slot writes its K/V at its position: JAX's
                 # dynamic_update_slice would clamp an out-of-range start
@@ -759,6 +777,11 @@ class DecodeEngine:
                     raise RuntimeError(
                         f"decode position {int(self._positions.max())} "
                         f"outside the cache page (max_len {self.max_len})")
+                events = None
+                if self._runprof is not None and self.device.type == "cuda":
+                    events = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                    events[0].record()
                 t0 = time.perf_counter()
                 self._cache, toks = self._decode(
                     self.params, self._cache,
@@ -766,9 +789,15 @@ class DecodeEngine:
                     torch.from_numpy(self._positions).to(self.device),
                     torch.from_numpy(self._temps).to(self.device),
                     self._generator)
+                t_disp = time.perf_counter()
+                if events is not None:
+                    events[1].record()
                 toks = toks.cpu().numpy()  # fences the step for retirement
                 now = time.perf_counter()
                 decode_ms = (now - t0) * 1000.0
+                rp_dispatch_ms = (t_disp - t0) * 1000.0
+                rp_device_ms = (events[0].elapsed_time(events[1])
+                                if events is not None else rp_dispatch_ms)
                 self.registry.histogram("serve_decode_step_ms").observe(
                     decode_ms)
                 self.decode_steps += 1
@@ -789,6 +818,21 @@ class DecodeEngine:
                 step_span.set_attr("queue_depth", len(self._queue))
                 step_span.set_attr("decode_ms", round(decode_ms, 3))
                 step_span.end()
+            if self._runprof is not None:
+                from deeplearning4j_tpu_torch.telemetry.runprof import \
+                    StepTiming
+
+                # host phase: this tick's scheduler work (admission,
+                # chunked prefill, retirement), everything outside the
+                # decode call and its fence
+                sched_ms = max(0.0, (time.perf_counter() - t_sched0)
+                               * 1000.0 - decode_ms)
+                self._runprof.record(StepTiming(
+                    label="serve_decode", t_unix=time.time(),
+                    wall_ms=decode_ms, host_ms=sched_ms,
+                    dispatch_ms=rp_dispatch_ms, device_ms=rp_device_ms,
+                    trace_id=(step_span.trace_id
+                              if step_span is not None else None)))
             return self.tokens_total - tokens_before
 
     def _spec_step(self, active: List[ServeRequest], step_span) -> float:

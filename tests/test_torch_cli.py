@@ -389,19 +389,16 @@ def test_device_cuda_is_the_default_and_raises_without_cuda(conf_path,
 def test_unported_train_options_exit_naming_their_slice(conf_path, iris_csv,
                                                         tmp_path, extra,
                                                         slice_, monkeypatch):
-    """``--profile`` exits naming slice 9. ``--runtime parallel``, which
-    slice 7 brought, now trains through the port's
-    ParameterAveragingTrainer on a one-rank mesh: from the JAX net's
-    initial params it saves the params of JAX's trainer on
-    ``data_parallel_mesh(1)`` (the JAX CLI's, with its mesh cut to one
-    device) within ATOL, after 3 batches of 60 local iterations."""
+    """Both options, which slices 7 and 9 named, now run. ``--runtime
+    parallel`` trains through the port's ParameterAveragingTrainer on a
+    one-rank mesh: from the JAX net's initial params it saves the params
+    of JAX's trainer on ``data_parallel_mesh(1)`` (the JAX CLI's, with its
+    mesh cut to one device) within ATOL, after 3 batches of 60 local
+    iterations. ``--profile DIR`` writes a torch.profiler trace into DIR
+    and saves, from JAX's initial params, the params of JAX's traced run
+    within ATOL and exactly the port's unprofiled run's."""
     args = ["train", "--conf", conf_path, "--input", iris_csv, "--labels",
             "3", *extra]
-    if extra[:2] != ["--runtime", "parallel"]:
-        with pytest.raises(SystemExit, match=slice_):
-            main(args + ["--model", str(tmp_path / "m.npz")])
-        assert not (tmp_path / "m.npz").exists()
-        return
     from deeplearning4j_tpu.parallel import mesh as jmesh
 
     init = np.array(JNet(JConfiguration.from_json(_conf().to_json()))
@@ -418,8 +415,22 @@ def test_unported_train_options_exit_naming_their_slice(conf_path, iris_csv,
     monkeypatch.setattr(jmesh, "data_parallel_mesh",
                         lambda n_devices=None, devices=None: one_device(1))
     args += ["--batch", "50"]
-    assert jmain(args + ["--model", str(tmp_path / "jax.npz")]) == 0
-    assert main(args + ["--model", str(tmp_path / "port.npz")]) == 0
+    if "--profile" in extra:
+        at = args.index("--profile") + 1
+        jargs = list(args)
+        jargs[at] = str(tmp_path / "jax_trace")
+        args[at] = str(tmp_path / "trace_dir")
+        assert jmain(jargs + ["--model", str(tmp_path / "jax.npz")]) == 0
+        assert main(args + ["--model", str(tmp_path / "port.npz")]) == 0
+        plain = [a for a in args if a not in ("--profile", args[at])]
+        assert main(plain + ["--model", str(tmp_path / "plain.npz")]) == 0
+        assert list((tmp_path / "trace_dir").glob("trace_*.json"))
+        np.testing.assert_array_equal(
+            np.load(tmp_path / "port.npz")["params"],
+            np.load(tmp_path / "plain.npz")["params"])
+    else:
+        assert jmain(args + ["--model", str(tmp_path / "jax.npz")]) == 0
+        assert main(args + ["--model", str(tmp_path / "port.npz")]) == 0
     want = np.load(tmp_path / "jax.npz")["params"]
     got = np.load(tmp_path / "port.npz")["params"]
     assert got.shape == want.shape and not np.allclose(want, init)

@@ -777,10 +777,11 @@ def test_port_draws_are_a_function_of_seed_worker_and_step():
                                  device="cpu")
     assert int(np.isnan(p._batch_for(3, 5)[0]).sum()) == 1
     assert not np.isnan(p._batch_for(2, 5)[0]).any()
-    with pytest.raises(NotImplementedError, match="21a-ii"):
-        SyntheticRegressionModel(device="cpu", profile=True)
-    with pytest.raises(NotImplementedError, match="21a-ii"):
-        SyntheticRegressionModel(device="cpu", runprof=True)
+    # the profile= and runprof= seams (item 21a-ii) arm without raising
+    # and change no number (tests/test_torch_runprof.py runs them)
+    for kw in ({"profile": True}, {"runprof": False}):
+        armed = SyntheticRegressionModel(**TOY, device="cpu", **kw)
+        assert armed.step_profile is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             SyntheticRegressionModel()

@@ -22,14 +22,7 @@ UNPORTED = {
     "utils": {"DiskBasedQueue", "Viterbi", "clamp", "entropy",
               "information_gain", "normalize_to_range", "rounded",
               "sigmoid", "sum_of_squares", "uniform"},         # item 21d
-    "telemetry": {                                         # item 21a-ii
-        "DEFAULT_INTERVAL", "MemoryWatermarkSampler", "ProfileStore",
-        "ProfiledStep", "RunProfiledStep", "RunProfiler", "StepProfile",
-        "StepTiming", "TrainTelemetry", "attribute", "chrome_trace_events",
-        "default_profile_store", "default_runprof", "find_sessions",
-        "get_runprof", "load_session", "maybe_runprof", "profile_compiled",
-        "profile_lowered", "resolve_runprof", "set_runprof",
-        "summarize_session"},
+    "telemetry": set(),
 }
 
 # names only the port exports

@@ -362,12 +362,26 @@ def test_sp_and_expert_meshes_place_like_jax(axes):
 
 def test_unported_seams_raise_and_sharded_state_needs_a_mesh():
     mesh = Mesh(("data",), (1,))
-    for kw in ({"profile": True}, {"runprof": True}, {"tuned": True}):
-        with pytest.raises(NotImplementedError, match="slice 9"):
-            TT.make_composed_train_step(mesh, H, CAP, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="21b"):
+        TT.make_composed_train_step(mesh, H, CAP, device="cpu", tuned=True)
     params = lm_params_from_numpy(
         _np(JT.init_lm_params(jax.random.PRNGKey(1), V, D, H, E, FF, 1)),
         "cpu")
+    # profile= and runprof= (item 21a-ii) arm and change no output
+    from deeplearning4j_tpu_torch._device import tree_leaves
+    from deeplearning4j_tpu_torch.telemetry.registry import MetricsRegistry
+    from deeplearning4j_tpu_torch.telemetry.runprof import RunProfiler
+
+    tokens = np.random.RandomState(3).randint(0, V, (B, T + 1))
+    plain = TT.make_composed_train_step(mesh, H, CAP, device="cpu")
+    want = plain(params, tokens[:, :-1], tokens[:, 1:])
+    for kw in ({"profile": True},
+               {"runprof": RunProfiler(registry=MetricsRegistry())}):
+        step = TT.make_composed_train_step(mesh, H, CAP, device="cpu", **kw)
+        got = step(params, tokens[:, :-1], tokens[:, 1:])
+        assert all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(want), tree_leaves(got)))
+        assert step.step_profile.label == "lm_composed[data]"
     cfg = jupd.OptimizerConfig(name="adam", update_sharding="sharded")
     with pytest.raises(ValueError, match="mesh"):
         JT.init_lm_opt_state(cfg, params)

@@ -365,13 +365,31 @@ def test_param_shardings_equal_jax(dp, tp):
 
 
 def test_profile_seams_raise_naming_slice_9():
+    """The seams slice 9 named (item 21a-ii) now arm: on a one-rank mesh
+    the profiled and phase-timed step's outputs equal the plain step's,
+    under JAX's label; four ranks run in tests/test_torch_xprofile.py."""
+    from deeplearning4j_tpu_torch._device import tree_leaves
+    from deeplearning4j_tpu_torch.nn import functional as TF
     from deeplearning4j_tpu_torch.parallel.trainer import \
         make_sync_train_step
+    from deeplearning4j_tpu_torch.telemetry.registry import MetricsRegistry
+    from deeplearning4j_tpu_torch.telemetry.runprof import RunProfiler
 
     conf = _iris_conf(NeuralNetConfiguration)
-    for kw in ({"profile": True}, {"runprof": True}):
-        with pytest.raises(NotImplementedError, match="slice 9"):
-            make_sync_train_step(conf, tmesh.data_parallel_mesh(), **kw)
+    mesh = tmesh.data_parallel_mesh()
+    params = TF.init_params(conf, 0, device="cpu")
+    states = TF.init_train_state(conf, params)
+    x, y = _iris()
+    args = (0, x[:16], y[:16], np.ones(16, np.float32), 1)
+    want = make_sync_train_step(conf, mesh)(params, states, *args)
+    for kw in ({"profile": True},
+               {"runprof": RunProfiler(registry=MetricsRegistry())}):
+        step = make_sync_train_step(conf, mesh, **kw)
+        got = step(params, states, *args)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(want), tree_leaves(got)))
+        assert step.step_profile.label == "dp_sync[1]"
+        assert step.step_profile.flops > 0
 
 
 @pytest.mark.parametrize("sync", [True, False])

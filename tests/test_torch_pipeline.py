@@ -298,6 +298,24 @@ def test_validation_and_stage_helpers():
                              Mesh(("pipe",), (1,)))
     with pytest.raises(ValueError, match="needs the 'data' axis"):
         tpipe.pp_update_sharding(Mesh(("pipe",), (1,)))
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    with pytest.raises(NotImplementedError, match="21b"):
         tpipe.make_pipeline_train_step(lambda p, x: x, lambda a, b: a,
-                                       Mesh(("pipe",), (1,)), profile=True)
+                                       Mesh(("pipe",), (1,)), tuned=True)
+    # profile= (item 21a-ii) arms under JAX's label and changes no output
+    from deeplearning4j_tpu_torch._device import tree_leaves
+
+    w = {"w": torch.full((1, 2, 2), 0.5), "b": torch.zeros(1, 2)}
+    xs = torch.ones(2, 1, 2)
+
+    def stage(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    def mse(a, b):
+        return ((a - b) ** 2).mean()
+
+    plain = tpipe.make_pipeline_train_step(stage, mse, Mesh(("pipe",), (1,)))
+    step = tpipe.make_pipeline_train_step(stage, mse, Mesh(("pipe",), (1,)),
+                                          profile=True)
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(plain(w, xs, xs)), tree_leaves(step(w, xs, xs))))
+    assert step.step_profile.label == "pipeline[pipe]"

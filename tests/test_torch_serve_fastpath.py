@@ -562,9 +562,18 @@ def test_all_fast_paths_composed_parity(params):
 
 
 def test_runprof_and_tuned_raise_naming_slice_9(params):
-    for kw in ({"runprof": True}, {"tuned": True}, {"tuned": {"slots": 2}}):
-        with pytest.raises(NotImplementedError, match="slice 9"):
+    """``tuned=`` still raises, now naming ROADMAP item 21b; ``runprof=``
+    (item 21a-ii) arms the engine (tests/test_torch_runprof.py drives
+    it)."""
+    for kw in ({"tuned": True}, {"tuned": {"slots": 2}}):
+        with pytest.raises(NotImplementedError, match="21b"):
             DecodeEngine(params, H, device="cpu", **kw)
+    from deeplearning4j_tpu_torch.telemetry.registry import MetricsRegistry
+    from deeplearning4j_tpu_torch.telemetry.runprof import RunProfiler
+
+    prof = RunProfiler(registry=MetricsRegistry())
+    assert DecodeEngine(params, H, device="cpu", runprof=prof)._runprof \
+        is prof
     DecodeEngine(params, H, device="cpu", runprof=False, tuned=False)
 
 

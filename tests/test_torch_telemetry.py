@@ -331,3 +331,137 @@ def test_telemetry_report_reads_a_port_log(tmp_path):
                          cwd=REPO)
     assert out.returncode == 3
     assert "truncated or corrupt" in out.stderr and "line 4" in out.stderr
+
+
+# ------------------------------------------------------- TrainTelemetry ----
+
+def _metric_window(n, seed=0):
+    """``n`` steps of metrics as a train step returns them: f32 scalars, a
+    router-load vector, an int count and a host float."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        load = rng.dirichlet(np.ones(4)).astype(np.float32)
+        out.append({"loss": np.float32(rng.rand() * 3),
+                    "grad_norm": np.float32(rng.rand()),
+                    "router_load": load,
+                    "moe_dropped": np.int32(rng.randint(0, 5)),
+                    "lr": 0.1 * (i + 1)})
+    return out
+
+
+def _as(module_tensor, m):
+    return {k: (module_tensor(v) if isinstance(v, np.ndarray | np.generic)
+                else v) for k, v in m.items()}
+
+
+class TestTrainTelemetry:
+    def test_records_and_gauges_equal_jax(self, tmp_path, monkeypatch):
+        """The same metric values through the port's TrainTelemetry (torch
+        tensors) and JAX's (jax arrays), on one fake clock: equal records
+        (less the log's wall-clock ``ts``) and equal registries."""
+        import time as time_mod
+
+        import jax.numpy as jnp
+
+        from deeplearning4j_tpu.telemetry.registry import MetricsRegistry \
+            as JReg
+        from deeplearning4j_tpu.telemetry.registry import flat_record as jflat
+        from deeplearning4j_tpu.telemetry.session import TrainTelemetry \
+            as JTele
+        from deeplearning4j_tpu_torch.telemetry import (
+            DEFAULT_INTERVAL,
+            TrainTelemetry,
+            flat_record,
+        )
+
+        assert DEFAULT_INTERVAL == 10
+        window = _metric_window(7)
+        got = {}
+        for name, cls, reg, conv in (
+                ("port", TrainTelemetry, MetricsRegistry(), torch.tensor),
+                ("jax", JTele, JReg(), jnp.asarray)):
+            clock = iter(np.arange(100, dtype=np.float64) * 0.25)
+            monkeypatch.setattr(time_mod, "perf_counter",
+                                lambda: float(next(clock)))
+            tele = cls(registry=reg, interval=3, tokens_per_step=64,
+                       step_log_path=str(tmp_path / f"{name}.jsonl"),
+                       static={"mesh": "dp1", "attn_impl": "dense"})
+            for i, m in enumerate(window):
+                tele.record(i, _as(conv, m))
+            tele.close()
+            recs = [{k: v for k, v in r.items() if k != "ts"}
+                    for r in tele.records]
+            logged = [{k: v for k, v in r.items() if k != "ts"}
+                      for r in read_step_log(str(tmp_path / f"{name}.jsonl"))]
+            flat = (flat_record if name == "port" else jflat)(reg)
+            got[name] = (recs, logged, flat, tele.steps_recorded)
+            monkeypatch.undo()
+        assert got["port"] == got["jax"]
+        recs = got["port"][0]
+        assert [r["step"] for r in recs] == list(range(7))
+        assert isinstance(recs[0]["moe_dropped"], int)
+        assert recs[1]["wall_ms"] == 250.0
+
+    def test_record_off_an_edge_moves_nothing(self, monkeypatch):
+        """``record()`` between interval edges touches no tensor; the edge
+        moves the whole window in ONE ``.cpu()``."""
+        from deeplearning4j_tpu_torch.telemetry import TrainTelemetry
+
+        calls = []
+        real = torch.Tensor.cpu
+
+        def counted(self, *a, **kw):
+            calls.append(tuple(self.shape))
+            return real(self, *a, **kw)
+
+        monkeypatch.setattr(torch.Tensor, "cpu", counted)
+        monkeypatch.setattr(torch.Tensor, "tolist", lambda self: (
+            calls.append("tolist:" + str(tuple(self.shape))),
+            real(self).numpy().tolist())[1])
+        tele = TrainTelemetry(registry=MetricsRegistry(), interval=4)
+        window = _metric_window(4, seed=3)
+        for i, m in enumerate(window[:3]):
+            tele.record(i, _as(torch.tensor, m))
+        assert calls == [] and tele.records == []
+        tele.record(3, _as(torch.tensor, window[3]))
+        transfers = [c for c in calls if not isinstance(c, str)]
+        assert transfers == [(4 * (1 + 1 + 4 + 1),)]
+        assert len(tele.records) == 4
+
+    def test_lm_step_metrics_through_the_window(self, tmp_path):
+        """The port's metrics-threaded LM step feeding TrainTelemetry, as
+        JAX's test_telemetry does with the composed step."""
+        import jax
+
+        from deeplearning4j_tpu.models.transformer_lm import init_lm_params
+        from deeplearning4j_tpu_torch.interop import lm_params_from_numpy
+        from deeplearning4j_tpu_torch.models import transformer_lm as TT
+        from deeplearning4j_tpu_torch.telemetry import TrainTelemetry
+
+        params = lm_params_from_numpy(jax.tree_util.tree_map(
+            np.asarray, init_lm_params(jax.random.PRNGKey(0), 32, 16, 2, 2,
+                                       32, n_layers=1)), "cpu")
+        step = TT.make_single_device_train_step(2, with_metrics=True,
+                                                device="cpu")
+        toks = np.random.RandomState(0).randint(0, 32, (2, 9))
+        path = str(tmp_path / "steps.jsonl")
+        reg = MetricsRegistry()
+        tele = TrainTelemetry(registry=reg, step_log_path=path, interval=2,
+                              tokens_per_step=16,
+                              static={"attn_impl": "dense"})
+        for i in range(5):
+            params, loss, metrics = step(params, toks[:, :-1], toks[:, 1:])
+            tele.record(i, metrics)
+        tele.close()
+        recs = read_step_log(path)
+        assert [r["step"] for r in recs] == list(range(5))
+        for i, rec in enumerate(recs):
+            assert isinstance(rec["loss"], float)
+            assert isinstance(rec["grad_norm"], float)
+            assert abs(sum(rec["router_load"]) - 1.0) < 1e-5
+            if i > 0:
+                assert rec["wall_ms"] > 0 and rec["tokens_per_sec"] > 0
+        text = render_prometheus(reg)
+        assert 'train_router_load{expert="0"}' in text
+        assert "train_steps_total 5" in text

@@ -357,8 +357,14 @@ def test_sharded_update_and_bad_seams_rejected(np_params, monkeypatch):
         tlm.init_lm_opt_state(None, _tp(np_params), device="cpu")
     assert tupd.OptimizerConfig.coerce("adagrad").eps == \
         jupd.OptimizerConfig.coerce("adagrad").eps
-    with pytest.raises(TypeError):
-        tlm.make_single_device_train_step(H, profile=True, device="cpu")
+    # profile= (item 21a-ii) is a seam of the step now; tuned= still
+    # raises, naming item 21b
+    from deeplearning4j_tpu_torch.telemetry.xprofile import ProfiledStep
+
+    assert isinstance(tlm.make_single_device_train_step(
+        H, profile=True, device="cpu"), ProfiledStep)
+    with pytest.raises(NotImplementedError, match="21b"):
+        tlm.make_single_device_train_step(H, tuned=True, device="cpu")
 
 
 @pytest.mark.parametrize("name", ["adagrad", "momentum", "sgd"])
