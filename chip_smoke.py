@@ -354,7 +354,38 @@ Phases, each fatal on failure:
    "error"), the records equal the metrics read one by one; (f)
    MemoryWatermarkSampler over (a): the allocator's peak at least the
    params plus the grads;
-18. output: the card's name and power limit from nvidia-smi, one JSON line
+18. items 21b and 21c (``slice21bc``), at the flagship's full width: (a)
+   K3f at key splits 1 and 2 (the blockwise tiles' launch:
+   ops.flash_attention.key_split_for; split 0 is the launch's own rule,
+   phase 2's) against its plain version over T in {65, 1000, 2048}, Dh in
+   {24, 64, 128}, causal and not, f32 and bf16, at phase 2's tolerances;
+   each split's device time beside split 0's at the serving shape (bf16)
+   and the training shape (f32, bf16), with the bound and SDPA's time;
+   (b) the autotuner: tune.seams.lm_seam at B=4, T=2048 (every valid
+   flash_attention candidate measured, each within 1e-5 of the default,
+   K3f, K3k and K3q n_layers each in every profiled and measured call),
+   serve_seam at max_len 2048 in bf16 (the measured candidates' tokens
+   equal the default's, K3f n_layers x the kernel admissions in every
+   measured call) and flash_seam at T=2048 (one cost vector, none
+   pruned), each winner stored into a cache in a temporary directory,
+   and ``python -m deeplearning4j_tpu_torch.tune --fast --json --store``
+   once (counts, winners, tuned_vs_default and rank correlation logged);
+   (c) the cache's winners adopted: DecodeEngine(tuned=True) under
+   DL4J_TPU_TUNE_CACHE takes the stored min_bucket and slots, its greedy
+   streams equal the untuned engine's, K3f n_layers x the admissions;
+   make_single_device_train_step(tuned=True, tune_context=lm_context(...))
+   launches K3f at the stored tiles' key split, loss and params within
+   1e-5 of the untuned step's; (d) the UI: UiServer on 127.0.0.1:0 over a
+   started bf16 DecodeEngine (max_len 2048): run_open_loop_http sends 16
+   greedy requests at half the request rate phase 3's burst sustained,
+   their tokens equal an in-process run_open_loop's of the same prompts
+   on a twin engine, each request one trace (loadgen.request ->
+   http.request -> serve.request), K3f n_layers x the admissions;
+   tokens/s and p50/p99 over HTTP beside in process; /api/serve and
+   /metrics; then /api/fleet over two replicas behind a FleetRouter and
+   one routed /api/generate (the tokens of the in-process run, K3f
+   n_layers x its admission);
+19. output: the card's name and power limit from nvidia-smi, one JSON line
    listing each kernel (K3f at the serving shape; K3f, K3k, K3q at the
    training shape in f32 and bf16 with their launches over the timed f32
    training run; K1 at both MLP layer shapes in f32 and bf16 with its
@@ -375,7 +406,11 @@ Phases, each fatal on failure:
    phase 14's ring at the row's type, ``composed_launches`` and
    ``pp_launches``, their counts over phase 14's composed and staged
    runs; K1's rows ``pp_launches``, its count over phase 14's
-   pipeline_from_conf run), and as the
+   pipeline_from_conf run; K3f's rows ``split1_ms`` and ``split2_ms``,
+   phase 18's times at key splits 1 and 2, its serving row
+   ``ui_launches``, its counts over phase 18's HTTP burst and routed
+   request, and the training rows of K3f, K3k and K3q ``tune_launches``,
+   their counts over phase 18's lm_seam search), and as the
    last line {"ok": true, "device": {"platform": "gpu", "kind": ...,
    "count": ...}}. An f32 row's bound is that of f32-accurate products: the least
    of the CUDA cores' 67 TFLOP/s and three TF32 products at 495 (the
@@ -7295,6 +7330,572 @@ def slice21a2(smi: str, phase3: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 18 ----
+
+# K3f's key split: the splits a caller may force (0 is the launch's own
+# rule, phase 2's), their parity cases and the shapes they are timed at
+KEY_SPLITS = (1, 2)
+SPLIT_TS = (65, 1000, 2048)
+SPLIT_DHS = (24, 64, 128)
+SPLIT_TIMED = (("serving", 1, "bfloat16"), ("training", TRAIN_B, "float32"),
+               ("training", TRAIN_B, "bfloat16"))
+TUNE_REPEATS = 3          # paired timings a frontier candidate
+UI_REQUESTS = 16
+UI_LOAD = 0.5             # of the request rate phase 3's burst sustained
+UI_SEED = 19              # the open-loop arrival schedule's
+UI_ROUTED = 7             # the request routed through the fleet: 1100
+#                           tokens, a bucket the kernel takes
+
+
+def key_split_parity() -> int:
+    """K3f at key splits 1 and 2 against its plain version, at phase 2's
+    tolerances."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+    n = 0
+    for split in KEY_SPLITS:
+        for t in SPLIT_TS:
+            for dh in SPLIT_DHS:
+                for causal in (True, False):
+                    for dtype in (torch.float32, torch.bfloat16):
+                        q, k, v = _qkv((2, 2, t, dh), dtype, seed=t + dh + 1)
+                        o, lse = fa.flash_attention_fwd(q, k, v, causal,
+                                                        key_split=split)
+                        ro, rlse = fa.flash_attention_reference(q, k, v,
+                                                                causal)
+                        sync()
+                        tol = TOL[str(dtype).split(".")[1]]
+                        eo = (o.float() - ro.float()).abs().max().item()
+                        el = (lse - rlse).abs().max().item()
+                        ok = (eo <= tol["o"] and el <= tol["lse"]
+                              and torch.isfinite(o.float()).all().item())
+                        log(f"[parity] flash key_split={split} T={t} "
+                            f"Dh={dh} causal={causal} {dtype}: o err "
+                            f"{eo:.3g} lse err {el:.3g} "
+                            f"{'ok' if ok else 'FAIL'}")
+                        if not ok:
+                            raise AssertionError(
+                                f"K3f at key split {split} disagrees with "
+                                f"its plain version at T={t} Dh={dh} "
+                                f"causal={causal} {dtype}: o {eo}, lse {el}")
+                        n += 1
+    log(f"[parity] flash_attention_fwd key splits {KEY_SPLITS}: {n} cases "
+        f"agree")
+    return n
+
+
+def key_split_measure() -> dict:
+    """Each split's device time beside split 0's (the launch's own rule)
+    at the serving shape and the training shapes, with the bound and
+    SDPA's time as in phase 2. Keyed by "serving bfloat16", "training
+    float32", "training bfloat16"."""
+    import torch
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    h, t, dh = N_HEADS, MAX_LEN, D_MODEL // N_HEADS
+    for name, b, dtype_name in SPLIT_TIMED:
+        dtype = getattr(torch, dtype_name)
+        q, k, v = _qkv((b, h, t, dh), dtype, seed=31)
+        row = {}
+        for split in (0,) + KEY_SPLITS:
+            row[f"split{split}_ms"] = device_ms(
+                lambda: fa.flash_attention_fwd(q, k, v, True,
+                                               key_split=split))
+        row["sdpa_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), reps=20)
+        flops, _, nbytes = costs.flash_attention_fwd_cost(
+            b, h, t, dh, True, q.element_size())
+        entry = _kernel_entry(
+            "flash_attention_fwd", "", row["split0_ms"], None, flops,
+            nbytes, F32_PRODUCTS if dtype == torch.float32
+            else PEAK_BF16_FLOPS, None, row["sdpa_ms"], "")
+        row["bound_ms"], row["bound_by"] = entry["bound_ms"], \
+            entry["bound_by"]
+        key = f"{name} {dtype_name}"
+        out[key] = row
+        log(f"[measure] flash_attention_fwd key split, B={b} H={h} T={t} "
+            f"Dh={dh} causal {dtype_name} ({name}): split 0 (own rule) "
+            f"{row['split0_ms']:.4f} ms, split 1 {row['split1_ms']:.4f} ms,"
+            f" split 2 {row['split2_ms']:.4f} ms; sdpa "
+            f"{row['sdpa_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
+def _counted(fn, names, want_fn, what: str, record: list):
+    """``fn`` with the launches of ``names`` counted from 0 over each call
+    and held to ``want_fn(cfg)``; each call's counts go to ``record``."""
+    from deeplearning4j_tpu_torch.ops import _kernels
+
+    def wrapped(cfg):
+        _kernels.reset_launches()
+        out = fn(cfg)
+        got = {n: _kernels.LAUNCHES[n] for n in names}
+        want = want_fn(cfg)
+        if got != want:
+            raise AssertionError(f"{what} {cfg}: launches {got}, expected "
+                                 f"{want}")
+        record.append(got)
+        return out
+
+    return wrapped
+
+
+def _search_summary(res) -> dict:
+    ratios = {json.dumps(r.config, sort_keys=True): r.ratio_vs_default
+              for r in res.candidates if r.measured}
+    return {"counts": res.counts, "default": res.default_config,
+            "winner": res.winner_config,
+            "tuned_vs_default": res.tuned_vs_default,
+            "rank_correlation": res.rank_correlation,
+            "ratio_vs_default": ratios}
+
+
+def tune_phase(work: str) -> dict:
+    """The search at the flagship's full width: lm_seam (B=4, T=2048,
+    f32), serve_seam (max_len 2048, bf16) and flash_seam (T=2048) with
+    their winners stored into a cache under ``work``; then the CLI once."""
+    from deeplearning4j_tpu_torch.ops.flash_attention import key_split_for
+    from deeplearning4j_tpu_torch.tune import seams
+    from deeplearning4j_tpu_torch.tune.cache import TuningCache
+    from deeplearning4j_tpu_torch.tune.search import search
+    from deeplearning4j_tpu_torch.tune.space import get_space
+
+    cache = TuningCache(os.path.join(work, "TUNE_CACHE.json"))
+    decisions = os.path.join(work, "decisions")
+    out = {"cache": cache.path}
+
+    # lm: every valid candidate runs the three kernels once a layer, in
+    # its profiled call and in every measured call
+    t0 = time.perf_counter()
+    lm = seams.lm_seam(VOCAB, D_MODEL, N_HEADS, N_EXPERTS, D_FF, N_LAYERS,
+                       seq_len=TRAIN_T, batch=TRAIN_B, device=DEVICE)
+    every = dict.fromkeys(TRAIN_KERNELS, N_LAYERS)
+    lm_calls = []
+    res = search(get_space(lm.seam), lm.context, lm.default_config,
+                 _counted(lm.compile_fn, TRAIN_KERNELS, lambda c: every,
+                          "lm_seam profiled call", []),
+                 _counted(lm.measure_fn, TRAIN_KERNELS, lambda c: every,
+                          "lm_seam measured call", lm_calls),
+                 lm.outputs_match, repeats=TUNE_REPEATS, out_dir=decisions)
+    valid = [r for r in res.candidates if not r.invalid_reason]
+    if not all(r.measured and r.numerics_match for r in valid):
+        bad = [(r.config, r.pruned_by, r.pruned_reason, r.numerics_match)
+               for r in valid if not (r.measured and r.numerics_match)]
+        raise AssertionError(f"lm_seam: candidates (config, pruned by, "
+                             f"why, numerics) {bad} were not measured or "
+                             "do not match the default at 1e-5")
+    cache.store(lm.seam, lm.context, res.winner_config,
+                meta={"tuned_vs_default": res.tuned_vs_default,
+                      "label": lm.label})
+    out["lm"] = {**_search_summary(res), "measured_calls": len(lm_calls),
+                 "launches_per_call": every,
+                 "winner_key_split": key_split_for(
+                     res.winner_config["block_q"],
+                     res.winner_config["block_k"]),
+                 "wall_s": time.perf_counter() - t0}
+    log(f"[tune] lm_seam {json.dumps(out['lm'])}")
+
+    # serve: K3f once a layer for every admission at a kernel bucket
+    t0 = time.perf_counter()
+    sv = seams.serve_seam(VOCAB, D_MODEL, N_HEADS, N_EXPERTS, D_FF,
+                          N_LAYERS, max_len=MAX_LEN, serve_dtype="bf16",
+                          device=DEVICE)
+    engines = sv.extras["engines"]
+    sv_calls = []
+
+    def serve_want(cfg):
+        eng = engines[tuple(sorted(cfg.items()))]
+        reqs = [type("R", (), {"bucket": eng.bucket_for(len(p))})
+                for p in sv.extras["prompts"]]
+        return {"flash_attention_fwd":
+                N_LAYERS * _kernel_admissions(eng, reqs)}
+
+    res = search(get_space(sv.seam), sv.context, sv.default_config,
+                 sv.compile_fn,
+                 _counted(sv.measure_fn, ("flash_attention_fwd",),
+                          serve_want, "serve_seam measured call", sv_calls),
+                 sv.outputs_match, repeats=TUNE_REPEATS, out_dir=decisions)
+    measured = [r for r in res.candidates if r.measured]
+    if not all(r.numerics_match for r in measured):
+        raise AssertionError(
+            "serve_seam: measured candidates "
+            f"{[r.config for r in measured if not r.numerics_match]} "
+            "generate other tokens than the default")
+    if not any(c["flash_attention_fwd"] for c in sv_calls):
+        raise AssertionError("serve_seam: no admission reached K3f")
+    cache.store(sv.seam, sv.context, res.winner_config,
+                meta={"tuned_vs_default": res.tuned_vs_default,
+                      "label": sv.label})
+    out["serve"] = {**_search_summary(res),
+                    "k3f_launches_per_call": sv_calls[-1],
+                    "wall_s": time.perf_counter() - t0}
+    log(f"[tune] serve_seam {json.dumps(out['serve'])}")
+
+    # flash: the standalone core at T=2048
+    t0 = time.perf_counter()
+    fl = seams.flash_seam(seq_len=TRAIN_T, device=DEVICE)
+    res = search(get_space(fl.seam), fl.context, fl.default_config,
+                 fl.compile_fn, fl.measure_fn, fl.outputs_match,
+                 repeats=TUNE_REPEATS, out_dir=decisions)
+    costs_seen = {json.dumps(r.cost, sort_keys=True)
+                  for r in res.candidates if r.profiled}
+    if res.counts["pruned"] or len(costs_seen) != 1:
+        raise AssertionError(f"flash_seam: {len(costs_seen)} cost vectors, "
+                             f"{res.counts['pruned']} pruned; the kernels' "
+                             "costs do not depend on the tiles")
+    if not all(r.numerics_match for r in res.candidates if r.measured):
+        raise AssertionError("flash_seam: a key split moved the outputs "
+                             "past 1e-5")
+    cache.store(fl.seam, fl.context, res.winner_config,
+                meta={"tuned_vs_default": res.tuned_vs_default,
+                      "label": fl.label})
+    out["flash"] = {**_search_summary(res),
+                    "wall_s": time.perf_counter() - t0}
+    log(f"[tune] flash_seam {json.dumps(out['flash'])}")
+    if len(cache.entries()) != 3:
+        raise AssertionError(f"the cache holds {sorted(cache.entries())}")
+
+    # the CLI, as a user runs it, at its fast sizes on the card
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.tune", "--fast",
+         "--json", "--out", os.path.join(work, "cli_out"), "--store",
+         "--cache", os.path.join(work, "CLI_CACHE.json"), "--device",
+         DEVICE], cwd=work, env=env, capture_output=True, text=True,
+        timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"tune CLI exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    if [s["seam"] for s in summary["seams"]] != [
+            "flash_attention", "flash_attention", "serve"] or not all(
+            s["stored_key"] for s in summary["seams"]):
+        raise AssertionError(f"tune CLI summary {summary}")
+    out["cli"] = {"seams": [{k: s[k] for k in ("label", "winner",
+                                               "tuned_vs_default", "counts")}
+                            for s in summary["seams"]],
+                  "wall_s": time.perf_counter() - t0}
+    log(f"[tune] cli {json.dumps(out['cli'])}")
+    return out
+
+
+def adoption_phase(params, cache_path: str) -> dict:
+    """The cache's winners through the ``tuned=`` seams:
+    DecodeEngine(tuned=True) under DL4J_TPU_TUNE_CACHE (streams equal the
+    untuned engine's, K3f n_layers x the admissions) and
+    make_single_device_train_step(tuned=True, tune_context=lm_context)
+    (loss and params within 1e-5 of the untuned step's, K3f at the stored
+    tiles' key split)."""
+    import torch
+
+    from deeplearning4j_tpu_torch._device import tree_leaves, tree_map
+    from deeplearning4j_tpu_torch.models.transformer_lm import (
+        make_single_device_train_step,
+    )
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.serve.engine import DecodeEngine
+    from deeplearning4j_tpu_torch.tune import seams
+    from deeplearning4j_tpu_torch.tune.cache import TuningCache
+
+    cache = TuningCache(cache_path)
+    ctx = seams.lm_context(N_HEADS, D_MODEL, N_LAYERS, VOCAB, D_FF,
+                           N_EXPERTS, TRAIN_T, TRAIN_B, device=DEVICE)
+    lm_win = cache.lookup("flash_attention", ctx)
+    serve_win = cache.lookup("serve", seams.serve_context(
+        {"vocab": VOCAB, "d_model": D_MODEL, "n_layers": N_LAYERS,
+         "d_ff": D_FF, "n_experts": N_EXPERTS}, N_HEADS, MAX_LEN,
+        device=DEVICE))
+    if lm_win is None or serve_win is None:
+        raise AssertionError(f"cache misses: lm {lm_win}, serve {serve_win}")
+    out = {"lm_winner": lm_win, "serve_winner": serve_win}
+    saved = {k: os.environ.get(k) for k in ("DL4J_TPU_TUNE_CACHE",
+                                            "DL4J_TPU_TUNED")}
+    os.environ["DL4J_TPU_TUNE_CACHE"] = cache_path
+    try:
+        kw = dict(max_len=MAX_LEN, serve_dtype="bf16", seed=5,
+                  device=DEVICE)
+        plain = DecodeEngine(params, N_HEADS, n_slots=N_SLOTS, tuned=False,
+                             **kw)
+        tuned = DecodeEngine(params, N_HEADS, n_slots=N_SLOTS, tuned=True,
+                             **kw)
+        if (tuned.n_slots, tuned._buckets[0]) != (serve_win["slots"],
+                                                  serve_win["min_bucket"]):
+            raise AssertionError(f"DecodeEngine(tuned=True) took slots "
+                                 f"{tuned.n_slots}, bucket "
+                                 f"{tuned._buckets[0]}; stored {serve_win}")
+        rng = np.random.RandomState(23)
+        prompts = [_prompt(rng, n) for n in PROMPT_LENS]
+        streams = {}
+        for name, eng in (("plain", plain), ("tuned", tuned)):
+            _kernels.reset_launches()
+            reqs = [eng.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
+            eng.run_until_idle()
+            sync()
+            got = _kernels.LAUNCHES["flash_attention_fwd"]
+            want = N_LAYERS * _kernel_admissions(eng, reqs)
+            if got != want or want == 0:
+                raise AssertionError(f"{name} engine: K3f {got}, expected "
+                                     f"{want}")
+            streams[name] = [list(r.generated) for r in reqs]
+            out[f"{name}_k3f_launches"] = got
+        same = sum(a == b for a, b in zip(streams["plain"],
+                                          streams["tuned"]))
+        out["streams_equal"] = f"{same}/{len(prompts)}"
+        log(f"[adopt] engine tuned=True: slots {tuned.n_slots}, min_bucket "
+            f"{tuned._buckets[0]}, streams equal {out['streams_equal']}, "
+            f"K3f {out['tuned_k3f_launches']}")
+        if same != len(prompts):
+            raise AssertionError("DecodeEngine(tuned=True) streams differ "
+                                 "from the untuned engine's")
+        del plain, tuned
+
+        # the train step: the stored tiles' key split, per layer
+        splits, orig = [], fa.flash_attention_fwd
+
+        def recording(q, k, v, causal=False, key_split=0):
+            splits.append(key_split)
+            return orig(q, k, v, causal, key_split=key_split)
+
+        toks = torch.as_tensor(np.random.RandomState(5).randint(
+            0, VOCAB, (TRAIN_B, TRAIN_T + 1)), device=DEVICE)
+        toks, tgts = toks[:, :-1], toks[:, 1:]
+        results = {}
+        for name, kw in (("plain", {}), ("tuned", {"tuned": True,
+                                                   "tune_context": ctx})):
+            fa.flash_attention_fwd = recording
+            try:
+                step = make_single_device_train_step(N_HEADS, device=DEVICE,
+                                                     **kw)
+                results[name] = step(tree_map(lambda _, x: x.clone(),
+                                              params), toks, tgts)
+                sync()
+            finally:
+                fa.flash_attention_fwd = orig
+        want_split = fa.key_split_for(lm_win["block_q"], lm_win["block_k"])
+        if splits != [0] * N_LAYERS + [want_split] * N_LAYERS:
+            raise AssertionError(f"key splits {splits}: the tuned step "
+                                 f"should take {want_split} from {lm_win}")
+        (p0, l0), (p1, l1) = results["plain"], results["tuned"]
+        loss_err = abs(float(l0) - float(l1))
+        param_err = max((a.float() - b.float()).abs().max().item()
+                        for a, b in zip(tree_leaves(p0), tree_leaves(p1)))
+        out.update(step_key_split=want_split, step_loss_err=loss_err,
+                   step_param_err=param_err)
+        log(f"[adopt] train step tuned=True: key split {want_split} from "
+            f"{lm_win}; loss err {loss_err:.3g}, params max abs err "
+            f"{param_err:.3g}")
+        if not (loss_err <= 1e-5 and param_err <= 1e-5):
+            raise AssertionError("the tuned step left the untuned one by "
+                                 f"more than 1e-5: {loss_err}, {param_err}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out
+
+
+def ui_phase(params, phase3: dict, smi: str) -> dict:
+    """UiServer on 127.0.0.1:0 over a started bf16 engine at full width:
+    run_open_loop_http's burst against an in-process run_open_loop of the
+    same prompts on a twin engine (tokens, one trace a request, K3f
+    n_layers x admissions, tokens/s and latency both ways); then
+    /api/serve, /metrics and /api/fleet and one routed /api/generate over
+    two replicas behind a FleetRouter."""
+    import shutil
+    import tempfile
+    import urllib.request
+
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.serve.engine import DecodeEngine
+    from deeplearning4j_tpu_torch.serve.loadgen import (
+        run_open_loop,
+        run_open_loop_http,
+    )
+    from deeplearning4j_tpu_torch.telemetry import trace as tr
+    from deeplearning4j_tpu_torch.telemetry.registry import MetricsRegistry
+    from deeplearning4j_tpu_torch.ui import UiServer
+    from tools.trace_report import load_trace_dir
+
+    rng = np.random.RandomState(UI_SEED)
+    prompts = [_prompt(rng, PROMPT_LENS[i % len(PROMPT_LENS)])
+               for i in range(UI_REQUESTS)]
+    rate = UI_LOAD * phase3["requests"] / phase3["wall_s"]
+
+    def engine():
+        eng = DecodeEngine(params, N_HEADS, **_engine_kwargs("bf16", 7),
+                           device=DEVICE)
+        warm = np.random.RandomState(1)
+        for n in PROMPT_LENS:
+            eng.submit(_prompt(warm, n), max_new_tokens=2)
+        eng.run_until_idle()
+        sync()
+        return eng
+
+    inproc = engine()
+    reqs = _record_submits(inproc)
+    _kernels.reset_launches()
+    local = run_open_loop(inproc, prompts, rate, max_new_tokens=MAX_NEW,
+                          seed=UI_SEED)
+    sync()
+    local_k3f = _kernels.LAUNCHES["flash_attention_fwd"]
+    want = [list(r.generated) for r in reqs]
+    if local_k3f != N_LAYERS * _kernel_admissions(inproc, reqs):
+        raise AssertionError(f"in-process K3f {local_k3f}")
+    del inproc
+
+    served = engine()
+    http_reqs = _record_submits(served)
+    trace_dir = tempfile.mkdtemp(prefix="dl4j_torch_ui_trace_")
+    tracer = tr.Tracer("chip-ui", trace_dir=trace_dir)
+    prev = tr.set_tracer(tracer)
+    ui = UiServer()
+    ui.attach_engine(served)
+    ui.attach_metrics(served.registry)
+    served.start()
+    port = ui.start(port=0)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        _kernels.reset_launches()
+        rep = run_open_loop_http(base, prompts, rate,
+                                 max_new_tokens=MAX_NEW, seed=UI_SEED,
+                                 timeout_s=120.0)
+        sync()
+        http_k3f = _kernels.LAUNCHES["flash_attention_fwd"]
+        with urllib.request.urlopen(base + "/api/serve", timeout=30) as r:
+            serve_stats = json.loads(r.read())
+        with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+            metrics = r.read().decode()
+    finally:
+        ui.stop()
+        served.stop()
+        tr.set_tracer(prev)
+        tracer.close()
+    by_prompt = {tuple(r.prompt): list(r.generated) for r in http_reqs}
+    got = [by_prompt.get(tuple(p)) for p in prompts]
+    if rep.completed != UI_REQUESTS or got != want:
+        raise AssertionError(f"HTTP burst: {rep.completed} of {UI_REQUESTS}"
+                             " completed; streams equal "
+                             f"{sum(a == b for a, b in zip(got, want))}")
+    want_k3f = N_LAYERS * _kernel_admissions(served, http_reqs)
+    if http_k3f != want_k3f or want_k3f == 0:
+        raise AssertionError(f"HTTP burst: K3f {http_k3f}, expected "
+                             f"{want_k3f}")
+    try:
+        spans = load_trace_dir(trace_dir)
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    roots = [s for s in spans.values() if s["name"] == "loadgen.request"]
+    one_trace = 0
+    for root in roots:
+        names = {s["name"]: s for s in spans.values()
+                 if s["trace_id"] == root["trace_id"]}
+        one_trace += (names.get("http.request", {}).get("parent_id")
+                      == root["span_id"]
+                      and names.get("serve.request", {}).get("parent_id")
+                      == names["http.request"]["span_id"])
+    if len(roots) != UI_REQUESTS or one_trace != UI_REQUESTS:
+        raise AssertionError(f"traces: {len(roots)} roots, {one_trace} "
+                             "whole request trees")
+    if serve_stats["requests_total"] < UI_REQUESTS or \
+            "serve_requests_total" not in metrics:
+        raise AssertionError(f"/api/serve {serve_stats}")
+
+    out = {"requests": UI_REQUESTS, "offered_rps": rate,
+           "http": {k: getattr(rep, k) for k in (
+               "tokens_per_sec", "latency_p50_ms", "latency_p99_ms",
+               "duration_s")},
+           "in_process": {k: getattr(local, k) for k in (
+               "tokens_per_sec", "latency_p50_ms", "latency_p99_ms",
+               "duration_s")},
+           "k3f_launches": http_k3f, "in_process_k3f_launches": local_k3f,
+           "traces": one_trace}
+    log(f"[ui] {json.dumps(out)} on {smi}")
+
+    # the fleet surface: two replicas behind a router, one routed request
+    fleet = _Fleet(params, "bf16")
+    try:
+        fleet.router.start()
+        ui = UiServer()
+        ui.attach_fleet(fleet.router, generate_timeout_s=120.0)
+        port = ui.start(port=0)
+        base = f"http://127.0.0.1:{port}"
+        try:
+            fleet.reset_records()
+            _kernels.reset_launches()
+            body = json.dumps({"prompt": prompts[UI_ROUTED],
+                               "max_new_tokens": MAX_NEW,
+                               "session": "ui"}).encode()
+            with urllib.request.urlopen(urllib.request.Request(
+                    base + "/api/generate", data=body,
+                    headers={"Content-Type": "application/json"}),
+                    timeout=120) as r:
+                routed = json.loads(r.read())
+            sync()
+            routed_k3f = _kernels.LAUNCHES["flash_attention_fwd"]
+            with urllib.request.urlopen(base + "/api/fleet",
+                                        timeout=30) as r:
+                view = json.loads(r.read())
+        finally:
+            ui.stop()
+    finally:
+        fleet.router.stop()
+        fleet.close()
+    if routed["tokens"] != want[UI_ROUTED] or view["alive"] != 2 or \
+            view["affinity"].get("ui") not in FLEET_REPLICAS or \
+            routed_k3f != fleet.k3f_expected() or routed_k3f == 0:
+        raise AssertionError(f"routed /api/generate {routed}, fleet view "
+                             f"alive {view['alive']} affinity "
+                             f"{view['affinity']}, K3f {routed_k3f}")
+    out["fleet"] = {"alive": view["alive"], "affinity": view["affinity"],
+                    "routed_k3f_launches": routed_k3f}
+    log(f"[ui] fleet {json.dumps(out['fleet'])}")
+    return out
+
+
+def slice21bc(smi: str, params, phase3: dict) -> dict:
+    """Phase 18: K3f's key split, the autotuner at full width, the cache's
+    adoption through the tuned= seams, the UI's HTTP burst."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {"split_cases": key_split_parity(),
+           "splits": key_split_measure()}
+    work = tempfile.mkdtemp(prefix="dl4j_torch_slice21bc_")
+    try:
+        out["tune"] = tune_phase(work)
+        out["adopt"] = adoption_phase(params, out["tune"]["cache"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["ui"] = ui_phase(params, phase3, smi)
+    out["wall_s"] = time.perf_counter() - t0
+    summary = {
+        "split_ms": out["splits"],
+        "lm_winner": out["tune"]["lm"]["winner"],
+        "lm_tuned_vs_default": out["tune"]["lm"]["tuned_vs_default"],
+        "serve_winner": out["tune"]["serve"]["winner"],
+        "serve_tuned_vs_default": out["tune"]["serve"]["tuned_vs_default"],
+        "flash_winner": out["tune"]["flash"]["winner"],
+        "http_tokens_per_s": out["ui"]["http"]["tokens_per_sec"],
+        "in_process_tokens_per_s": out["ui"]["in_process"][
+            "tokens_per_sec"],
+        "wall_s": out["wall_s"]}
+    log(f"[slice21bc] {json.dumps(summary)} on {smi}")
+    return out
+
+
 # ---------------------------------------------------------------- main ----
 
 def main() -> int:
@@ -7420,6 +8021,32 @@ def main() -> int:
     serve_entry["runprof_launches"] = s21["engine"]["launches"]
     for entry in mlp_entries:
         entry["cli_profile_launches"] = s21["cli"]["launches"]
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = init_lm_params(gen, VOCAB, D_MODEL, N_HEADS, N_EXPERTS, D_FF,
+                            n_layers=N_LAYERS, device=DEVICE)
+    s21bc = slice21bc(smi, params, main_run)
+    del params
+    # items 21b and 21c (phase 18): K3f's key splits at each row's shape,
+    # the HTTP burst's and the routed request's launches, the lm_seam
+    # search's launches of the three training kernels
+    splits = s21bc["splits"]
+    for entry in [serve_entry] + train_entries:
+        if entry["name"] == "flash_attention_fwd":
+            key = ("serving bfloat16" if entry is serve_entry else
+                   "training " + ("bfloat16" if "bfloat16" in entry["shape"]
+                                  else "float32"))
+            entry["split1_ms"] = splits[key]["split1_ms"]
+            entry["split2_ms"] = splits[key]["split2_ms"]
+    serve_entry["ui_launches"] = {
+        "http": s21bc["ui"]["k3f_launches"],
+        "fleet_routed": s21bc["ui"]["fleet"]["routed_k3f_launches"]}
+    lm_tune = s21bc["tune"]["lm"]
+    for entry in train_entries:
+        entry["tune_launches"] = {
+            "measured_calls": lm_tune["measured_calls"],
+            "per_call": lm_tune["launches_per_call"][entry["name"]],
+            "total": lm_tune["measured_calls"]
+            * lm_tune["launches_per_call"][entry["name"]]}
     log(f"[time] chip_smoke ran {time.perf_counter() - t_start:.1f} s")
 
     print(smi)

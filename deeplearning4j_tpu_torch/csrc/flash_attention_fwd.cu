@@ -39,7 +39,10 @@
 //   with its own online softmax; they merge (m, l, acc) once at the end
 //   through shared memory. That halves the sequential walk over the keys,
 //   which is what bounds the serving shape (its time is flat in H and in
-//   causal). Else two 4-warp blocks share an SM;
+//   causal). Else two 4-warp blocks share an SM. The caller may force the
+//   split (key_split 1: 4 warps, 2: 8 warps; 0 keeps this rule): it is the
+//   one tile size of the kernel chosen at run time, and the autotuner's
+//   flash_attention knob (ops/flash_attention.py's key_split_for);
 // - Q is staged once; K and V tiles are double-buffered by cp.async, tile
 //   j+1 in flight during the products of tile j, one barrier a tile.
 //   Shared tiles are XOR-swizzled (hopper_mma.cuh) instead of padded, so
@@ -68,8 +71,8 @@
 //   128 runs, the columns past dh zero;
 // - shared memory at Dh=128: 16 KB of bf16 Q and two stages of K and V,
 //   64 rows each (80 KB; 144 KB with the key split), or 32 KB of f32 Q
-//   and two stages of 64-row f32 K and V (160 KB). The limit is raised
-//   once per kernel and device;
+//   and two stages of 64-row f32 K and V (160 KB; 96 KB at key split 1,
+//   32-row tiles). The limit is raised once per kernel and device;
 // - the copy width (16, 8, 4 or 2 bytes) follows the inputs' alignment,
 //   so a view at any element offset runs.
 
@@ -407,46 +410,52 @@ int sm_count() {
   return count[dev];
 }
 
-template <typename T>
-cudaError_t launch_width(const void* q, const void* k, const void* v,
+template <typename T, int kSplit>
+cudaError_t launch_split(const void* q, const void* k, const void* v,
                          void* o, void* lse, int bh, int t, int dh,
                          int causal, float scale, int width,
                          cudaStream_t stream) {
-  // Split each K/V tile's keys over two warp groups at f32, whose products
-  // keep more warps busy, and at bf16 when the grid cannot give every SM
-  // two blocks (serving's B*H = 4); else two 4-warp blocks share an SM.
-  if constexpr (sizeof(T) == 4) {
-    return width == 16 ? launch_dh<T, true, 2>(q, k, v, o, lse, bh, t, dh,
-                                               causal, scale, width, stream)
-                       : launch_dh<T, false, 2>(q, k, v, o, lse, bh, t, dh,
-                                                causal, scale, width, stream);
-  } else {
+  return width == 16 ? launch_dh<T, true, kSplit>(q, k, v, o, lse, bh, t, dh,
+                                                  causal, scale, width, stream)
+                     : launch_dh<T, false, kSplit>(q, k, v, o, lse, bh, t, dh,
+                                                   causal, scale, width,
+                                                   stream);
+}
+
+template <typename T>
+cudaError_t launch_width(const void* q, const void* k, const void* v,
+                         void* o, void* lse, int bh, int t, int dh,
+                         int causal, float scale, int width, int key_split,
+                         cudaStream_t stream) {
+  if (key_split == 0) {
+    // Split each K/V tile's keys over two warp groups at f32, whose
+    // products keep more warps busy, and at bf16 when the grid cannot give
+    // every SM two blocks (serving's B*H = 4); else two 4-warp blocks
+    // share an SM.
     const long long blocks = (long long)bh * ((t + kBlockQ - 1) / kBlockQ);
-    if (blocks < 2LL * sm_count())
-      return width == 16
-                 ? launch_dh<T, true, 2>(q, k, v, o, lse, bh, t, dh, causal,
-                                         scale, width, stream)
-                 : launch_dh<T, false, 2>(q, k, v, o, lse, bh, t, dh, causal,
-                                          scale, width, stream);
-    return width == 16 ? launch_dh<T, true, 1>(q, k, v, o, lse, bh, t, dh,
-                                               causal, scale, width, stream)
-                       : launch_dh<T, false, 1>(q, k, v, o, lse, bh, t, dh,
-                                                causal, scale, width, stream);
+    key_split = (sizeof(T) == 4 || blocks < 2LL * sm_count()) ? 2 : 1;
   }
+  return key_split == 2
+             ? launch_split<T, 2>(q, k, v, o, lse, bh, t, dh, causal, scale,
+                                  width, stream)
+             : launch_split<T, 1>(q, k, v, o, lse, bh, t, dh, causal, scale,
+                                  width, stream);
 }
 
 }  // namespace
 
 // Plain C entry point bound with ctypes. Pointers are device pointers of
 // contiguous (B*H, T, Dh) tensors (lse: (B*H, T) f32); is_bf16 selects the
-// element type (0: f32, 1: bf16). Returns cudaGetLastError() of the launch.
+// element type (0: f32, 1: bf16); key_split the launch (0: the rule of
+// launch_width, 1: 4 warps a block, 2: 8 warps splitting each K/V tile's
+// keys). Returns cudaGetLastError() of the launch.
 extern "C" int dl4j_flash_attention_fwd(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
                                         int bh, int t, int dh, int causal,
                                         float scale, int is_bf16,
-                                        void* stream) {
+                                        int key_split, void* stream) {
   if (bh < 1 || t < 1 || dh < 8 || dh > kMaxDh || dh % 8 != 0 ||
-      (t + kBlockQ - 1) / kBlockQ > 65535)
+      (t + kBlockQ - 1) / kBlockQ > 65535 || key_split < 0 || key_split > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // rows are dh * elt bytes, a multiple of 16: the bases set the width
@@ -456,8 +465,9 @@ extern "C" int dl4j_flash_attention_fwd(const void* q, const void* k,
   const int width = copy_width(reinterpret_cast<const void*>(align), 16);
   const cudaError_t err =
       is_bf16 ? launch_width<__nv_bfloat16>(q, k, v, o, lse, bh, t, dh,
-                                            causal, scale, width, s)
+                                            causal, scale, width, key_split,
+                                            s)
               : launch_width<float>(q, k, v, o, lse, bh, t, dh, causal,
-                                    scale, width, s);
+                                    scale, width, key_split, s);
   return (int)err;
 }

@@ -59,11 +59,14 @@ Every step builder takes ``profile=`` (a ``telemetry.xprofile``
 ``StepProfile`` of the first call, on ``step.step_profile``) and
 ``runprof=`` (the runtime profiler's phase timings), composed as
 ``maybe_runprof(maybe_profiled(step, ...))``; neither changes a number.
-``tuned=`` comes with ROADMAP item 21b and raises.
+``tuned=`` adopts the autotuner's knobs (``tune/``): the blockwise tiles,
+which pick K3f's key split on the card, and on the composed step the MoE
+dispatch and capacity factor.
 """
 
 from __future__ import annotations
 
+import math
 from functools import partial
 from typing import Optional
 
@@ -304,13 +307,20 @@ def selected_attn_impl(seq_len: int, attn_impl: Optional[str] = None,
 
 def dense_loss_fn(n_heads: int, top_k: int = 2, aux_weight: float = 1e-2,
                   attn_impl: Optional[str] = None,
-                  with_metrics: bool = False):
+                  with_metrics: bool = False,
+                  attn_blocks: Optional[tuple] = None):
     """Single-device loss (dense MoE; attention through the core seam).
     ``attn_impl=None`` auto-gates by shape: the flash kernels for long T,
     dense for short. ``with_metrics`` swaps in the (loss, metrics) twin.
-    Returns ``loss_fn(params, tokens, targets)``."""
+    ``attn_blocks=(block_q, block_k)`` are the blockwise core's tiles, the
+    autotuner's knob: on the card they pick K3f's key split
+    (``ops.flash_attention.key_split_for``); the dense and flash cores
+    ignore them. Returns ``loss_fn(params, tokens, targets)``."""
+    bq, bk = attn_blocks or (None, None)
+
     def attn_core(q, k, v):
-        return attention_core(q, k, v, causal=True, impl=attn_impl)
+        return attention_core(q, k, v, causal=True, impl=attn_impl,
+                              block_q=bq, block_k=bk)
 
     def moe_fn(rw, ex, x):
         return dense_moe(rw, ex, x, top_k)
@@ -461,6 +471,13 @@ def _make_opt_step(loss_fn, lr: float, with_metrics: bool,
     return _seam(step, profile, runprof, profile_label)
 
 
+def _tuned_blocks(tuning: dict) -> Optional[tuple]:
+    """The adopted ``flash_attention`` knobs as ``attn_blocks``, or None."""
+    if "block_q" not in tuning:
+        return None
+    return int(tuning["block_q"]), int(tuning["block_k"])
+
+
 def make_single_device_train_step(n_heads: int, lr: float = 0.1,
                                   top_k: int = 2, aux_weight: float = 1e-2,
                                   attn_impl: Optional[str] = None,
@@ -492,13 +509,23 @@ def make_single_device_train_step(n_heads: int, lr: float = 0.1,
     ``profile=`` (True or a label) captures the first call's
     ``StepProfile`` on ``step.step_profile``; ``runprof=`` (True, a label
     or a ``RunProfiler``) phase-times every call; both under the label
-    ``lm_single_device``, as in JAX. ``tuned=``/``tune_context=`` come
-    with ROADMAP item 21b and raise."""
-    if tuned or tune_context is not None:
-        raise NotImplementedError(_ITEM_21B.format("tuned="))
+    ``lm_single_device``, as in JAX.
+
+    ``tuned=`` adopts the autotuner's ``flash_attention`` seam
+    (``block_q``/``block_k``, the blockwise tiles, which pick K3f's key
+    split): an explicit config dict wins, ``True`` consults the tuning
+    cache under ``tune_context`` (a ``tune.seams.lm_context`` dict), the
+    default ``None`` consults it only when ``DL4J_TPU_TUNED`` is set
+    (``tune.cache.resolve_step_tuning``). Every split is within 1e-5 of
+    the default (tests/test_torch_tune.py)."""
+    from deeplearning4j_tpu_torch.tune.cache import resolve_step_tuning
+
+    tuning = resolve_step_tuning(tuned, tune_context, ("flash_attention",))
+    attn_blocks = _tuned_blocks(tuning)
     dev = resolve_device(device)
     loss_fn = dense_loss_fn(n_heads, top_k, aux_weight, attn_impl=attn_impl,
-                            with_metrics=with_metrics)
+                            with_metrics=with_metrics,
+                            attn_blocks=attn_blocks)
     guard_cfg = GuardConfig.coerce(guard)
     opt_cfg = OptimizerConfig.coerce(optimizer)
     seams = {"profile": profile, "runprof": runprof,
@@ -521,7 +548,6 @@ SEQ_AXIS = "sp"
 EXPERT_AXIS = "expert"
 MODEL_AXIS = "model"
 _COMPOSED_AXES = (DATA_AXIS, SEQ_AXIS, EXPERT_AXIS, MODEL_AXIS)
-_ITEM_21B = "{} comes with ROADMAP item 21b (the autotuner)"
 
 
 def _check_composed_mesh(mesh) -> None:
@@ -720,9 +746,12 @@ def composed_loss_fn(mesh, n_heads: int, capacity: int = 0, top_k: int = 2,
                      attn_impl: Optional[str] = None,
                      moe_impl: Optional[str] = None,
                      with_metrics: bool = False,
-                     ring_prefetch: bool = True):
+                     ring_prefetch: bool = True,
+                     attn_blocks: Optional[tuple] = None):
     """The loss of JAX's composed step, computed from this rank's token
     shard: ``loss_fn(params, tokens, targets) -> (loss_r, info)``.
+    ``attn_blocks=(block_q, block_k)`` reach the unsharded attention core
+    only, as in JAX: the ring's pairs keep K3f's own launch rule.
 
     "sp" runs the attention as ``ring_attention`` over the rank's sequence
     block (``attn_impl`` forces its per-pair core, ``ring_prefetch`` its
@@ -754,6 +783,7 @@ def composed_loss_fn(mesh, n_heads: int, capacity: int = 0, top_k: int = 2,
     n_tok = _token_shards(mesh)
     has_ep = EXPERT_AXIS in names
     relayout = has_ep and SEQ_AXIS in names and mesh.shape[SEQ_AXIS] > 1
+    bq, bk = attn_blocks or (None, None)
 
     def attn_core(q, k, v):
         if SEQ_AXIS in names:
@@ -761,7 +791,8 @@ def composed_loss_fn(mesh, n_heads: int, capacity: int = 0, top_k: int = 2,
                 q, k, v, mesh, SEQ_AXIS, causal=True,
                 batch_axis=DATA_AXIS if DATA_AXIS in names else None,
                 attn_impl=attn_impl, prefetch=ring_prefetch)
-        return attention_core(q, k, v, causal=True, impl=attn_impl)
+        return attention_core(q, k, v, causal=True, impl=attn_impl,
+                              block_q=bq, block_k=bk)
 
     def loss_fn(params, tokens, targets):
         shape = tuple(tokens.shape)
@@ -888,16 +919,32 @@ def make_composed_train_step(mesh, n_heads: int, capacity: int = 0,
     pairs through K3f, K3k, K3q). ``device`` (CUDA unless
     ``device="cpu"``) is the rank's device when the mesh has none.
     ``profile=`` and ``runprof=`` arm the seams under JAX's label
-    ``lm_composed[<axes>]`` (the profile records the step's collectives);
-    ``tuned=`` comes with ROADMAP item 21b and raises."""
+    ``lm_composed[<axes>]`` (the profile records the step's collectives).
+
+    ``tuned=`` adopts the autotuner's knobs as JAX's does: an explicit
+    config dict wins, ``True`` consults the tuning cache under
+    ``tune_context`` (a ``tune.seams.lm_context`` dict), the default
+    ``None`` consults it only when ``DL4J_TPU_TUNED`` is set. Adopted:
+    ``block_q``/``block_k`` (the unsharded core's tiles: K3f's key split),
+    ``moe_impl`` (only when the ``moe_impl=`` arg is None: an explicit arg
+    outranks the cache) and ``capacity_factor`` (scales ``capacity`` by
+    ceil, >= 1.0)."""
+    from deeplearning4j_tpu_torch.tune.cache import resolve_step_tuning
+
     _check_composed_mesh(mesh)
-    if tuned or tune_context is not None:
-        raise NotImplementedError(_ITEM_21B.format("tuned="))
+    tuning = resolve_step_tuning(tuned, tune_context,
+                                 ("flash_attention", "moe"))
+    attn_blocks = _tuned_blocks(tuning)
+    if moe_impl is None:
+        moe_impl = tuning.get("moe_impl")
+    capacity = int(math.ceil(
+        capacity * float(tuning.get("capacity_factor", 1.0))))
     dev = _mesh_device(mesh, device)
     loss_fn = composed_loss_fn(mesh, n_heads, capacity, top_k, aux_weight,
                                attn_impl=attn_impl, moe_impl=moe_impl,
                                with_metrics=with_metrics,
-                               ring_prefetch=ring_prefetch)
+                               ring_prefetch=ring_prefetch,
+                               attn_blocks=attn_blocks)
     grads_fn = partial(_composed_loss_and_grads, mesh=mesh)
     guard_cfg = GuardConfig.coerce(guard)
     shards = _lm_shards(mesh)

@@ -59,7 +59,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "flash_attention_fwd": {
         "dl4j_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                     _F, _I, _P],
+                                     _F, _I, _I, _P],
     },
     "flash_attention_bwd_dkv": {
         "dl4j_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I,

@@ -21,6 +21,10 @@ were the same function split only by how the TPU scheduled them. "dense"
 stays plain torch (``parallel.ring_attention.reference_attention``) and is
 differentiated by autograd.
 
+The blockwise core's tiles (``block_q``/``block_k``, the autotuner's
+``flash_attention`` knobs) map to the one tile size of the kernels that
+is chosen at run time, K3f's key split (``key_split_for``).
+
 ``flash_attention_reference`` and ``flash_attention_bwd_reference`` are the
 kernels' plain versions: the same math with a single block spanning every
 key. A wrapper uses its plain version only for a tensor on the CPU; on a
@@ -113,11 +117,29 @@ def resolve_attention_impl(t: Optional[int] = None,
 
 def default_block_policy(t: int) -> int:
     """The JAX package's blockwise tile for sequence length ``t``: the
-    largest tile <= 512 that divides ``t``, else ``t`` itself. The CUDA
-    kernel tiles by 64 rows whatever ``t`` is; the policy is kept for the
-    tuner's block space in a later slice."""
+    largest tile <= 512 that divides ``t``, else ``t`` itself: the
+    autotuner's default ``flash_attention`` config (``tune/seams.py``)."""
     blk = min(_DEFAULT_BLOCK, t)
     return blk if t % blk == 0 else t
+
+
+# the flash_attention search space's smallest key tile (tune/space.py)
+_SMALLEST_BLOCK_K = 64
+
+
+def key_split_for(block_q: Optional[int] = None,
+                  block_k: Optional[int] = None) -> int:
+    """K3f's key split for the blockwise tiles: 0 (the kernel's own rule)
+    when ``block_k`` is None, 1 (4 warps a block, each warp walking every
+    key of its 16 rows) at the space's smallest key tile, 64, and 2 (8
+    warps, the two of each 16 rows taking the halves of every K/V tile)
+    for a larger one. ``block_q`` selects nothing: K3f's query tile is 64
+    rows (4 row warps) and the backward pair's tiles are constants of
+    ``csrc/flash_tiles.cuh``. Every split computes the same function in
+    another order of its sums."""
+    if block_k is None:
+        return 0
+    return 1 if int(block_k) <= _SMALLEST_BLOCK_K else 2
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -262,7 +284,7 @@ def _check_bwd_values(q, do, lse, delta) -> None:
                              f"got {tuple(x.shape)}/{x.dtype}/{x.device}")
 
 
-def _fwd_cost(q, k, v, causal=False):
+def _fwd_cost(q, k, v, causal=False, key_split=0):
     return _kernels.flash_attention_fwd_cost(*q.shape, bool(causal),
                                              q.element_size())
 
@@ -276,13 +298,18 @@ def _bwd_cost(cost):
 
 @priced("flash_attention_fwd", _fwd_cost)
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = False
+                        causal: bool = False, key_split: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """softmax(q·kᵀ/√Dh)·v and its logsumexp over (B, H, T, Dh).
 
     On a CUDA tensor: launches ``csrc/flash_attention_fwd.cu`` on the
-    current stream (or raises); q, k, v must be contiguous. On a CPU
-    tensor: ``flash_attention_reference``."""
+    current stream (or raises); q, k, v must be contiguous. ``key_split``
+    picks the launch: 0 the kernel's own rule, 1 a 4-warp block, 2 an
+    8-warp block that splits each K/V tile's keys (``key_split_for``). On
+    a CPU tensor: ``flash_attention_reference`` (the split changes no
+    value there)."""
+    if key_split not in (0, 1, 2):
+        raise ValueError(f"key_split is 0, 1 or 2, got {key_split!r}")
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal)
     _check_kernel_inputs(q, k, v)
@@ -294,10 +321,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = lib.dl4j_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), b * h, t, d, int(bool(causal)), 1.0 / (d ** 0.5),
-        int(q.dtype == torch.bfloat16), stream)
+        int(q.dtype == torch.bfloat16), int(key_split), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
-                           f"{rc} at shape {tuple(q.shape)}, {q.dtype}")
+                           f"{rc} at shape {tuple(q.shape)}, {q.dtype}, "
+                           f"key split {key_split}")
     _kernels.count_launch("flash_attention_fwd")
     return o, lse
 
@@ -367,14 +395,15 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
 
 class FlashAttention(torch.autograd.Function):
     """``o = softmax(q·kᵀ/√Dh)·v`` over contiguous (B, H, T, Dh) with the
-    flash kernels on both passes: the forward saves (q, k, v, o, lse); the
-    backward computes ``delta`` with one torch reduction and calls the dK/dV
-    and dQ wrappers. The same wiring runs on both devices; on CPU tensors
-    the wrappers compute the plain versions."""
+    flash kernels on both passes: the forward (K3f at ``key_split``) saves
+    (q, k, v, o, lse); the backward computes ``delta`` with one torch
+    reduction and calls the dK/dV and dQ wrappers. The same wiring runs on
+    both devices; on CPU tensors the wrappers compute the plain
+    versions."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        o, lse = flash_attention_fwd(q, k, v, causal)
+    def forward(ctx, q, k, v, causal, key_split=0):
+        o, lse = flash_attention_fwd(q, k, v, causal, key_split=key_split)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
         return o
@@ -386,19 +415,21 @@ class FlashAttention(torch.autograd.Function):
         delta = attention_delta(o, do)
         dk, dv = flash_attention_bwd_dkv(q, k, v, lse, do, delta, ctx.causal)
         dq = flash_attention_bwd_dq(q, k, v, lse, do, delta, ctx.causal)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = False, block_q: int = _DEFAULT_BLOCK,
-                        block_k: int = _DEFAULT_BLOCK) -> torch.Tensor:
+                        causal: bool = False, block_q: Optional[int] = None,
+                        block_k: Optional[int] = None) -> torch.Tensor:
     """softmax(q·kᵀ/√Dh)·v over (B, H, T, Dh) without materializing (T, T):
     the "blockwise" core, ``FlashAttention`` (K3f forward, K3k and K3q
-    backward on the card). ``block_q``/``block_k`` set the JAX package's
-    lax tiling; the kernels tile by 64 rows whatever they are, so here they
-    are accepted and change no value."""
+    backward on the card). The tiles that set the JAX package's lax tiling
+    select K3f's key split here (``key_split_for``: none given, the
+    kernel's own rule); a split reorders the forward's sums. On the CPU the
+    plain versions run and the tiles change no value."""
     return FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                v.contiguous(), causal)
+                                v.contiguous(), causal,
+                                key_split_for(block_q, block_k))
 
 
 def _partials_plain(q, k, v, q_offset: int, k_offset: int, causal: bool):
@@ -474,17 +505,22 @@ def blockwise_block_partials(q: torch.Tensor, k: torch.Tensor,
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   causal: bool = False,
-                   impl: Optional[str] = None) -> torch.Tensor:
+                   causal: bool = False, impl: Optional[str] = None,
+                   block_q: Optional[int] = None,
+                   block_k: Optional[int] = None) -> torch.Tensor:
     """The attention core over (B, H, T, Dh). ``impl`` forces a core for
     THIS call; otherwise the set_attention_impl/env/auto chain decides, by
-    T, head dim and dtype.
+    T, head dim and dtype. ``block_q``/``block_k`` (the autotuner's knob)
+    reach the "blockwise" core only, as in JAX: there they pick K3f's key
+    split (``key_split_for``); "flash" and "dense" ignore them.
     Every core computes the same function (tests/test_torch_flash_attention.py
     holds them against the JAX package)."""
     if impl is not None and impl not in _IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; "
                          "options: " + ", ".join(_IMPLS))
     impl = impl or resolve_attention_impl(q.shape[2], q.shape[-1], q.dtype)
-    if impl in ("flash", "blockwise"):
+    if impl == "blockwise":
+        return blockwise_attention(q, k, v, causal, block_q, block_k)
+    if impl == "flash":
         return blockwise_attention(q, k, v, causal)
     return dense_attention(q, k, v, causal)

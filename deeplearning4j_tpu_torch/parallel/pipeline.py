@@ -45,9 +45,6 @@ from deeplearning4j_tpu_torch.parallel.mesh import (
     gather_rows_ad,
 )
 
-_ITEM_21B = "{} comes with ROADMAP item 21b (the autotuner)"
-
-
 def _schedule_ticks(n_micro: int, n_stages: int, hop: int) -> int:
     return n_micro + hop * (n_stages - 1)
 
@@ -368,8 +365,14 @@ def make_pipeline_train_step(stage_fn: Callable, loss_fn: Callable, mesh,
     bit-identical to the strict schedule. ``profile=`` and ``runprof=``
     arm the seams under JAX's label (``pipeline[pipe]``,
     ``pipeline[pipexdata]``, ``+overlap``); the profile records the stage
-    handoffs as collective-permutes. ``tuned=`` comes with ROADMAP item
-    21b and raises."""
+    handoffs as collective-permutes.
+
+    ``tuned=`` adopts the autotuner's ``pipeline`` seam as JAX's does:
+    ``overlap`` (bit-identical, see above) when the ``overlap=`` arg was
+    left at its default. The space's ``microbatches`` knob shapes the
+    data (x_mbs/y_mbs), so the caller's loader applies it. Explicit dict >
+    cache under ``tune_context`` > ``DL4J_TPU_TUNED`` env > off
+    (``tune/cache.py``)."""
     from deeplearning4j_tpu_torch.optimize.guardrails import (
         GuardConfig,
         guarded_sgd_update,
@@ -383,9 +386,11 @@ def make_pipeline_train_step(stage_fn: Callable, loss_fn: Callable, mesh,
 
     from deeplearning4j_tpu_torch.telemetry.runprof import maybe_runprof
     from deeplearning4j_tpu_torch.telemetry.xprofile import maybe_profiled
+    from deeplearning4j_tpu_torch.tune.cache import resolve_step_tuning
 
-    if tuned or tune_context is not None:
-        raise NotImplementedError(_ITEM_21B.format("tuned="))
+    tuning = resolve_step_tuning(tuned, tune_context, ("pipeline",))
+    if not overlap and "overlap" in tuning:
+        overlap = bool(tuning["overlap"])
     guard = GuardConfig.coerce(guard)
     label = (f"pipeline[{axis}" + (f"x{batch_axis}]" if batch_axis else "]")
              + ("+overlap" if overlap else ""))

@@ -73,7 +73,9 @@ None) arms the runtime profiler at construction: one ``serve_decode``
 ``StepTiming`` a decode tick, its host phase the tick's scheduler work
 (admission, chunked prefill, retirement), its device phase the decode
 step's span on the stream (CUDA events; on the CPU the call's wall).
-``tuned=`` comes with ROADMAP item 21b and raises.
+``tuned=`` adopts the autotuner's ``serve`` seam (``min_bucket`` and
+``slots``) under the context the engine builds from its params' dims,
+``n_heads``, ``max_len`` and its device type (``tune.seams.serve_context``).
 """
 
 from __future__ import annotations
@@ -191,11 +193,24 @@ class DecodeEngine:
         from deeplearning4j_tpu_torch.telemetry.runprof import \
             resolve_runprof
 
-        if tuned is not None and tuned is not False:
-            raise NotImplementedError(
-                "DecodeEngine(tuned=...) comes with ROADMAP item 21b (the "
-                "autotuner); pass tuned=None")
         self.device = resolve_device(device)
+        # tuned=: adopt the autotuner's "serve" seam, min_bucket and slots
+        # (scheduling knobs; greedy decode stays token-identical). The
+        # engine builds its own cache-key context from what it knows, so
+        # a bare tuned=True works here. Explicit dict > cache >
+        # DL4J_TPU_TUNED env > off.
+        if tuned is not False:
+            from deeplearning4j_tpu_torch.tune.cache import \
+                resolve_step_tuning
+            from deeplearning4j_tpu_torch.tune.seams import serve_context
+
+            ctx = serve_context(lm_dims(params), int(n_heads), int(max_len),
+                                device=self.device)
+            tuning = resolve_step_tuning(tuned, ctx, ("serve",))
+            if "min_bucket" in tuning:
+                min_bucket = int(tuning["min_bucket"])
+            if "slots" in tuning:
+                n_slots = int(tuning["slots"])
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         if max_len < 2:

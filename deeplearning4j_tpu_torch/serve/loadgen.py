@@ -10,23 +10,40 @@ in the queue (or for the driver to catch up) counts against the server, as
 a user would experience it. ``arrival_schedule`` draws from numpy's
 ``RandomState``, so a seed gives the JAX package's offsets.
 
-:func:`run_open_loop` drives a ``DecodeEngine`` (or a ``FleetRouter``)
-in process: one thread interleaves due submissions with ``engine.step()``
-calls. It returns a
-:class:`LoadReport` with tokens/s and exact (not bucket-approximated)
-p50/p95/p99 latency over the recorded per-request latencies (full request
-and first token), and the inter-token percentiles. The HTTP driver
-(``run_open_loop_http``) needs ``ui/server.py``'s front end, which comes
-with ROADMAP slice 9.
+Two drivers:
+
+- :func:`run_open_loop` drives a ``DecodeEngine`` (or a ``FleetRouter``)
+  in process: one thread interleaves due submissions with
+  ``engine.step()`` calls.
+- :func:`run_open_loop_http` drives a ``UiServer`` URL: a thread per
+  request POSTs ``/api/generate`` at its scheduled arrival (the
+  end-to-end front end, JAX's wire: either package's driver speaks to
+  either package's server).
+
+Both return a :class:`LoadReport` with tokens/s and exact (not
+bucket-approximated) p50/p95/p99 latency over the recorded per-request
+latencies (full request and, in process, first token), and in process the
+inter-token percentiles.
+
+Tracing: when a process tracer is configured, the HTTP driver opens one
+``loadgen.request`` root span per request and sends its context as a W3C
+``traceparent`` header, so the server's ``http.request`` span and the
+engine's ``serve.request`` subtree parent under it: one trace tree from
+the traffic generator through the HTTP server into the scheduler thread.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import threading
 import time
+import urllib.request
 from typing import List, Optional, Sequence
 
 import numpy as np
+
+from deeplearning4j_tpu_torch.telemetry import trace as _trace
 
 
 @dataclasses.dataclass
@@ -180,10 +197,63 @@ def run_open_loop_http(base_url: str, prompts: Sequence[Sequence[int]],
                        temperature: float = 0.0, seed: int = 0,
                        timeout_s: float = 120.0,
                        slo_ms: Optional[float] = None) -> LoadReport:
-    """Open-loop arrivals POSTed to ``<base_url>/api/generate``: the front
-    end (``ui/server.py``'s ``UiServer``) comes with ROADMAP slice 9, and
-    this driver with it."""
-    raise NotImplementedError(
-        "run_open_loop_http needs ui/server.py's UiServer, which comes with "
-        "ROADMAP slice 9; drive a DecodeEngine in process with "
-        "run_open_loop")
+    """Open-loop arrivals POSTed to ``<base_url>/api/generate`` (the
+    UiServer front end; the server-side engine must be ``start()``ed).
+    One thread per request fires at its scheduled arrival. A request that
+    gets no answer (no server, an error status, a timeout) counts as not
+    completed."""
+    offsets = arrival_schedule(len(prompts), rate_rps, seed=seed)
+    results: List[Optional[dict]] = [None] * len(prompts)
+    lat_ms: List[Optional[float]] = [None] * len(prompts)
+    t0 = time.perf_counter()
+
+    def fire(i: int, offset: float, prompt):
+        delay = t0 + offset - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        body = json.dumps({"prompt": list(map(int, prompt)),
+                           "max_new_tokens": max_new_tokens,
+                           "temperature": temperature}).encode()
+        headers = {"Content-Type": "application/json"}
+        tracer = _trace.get_tracer()
+        span = (tracer.start_span("loadgen.request", parent=False,
+                                  attrs={"i": i, "offset_s": round(offset, 4),
+                                         "prompt_len": len(prompt)})
+                if tracer is not None else None)
+        if span is not None:
+            headers["traceparent"] = _trace.format_traceparent(
+                span.context())
+        req = urllib.request.Request(
+            base_url.rstrip("/") + "/api/generate", data=body,
+            headers=headers)
+        try:
+            with urllib.request.urlopen(req, timeout=timeout_s) as resp:
+                results[i] = json.loads(resp.read())
+            lat_ms[i] = (time.perf_counter() - (t0 + offset)) * 1000.0
+        except OSError:
+            pass  # not completed: the report counts it out
+        finally:
+            if span is not None:
+                span.end()
+
+    threads = [threading.Thread(target=fire, args=(i, off, p), daemon=True)
+               for i, (off, p) in enumerate(zip(offsets, prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout_s)
+    t_end = time.perf_counter()
+    done = [i for i, r in enumerate(results) if r is not None]
+    tokens = sum(len(results[i].get("tokens", [])) for i in done)
+    lat = [lat_ms[i] for i in done if lat_ms[i] is not None]
+    p50, p95, p99, mean = _percentiles(lat)
+    duration = t_end - t0
+    goodput_rps, attainment = _goodput(lat, slo_ms, duration)
+    return LoadReport(
+        n_requests=len(prompts), completed=len(done), duration_s=duration,
+        tokens_out=tokens,
+        tokens_per_sec=tokens / duration if duration > 0 else 0.0,
+        offered_rps=rate_rps, latency_p50_ms=p50, latency_p95_ms=p95,
+        latency_p99_ms=p99, latency_mean_ms=mean,
+        slo_ms=slo_ms, goodput_rps=goodput_rps,
+        slo_attainment=attainment)

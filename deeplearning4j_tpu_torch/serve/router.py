@@ -42,8 +42,8 @@ device to device, is the intended path: see serve/fleet.py).
 
 The router exposes the engine driver protocol (``submit`` / ``has_work``
 / ``step``), so ``serve/loadgen.run_open_loop`` drives a fleet exactly
-like one engine. The UI's POST ``/api/generate`` + GET ``/api/fleet``
-(``UiServer.attach_fleet``) come with ROADMAP item 21c. The router's lock
+like one engine, and the UI's POST ``/api/generate`` and GET
+``/api/fleet`` (``UiServer.attach_fleet``) front it. The router's lock
 is a plain ``threading.RLock`` (the lock-order watchdog comes with item
 21d).
 """
@@ -517,9 +517,9 @@ class FleetRouter:
 
     # --------------------------------------------------------- snapshot ----
     def fleet_snapshot(self) -> dict:
-        """The GET ``/api/fleet`` view (the route itself comes with
-        ROADMAP item 21c): per-replica health/load tables, the
-        session-affinity table, and routing totals."""
+        """The GET ``/api/fleet`` view (``UiServer.attach_fleet``):
+        per-replica health/load tables, the session-affinity table, and
+        routing totals."""
         with self._lock:
             replicas = []
             for rid in sorted(self._views):

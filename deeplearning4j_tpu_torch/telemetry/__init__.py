@@ -10,7 +10,7 @@ window of in-step metrics), the step profile (``xprofile``: the FLOPs,
 bytes, memory and collectives of one real call, with the kernels'
 analytic costs) and the runtime profiler (``runprof``: measured phase
 timings, ``runprof_*`` gauges and N-step sessions, armed by ``runprof=``
-or ``DL4J_TPU_RUNPROF``). The UI routes come with ROADMAP item 21c."""
+or ``DL4J_TPU_RUNPROF``). ``ui.UiServer`` serves them over HTTP."""
 
 from deeplearning4j_tpu_torch.telemetry.metrics import (
     global_norm,

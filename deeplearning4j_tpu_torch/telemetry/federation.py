@@ -39,9 +39,9 @@ Both halves report their own health under ``federation_*`` in their
 local registries (pushes, push failures, collects, process/stale-process
 gauges). :meth:`ClusterAggregator.prometheus_snapshot` builds the
 cluster snapshot that ``telemetry/prometheus.render_snapshot`` renders;
-the UI's ``/api/cluster`` and ``/metrics?scope=cluster`` routes come with
-ROADMAP item 21c. The pusher's lock is a plain ``threading.Lock``
-(the lock-order watchdog comes with item 21d).
+the UI serves it at ``/api/cluster`` and ``/metrics?scope=cluster``
+(``UiServer.attach_federation``). The pusher's lock is a plain
+``threading.Lock`` (the lock-order watchdog comes with item 21d).
 """
 
 from __future__ import annotations

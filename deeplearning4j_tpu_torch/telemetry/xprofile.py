@@ -279,10 +279,19 @@ class _StepCapture(TorchDispatchMode):
     # -- the op counter --
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        packet = func._overloadpacket
+        if not self.depth and packet not in flop_registry \
+                and _decomposes(func):
+            # a composite op reaches the mode whole under inference_mode
+            # (aten.matmul in the serving steps): count its parts, as
+            # autograd's dispatch hands them over in a training step
+            with self:
+                out = func.decompose(*args, **kwargs)
+            if out is not NotImplemented:
+                return out
         out = func(*args, **kwargs)
         if self.depth:
             return out
-        packet = func._overloadpacket
         flops = 0.0
         formula = flop_registry.get(packet)
         if formula is not None:
@@ -300,6 +309,19 @@ class _StepCapture(TorchDispatchMode):
                 self.transcendentals += trans
                 self.bytes += nbytes
         return out
+
+
+_COMPOSITE: Dict[Any, bool] = {}
+
+
+def _decomposes(func) -> bool:
+    """Whether ``func`` has a CompositeImplicitAutograd kernel (it is
+    written in other aten ops), cached per op."""
+    got = _COMPOSITE.get(func)
+    if got is None:
+        got = _COMPOSITE[func] = torch._C._dispatch_has_kernel_for_dispatch_key(
+            func.name(), torch._C.DispatchKey.CompositeImplicitAutograd)
+    return got
 
 
 def _storages(tree) -> Dict[int, int]:

@@ -17,8 +17,8 @@ through the port. In order:
   quarantined, the master watchtower's ``worker_divergence`` fires, and
   ``ClusterAggregator.collect_alerts()`` shows it over the TCP tracker.
 
-JAX's ``TestAlertUi`` (``/api/alerts``, ``/api/history``) waits for the
-UI routes, ROADMAP item 21c.
+JAX's ``TestAlertUi`` (``/api/alerts``, ``/api/history``) is in
+tests/test_torch_ui.py.
 """
 
 import os

@@ -23,6 +23,9 @@ UNPORTED = {
               "information_gain", "normalize_to_range", "rounded",
               "sigmoid", "sum_of_squares", "uniform"},         # item 21d
     "telemetry": set(),
+    "clustering": {"Cluster", "ClusterSet", "Point", "KMeansClustering",
+                   "KDTree", "QuadTree", "SpTree"},                # item 21d
+    "plot": {"Tsne", "BarnesHutTsne"},                              # item 21d
 }
 
 # names only the port exports
@@ -32,9 +35,10 @@ PORT_ONLY = {
                "Word2Vec"},
 }
 
-SUBPACKAGES = ["", "cli", "datasets", "eval", "models", "native", "nn",
-               "ops", "optimize", "parallel", "scaleout", "serve",
-               "telemetry", "text", "text.corpora", "utils"]
+SUBPACKAGES = ["", "cli", "clustering", "datasets", "eval", "models",
+               "native", "nn", "ops", "optimize", "parallel", "plot",
+               "scaleout", "serve", "telemetry", "text", "text.corpora",
+               "tune", "ui", "utils"]
 
 
 def _public(mod) -> set:

@@ -1,8 +1,7 @@
 """The port's serving fleet (deeplearning4j_tpu_torch: serve/router.py,
 serve/fleet.py, run_open_loop(sessions=), the ``fleet`` CLI) held against
-the JAX package's: tests/test_fleet.py through the port (without
-``test_uiserver_fleet_surface``, whose UI waits for ROADMAP item 21c),
-plus
+the JAX package's: tests/test_fleet.py through the port (its
+``test_uiserver_fleet_surface`` is in tests/test_torch_ui.py), plus
 
 - an in-process port fleet on JAX's params (``interop.lm_params_from_numpy``)
   giving JAX's ``DecodeEngine`` greedy tokens at f32;
@@ -40,8 +39,7 @@ import jax
 import numpy as np
 import pytest
 
-from deeplearning4j_tpu.models.transformer_lm import \
-    init_lm_params as j_init_lm_params
+from _torch_lm_init import lm_params_np
 from deeplearning4j_tpu.scaleout import remote_tracker as jrt
 from deeplearning4j_tpu.serve import router as jrouter
 from deeplearning4j_tpu.serve.engine import DecodeEngine as JaxEngine
@@ -80,8 +78,7 @@ PROC_TIMEOUT_S = 120
 
 @pytest.fixture(scope="module")
 def np_params():
-    p = j_init_lm_params(jax.random.PRNGKey(0), V, D, H, E, DFF, n_layers=L)
-    return jax.tree_util.tree_map(np.asarray, p)
+    return lm_params_np(0, V, D, H, E, DFF, L)
 
 
 @pytest.fixture(scope="module")

@@ -27,8 +27,7 @@ import jax
 import numpy as np
 import pytest
 
-from deeplearning4j_tpu.models.transformer_lm import \
-    init_lm_params as j_init_lm_params
+from _torch_lm_init import lm_params_np
 from deeplearning4j_tpu.optimize import guardrails as jg
 from deeplearning4j_tpu_torch.interop import lm_params_from_numpy, \
     tree_to_numpy
@@ -55,9 +54,7 @@ FACTORY_KW = json.dumps({"n_heads": H, "attn_impl": "dense",
 
 
 def _np_params():
-    return jax.tree_util.tree_map(np.asarray, jax.device_get(
-        j_init_lm_params(jax.random.PRNGKey(0), V, D, H, E, DFF,
-                         n_layers=2)))
+    return lm_params_np(0, V, D, H, E, DFF, 2)
 
 
 def _params():

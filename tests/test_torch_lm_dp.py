@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from _torch_lm_init import lm_params_np
 from _torch_parallel_ranks import collect_ranks, spawn_ranks
 from deeplearning4j_tpu.models import transformer_lm as JT
 from deeplearning4j_tpu.optimize import updaters as jupd
@@ -77,7 +78,7 @@ def _routing_batch(rng):
 
 
 def _inputs():
-    params = _np(JT.init_lm_params(jax.random.PRNGKey(0), V, D, H, E, FF, L))
+    params = lm_params_np(0, V, D, H, E, FF, L)
     rng = np.random.RandomState(0)
     batches = _batches(rng, 3)
     # the guarded run: token V-1's embedding is inf and only batch 1 (on
@@ -308,7 +309,7 @@ def test_shard_lm_batch_rows_and_indivisible_batch():
 
 
 def test_lm_param_shardings_replicate_every_leaf():
-    params = _np(JT.init_lm_params(jax.random.PRNGKey(1), V, D, H, E, FF, L))
+    params = lm_params_np(1, V, D, H, E, FF, L)
     jm = jmesh.data_parallel_mesh(WORLD)
     want = jax.tree_util.tree_map(lambda s: tuple(s.spec),
                                   JT.lm_param_shardings(params, jm))
@@ -338,7 +339,7 @@ def test_sp_and_expert_meshes_place_like_jax(axes):
     mesh = Mesh(axes, (1,) * len(axes))
     jm = jsh.Mesh(np.array(jax.devices()[:1]).reshape((1,) * len(axes)),
                   axes)
-    params = _np(JT.init_lm_params(jax.random.PRNGKey(1), V, D, H, E, FF, 1))
+    params = lm_params_np(1, V, D, H, E, FF, 1)
     want = jax.tree_util.tree_map(lambda s: tuple(s.spec),
                                   JT.lm_param_shardings(params, jm))
     got = TT.lm_param_shardings(lm_params_from_numpy(params, "cpu"), mesh)
@@ -362,10 +363,12 @@ def test_sp_and_expert_meshes_place_like_jax(axes):
 
 def test_unported_seams_raise_and_sharded_state_needs_a_mesh():
     mesh = Mesh(("data",), (1,))
-    with pytest.raises(NotImplementedError, match="21b"):
+    # tuned=True needs the context its cache entry is keyed by (JAX's
+    # resolve_step_tuning contract)
+    with pytest.raises(ValueError, match="tune_context"):
         TT.make_composed_train_step(mesh, H, CAP, device="cpu", tuned=True)
     params = lm_params_from_numpy(
-        _np(JT.init_lm_params(jax.random.PRNGKey(1), V, D, H, E, FF, 1)),
+        lm_params_np(1, V, D, H, E, FF, 1),
         "cpu")
     # profile= and runprof= (item 21a-ii) arm and change no output
     from deeplearning4j_tpu_torch._device import tree_leaves

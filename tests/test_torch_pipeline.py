@@ -298,7 +298,7 @@ def test_validation_and_stage_helpers():
                              Mesh(("pipe",), (1,)))
     with pytest.raises(ValueError, match="needs the 'data' axis"):
         tpipe.pp_update_sharding(Mesh(("pipe",), (1,)))
-    with pytest.raises(NotImplementedError, match="21b"):
+    with pytest.raises(ValueError, match="tune_context"):
         tpipe.make_pipeline_train_step(lambda p, x: x, lambda a, b: a,
                                        Mesh(("pipe",), (1,)), tuned=True)
     # profile= (item 21a-ii) arms under JAX's label and changes no output

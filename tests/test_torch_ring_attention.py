@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh as JMesh
 
+from _torch_lm_init import lm_params_np
 from _torch_parallel_ranks import collect_ranks, spawn_ranks
 from deeplearning4j_tpu.models import transformer_lm as JT
 from deeplearning4j_tpu.nn import conf as jconf
@@ -78,8 +79,7 @@ def _inputs():
         "kind": "composed", "mesh": (("data", "sp", "expert"), (1, 2, 2)),
         "n_heads": 2, "capacity": 32, "lr": 0.1, "moe_impl": "alltoall",
         "attn_impl": "blockwise",
-        "params": jax.tree_util.tree_map(np.asarray, JT.init_lm_params(
-            jax.random.PRNGKey(0), 32, 16, 2, 4, 32, 1)),
+        "params": lm_params_np(0, 32, 16, 2, 4, 32, 1),
         "batches": [tuple(np.random.RandomState(s).randint(0, 32, (4, 16))
                           .astype(np.int32) for s in (1, 2))] * 2}
     return {

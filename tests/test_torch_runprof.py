@@ -26,6 +26,7 @@ import jax
 import numpy as np
 import pytest
 
+from _torch_lm_init import lm_params_np
 from deeplearning4j_tpu.telemetry import runprof as jrp
 from deeplearning4j_tpu_torch._device import tree_leaves
 from deeplearning4j_tpu_torch.interop import lm_params_from_numpy
@@ -67,11 +68,7 @@ def _registry_names(registry, prefix="runprof_"):
 
 
 def _lm_params(layers=1):
-    from deeplearning4j_tpu.models.transformer_lm import init_lm_params
-
-    p = init_lm_params(jax.random.PRNGKey(0), V, D, H, E, FF,
-                       n_layers=layers)
-    return lm_params_from_numpy(jax.tree_util.tree_map(np.asarray, p),
+    return lm_params_from_numpy(lm_params_np(0, V, D, H, E, FF, layers),
                                 "cpu")
 
 
@@ -221,11 +218,8 @@ class TestPhaseTimings:
 def _engine(reg, prof, **kw):
     from deeplearning4j_tpu_torch.serve import DecodeEngine
 
-    params = lm_params_from_numpy(jax.tree_util.tree_map(
-        np.asarray, __import__(
-            "deeplearning4j_tpu.models.transformer_lm",
-            fromlist=["init_lm_params"]).init_lm_params(
-                jax.random.PRNGKey(0), 31, 8, 2, 2, 16, n_layers=1)), "cpu")
+    params = lm_params_from_numpy(lm_params_np(0, 31, 8, 2, 2, 16, 1),
+                                  "cpu")
     return DecodeEngine(params, 2, n_slots=2, max_len=16, serve_dtype=None,
                         registry=reg, runprof=prof, device="cpu", **kw)
 
@@ -277,8 +271,13 @@ class TestEngineSeam:
         assert "runprof_measured_mfu" not in flat
 
     def test_tuned_still_raises_naming_21b(self):
-        with pytest.raises(NotImplementedError, match="21b"):
-            _engine(MetricsRegistry(), None, tuned=True)
+        """``tuned=`` (item 21b) is a seam of the engine now: an explicit
+        config lands beside an armed runtime profiler."""
+        prof = RunProfiler(registry=MetricsRegistry())
+        eng = _engine(MetricsRegistry(), prof, tuned={"slots": 3,
+                                                      "min_bucket": 4})
+        assert eng.n_slots == 3 and eng._buckets[0] == 4
+        assert eng._runprof is prof
 
 
 # ----------------------------------------------------- measured-MFU cross-check ----

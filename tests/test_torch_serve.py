@@ -26,9 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from deeplearning4j_tpu.models.transformer_lm import (
-    init_lm_params as j_init_lm_params,
-)
+from _torch_lm_init import lm_params_np
 from deeplearning4j_tpu.serve.engine import DecodeEngine as JaxEngine
 from deeplearning4j_tpu.serve.quant import QuantTensor as JQuantTensor
 from deeplearning4j_tpu.serve.quant import (
@@ -56,8 +54,7 @@ MAX_NEW = 6
 
 @pytest.fixture(scope="module")
 def np_params():
-    p = j_init_lm_params(jax.random.PRNGKey(0), V, D, H, E, DFF, n_layers=L)
-    return jax.tree_util.tree_map(np.asarray, p)
+    return lm_params_np(0, V, D, H, E, DFF, L)
 
 
 def _prompts(n, seed=2, lo=3, hi=12):

@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from _torch_lm_init import lm_params_np
 from deeplearning4j_tpu.models import transformer_lm as jlm
 from deeplearning4j_tpu.serve.engine import DecodeEngine as JaxEngine
 from deeplearning4j_tpu.serve.prefix_cache import (
@@ -56,9 +57,7 @@ ATOL = 1e-4
 
 @pytest.fixture(scope="module")
 def np_params():
-    p = jlm.init_lm_params(jax.random.PRNGKey(0), V, D, H, E, DFF,
-                           n_layers=L)
-    return jax.tree_util.tree_map(np.asarray, p)
+    return lm_params_np(0, V, D, H, E, DFF, L)
 
 
 @pytest.fixture(scope="module")
@@ -561,13 +560,16 @@ def test_all_fast_paths_composed_parity(params):
     assert st["speculative"]["verify_steps"] > 0
 
 
-def test_runprof_and_tuned_raise_naming_slice_9(params):
-    """``tuned=`` still raises, now naming ROADMAP item 21b; ``runprof=``
-    (item 21a-ii) arms the engine (tests/test_torch_runprof.py drives
-    it)."""
-    for kw in ({"tuned": True}, {"tuned": {"slots": 2}}):
-        with pytest.raises(NotImplementedError, match="21b"):
-            DecodeEngine(params, H, device="cpu", **kw)
+def test_runprof_and_tuned_raise_naming_slice_9(params, tmp_path,
+                                                monkeypatch):
+    """``tuned=`` (item 21b) adopts: an explicit config as it is, ``True``
+    the tuning cache (a miss here: defaults); ``runprof=`` (item 21a-ii)
+    arms the engine (tests/test_torch_runprof.py drives it)."""
+    monkeypatch.setenv("DL4J_TPU_TUNE_CACHE", str(tmp_path / "c.json"))
+    assert DecodeEngine(params, H, device="cpu",
+                        tuned={"slots": 2}).n_slots == 2
+    assert DecodeEngine(params, H, device="cpu", n_slots=3,
+                        tuned=True).n_slots == 3
     from deeplearning4j_tpu_torch.telemetry.registry import MetricsRegistry
     from deeplearning4j_tpu_torch.telemetry.runprof import RunProfiler
 

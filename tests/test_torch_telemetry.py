@@ -22,6 +22,7 @@ import sys
 import numpy as np
 import pytest
 
+from _torch_lm_init import lm_params_np
 from deeplearning4j_tpu_torch.telemetry import (
     PROMETHEUS_CONTENT_TYPE,
     MetricsRegistry,
@@ -434,14 +435,12 @@ class TestTrainTelemetry:
         JAX's test_telemetry does with the composed step."""
         import jax
 
-        from deeplearning4j_tpu.models.transformer_lm import init_lm_params
         from deeplearning4j_tpu_torch.interop import lm_params_from_numpy
         from deeplearning4j_tpu_torch.models import transformer_lm as TT
         from deeplearning4j_tpu_torch.telemetry import TrainTelemetry
 
-        params = lm_params_from_numpy(jax.tree_util.tree_map(
-            np.asarray, init_lm_params(jax.random.PRNGKey(0), 32, 16, 2, 2,
-                                       32, n_layers=1)), "cpu")
+        params = lm_params_from_numpy(
+            lm_params_np(0, 32, 16, 2, 2, 32, 1), "cpu")
         step = TT.make_single_device_train_step(2, with_metrics=True,
                                                 device="cpu")
         toks = np.random.RandomState(0).randint(0, 32, (2, 9))

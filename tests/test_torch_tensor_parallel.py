@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+from _torch_lm_init import lm_params_np
 from _torch_parallel_ranks import collect_ranks, spawn_ranks
 from deeplearning4j_tpu.datasets.dataset import DataSet as JDataSet
 from deeplearning4j_tpu.datasets.impl import IrisDataSetIterator
@@ -158,7 +159,7 @@ def _inputs():
         out[name] = {"kind": "tp_step", "mesh": TP4, "conf": conf.to_json(),
                      "params": _init(conf, 1),
                      "batches": [(i, mx[i], ys[i], None) for i in range(3)]}
-    params = _np(JT.init_lm_params(jax.random.PRNGKey(4), V, D, H, 2, FF, 2))
+    params = lm_params_np(4, V, D, H, 2, FF, 2)
     rng = np.random.RandomState(6)
     out["composed_dp_model"] = {
         "kind": "composed", "mesh": DP_TP, "n_heads": H, "capacity": 0,

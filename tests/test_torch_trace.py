@@ -28,9 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from deeplearning4j_tpu.models.transformer_lm import (
-    init_lm_params as j_init_lm_params,
-)
+from _torch_lm_init import lm_params_np
 from deeplearning4j_tpu.serve import loadgen as jloadgen
 from deeplearning4j_tpu.serve.engine import DecodeEngine as JaxEngine
 from deeplearning4j_tpu.telemetry import trace as jtr
@@ -71,8 +69,7 @@ _TIMES = {"queue_wait_ms", "prefill_ms", "prefill_cached_ms",
 
 @pytest.fixture(scope="module")
 def np_params():
-    p = j_init_lm_params(jax.random.PRNGKey(0), V, D, H, E, DFF, n_layers=L)
-    return jax.tree_util.tree_map(np.asarray, p)
+    return lm_params_np(0, V, D, H, E, DFF, L)
 
 
 @pytest.fixture(scope="module")
@@ -675,5 +672,10 @@ class TestLoadgen:
         assert rep.duration_s >= offsets[-1] and rep.completed == 3
 
     def test_http_driver_names_its_slice(self):
-        with pytest.raises(NotImplementedError, match="slice 9"):
-            run_open_loop_http("http://127.0.0.1:1", [[1, 2]], 1.0)
+        """The HTTP driver (item 21c; tests/test_torch_ui.py drives it
+        against both packages' servers) counts a request whose POST
+        finds no server as not completed, as JAX's does."""
+        rep = run_open_loop_http("http://127.0.0.1:1", [[1, 2]], 1.0,
+                                 timeout_s=10.0)
+        assert rep.n_requests == 1 and rep.completed == 0
+        assert rep.tokens_out == 0

@@ -2,9 +2,10 @@
 (deeplearning4j_tpu_torch/models/transformer_lm.make_single_device_train_step)
 held against the JAX package's on the same parameters and batch.
 
-JAX parameters come from its own ``init_lm_params`` and go to the port with
-``interop.lm_params_from_numpy``; tokens come from a numpy seed. On the CPU
-the port's "blockwise" core is ``FlashAttention`` over the kernels' plain
+Parameters come from ``tests/_torch_lm_init.lm_params_np`` (the port's
+init as numpy, handed to both packages; JAX's own init compiles for
+seconds) and go to the port with ``interop.lm_params_from_numpy``; tokens
+come from a numpy seed. On the CPU the port's "blockwise" core is ``FlashAttention`` over the kernels' plain
 versions, held against JAX's ``blockwise_attention`` custom VJP. Tolerance:
 f32, 1e-5 absolute on loss, grads, params and optimizer moments (the two
 packages sum in different orders; values are O(1) and below).
@@ -29,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from _torch_lm_init import lm_params_np
 from deeplearning4j_tpu.models import transformer_lm as jlm
 from deeplearning4j_tpu.optimize import guardrails as jguard
 from deeplearning4j_tpu.optimize import updaters as jupd
@@ -53,9 +55,7 @@ IMPLS = ["dense", "blockwise"]
 
 @pytest.fixture(scope="module")
 def np_params():
-    p = jlm.init_lm_params(jax.random.PRNGKey(0), V, D, H, E, DFF,
-                           n_layers=L)
-    return jax.tree_util.tree_map(np.asarray, p)
+    return lm_params_np(0, V, D, H, E, DFF, L)
 
 
 @pytest.fixture(scope="module")
@@ -357,13 +357,13 @@ def test_sharded_update_and_bad_seams_rejected(np_params, monkeypatch):
         tlm.init_lm_opt_state(None, _tp(np_params), device="cpu")
     assert tupd.OptimizerConfig.coerce("adagrad").eps == \
         jupd.OptimizerConfig.coerce("adagrad").eps
-    # profile= (item 21a-ii) is a seam of the step now; tuned= still
-    # raises, naming item 21b
+    # profile= (item 21a-ii) and tuned= (item 21b) are seams of the step
+    # now; tuned=True needs the context its cache entry is keyed by
     from deeplearning4j_tpu_torch.telemetry.xprofile import ProfiledStep
 
     assert isinstance(tlm.make_single_device_train_step(
         H, profile=True, device="cpu"), ProfiledStep)
-    with pytest.raises(NotImplementedError, match="21b"):
+    with pytest.raises(ValueError, match="tune_context"):
         tlm.make_single_device_train_step(H, tuned=True, device="cpu")
 
 

@@ -2,9 +2,8 @@
 scaleout/remote_tracker.py, distributed_runner.py, provision.py,
 telemetry/federation.py) held against the JAX package's:
 tests/test_netwatch.py, test_distributed_runner.py, test_provision.py
-(without its slow multihost case) and test_federation.py (without its UI
-and Prometheus cases, which wait for ROADMAP item 21c) through the port,
-plus
+(without its slow multihost case) and test_federation.py (its UI and
+Prometheus cases are in tests/test_torch_ui.py) through the port, plus
 
 - the frames across packages: a JAX ``StateTrackerClient`` against a
   port ``StateTrackerServer`` and the other way round, for membership,

@@ -23,10 +23,12 @@ if os.environ.get("PYTEST_XDIST_WORKER"):
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 from torch.utils.flop_counter import FlopCounterMode
 
+from _torch_lm_init import lm_params_np
 from _torch_parallel_ranks import collect_ranks, spawn_ranks
 from deeplearning4j_tpu.models import transformer_lm as JT
 from deeplearning4j_tpu.telemetry import xprofile as jx
@@ -53,8 +55,8 @@ def _np(tree):
 
 
 def _jax_params(layers, experts=E, seed=0):
-    return JT.init_lm_params(jax.random.PRNGKey(seed), V, D, H, experts, FF,
-                             n_layers=layers)
+    return jax.tree_util.tree_map(jnp.asarray, lm_params_np(
+        seed, V, D, H, experts, FF, layers))
 
 
 def _tokens(b=B, t=T, seed=2):
@@ -200,7 +202,7 @@ def test_profiled_step_returns_the_profiled_call_and_passes_through():
     assert tx.maybe_profiled(fn, None, "x") is fn
     assert tx.maybe_profiled(fn, False, "x") is fn
     assert tx.maybe_profiled(fn, "mine", "x").label == "mine"
-    with pytest.raises(NotImplementedError, match="21b"):
+    with pytest.raises(ValueError, match="tune_context"):
         TT.make_single_device_train_step(H, tuned=True, device="cpu")
 
 
