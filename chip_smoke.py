@@ -16,7 +16,14 @@ Phases, each fatal on failure:
    the forward (K3f) as (o, lse) over T in {8, 65, 100, 512, 1000, 1024,
    2048} (65 and 1000 ragged), Dh in {16, 24, 64, 128} (each head-dim
    bucket), causal and not, f32 and bf16, and on element-offset views at
-   T=100; the backward pair (K3k: dK, dV; K3q: dQ) from K3f's o and lse
+   T=100; blockwise_block_partials (one K3f launch at the pair's diagonal
+   shift) at B=4, H=4, Dh 64 and 128, f32 and bf16, over (Tq, Tk) =
+   (512, 512) at a shift of 300, (256, 768) and (768, 256), causal and
+   not, the last causal pair with 300 rows that see no key (o = 0, lse =
+   -1e30), one launch each, none for a pair wholly masked, a call that
+   needs a gradient raising, each Dh-128 case timed beside its plain
+   version and its bound; the backward pair (K3k: dK, dV; K3q: dQ) from
+   K3f's o and lse
    over T in {1, 65, 100, 512, 2048}, Dh in {8, 40, 64, 96, 128} (each
    head-dim bucket), causal and not, f32 and bf16; then K3f's time at the
    serving shape (B=1, H=4, T=2048, Dh=128, causal, bf16) and all three at
@@ -289,8 +296,7 @@ Phases, each fatal on failure:
    f32 and bf16: output and the grads of sum(o²) against the unsharded
    kernel route at phase 2's tolerances, K3f, K3k and K3q each exactly
    P(P+1)/2 = 10 launches a call, prefetch on and off bit-identical, the
-   ring's device ms beside the unsharded pass's; an unaligned
-   blockwise_block_partials offset raises on the card; (b)
+   ring's device ms beside the unsharded pass's; (b)
    make_composed_train_step on a ("data", "sp", "expert") mesh of
    (1, 1, 1) at the flagship's full width and training shape: 3 SGD and
    3 Adam steps at ample capacity against make_single_device_train_step
@@ -385,7 +391,24 @@ Phases, each fatal on failure:
    /metrics; then /api/fleet over two replicas behind a FleetRouter and
    one routed /api/generate (the tokens of the in-process run, K3f
    n_layers x its admission);
-19. output: the card's name and power limit from nvidia-smi, one JSON line
+19. item 21d (``slice21d``) over phase 10's word2vec_large vectors
+   (V 50,000 at most, D 256): KMeansClustering(k=64, max_iterations=100)
+   over every vector on the card, its first Lloyd step against the CPU's
+   from the same seeded centers (centers within 1e-5 of their max,
+   assignments equal but at ties within 1e-5), the ms of a Lloyd step
+   and the run's wall; exact Tsne at its defaults (perplexity 30, lr
+   500, 1,000 iterations) over the 10,000 most frequent words, P and the
+   first 10 iterations at 1,000 words against the CPU's run, the wall,
+   the allocator's peak and the cost falling after the exaggeration; the
+   coordinates through UiServer.upload_tsne and back equal from
+   /api/tsne; BarnesHutTsne on the host over 250 points for 50
+   iterations (its seconds); PlotterIterationListener on two iterations
+   of the MNIST MLP's fit (2 renders, K1 4 launches); phase 3's burst
+   unarmed and with utils.lockwatch armed (streams equal, 0 cycles,
+   lockwatch_acquires_total > 0, K3f n_layers x admissions, tokens/s of
+   both), both bursts and 3 LM training steps (K3f, K3k, K3q n_layers
+   each a step) inside retrace_guard(0); the phase within 120 s;
+20. output: the card's name and power limit from nvidia-smi, one JSON line
    listing each kernel (K3f at the serving shape; K3f, K3k, K3q at the
    training shape in f32 and bf16 with their launches over the timed f32
    training run; K1 at both MLP layer shapes in f32 and bf16 with its
@@ -410,7 +433,11 @@ Phases, each fatal on failure:
    phase 18's times at key splits 1 and 2, its serving row
    ``ui_launches``, its counts over phase 18's HTTP burst and routed
    request, and the training rows of K3f, K3k and K3q ``tune_launches``,
-   their counts over phase 18's lm_seam search), and as the
+   their counts over phase 18's lm_seam search; K3f's serving row
+   ``partials``, phase 2's partials cases and their times, and
+   ``lockwatch_launches``, its count over phase 19's armed burst; the
+   training rows ``retrace_guard_launches``, their counts over phase
+   19's guarded LM steps), and as the
    last line {"ok": true, "device": {"platform": "gpu", "kind": ...,
    "count": ...}}. An f32 row's bound is that of f32-accurate products: the least
    of the CUDA cores' 67 TFLOP/s and three TF32 products at 495 (the
@@ -690,6 +717,164 @@ def flash_parity() -> None:
                         f"(tol {tol['lse']})")
                 n += 1
     log(f"[parity] flash_attention_fwd: {n} cases agree")
+
+
+# blockwise_block_partials on K3f at any shapes and offsets (repair of
+# the offset mask): B=4, H=4, Dh 64 and 128, f32 and bf16; (Tq, Tk,
+# q_offset, k_offset, causal): a 512-row pair at a shift of 300 (no
+# multiple of the shard), 256 rows against 768 keys and 768 against 256,
+# causal and not; the last causal one leaves its first 300 rows with no
+# visible key. A K block wholly after the Q block launches nothing.
+PARTIAL_CASES = ((512, 512, 1300, 1000, True),
+                 (256, 768, 512, 0, True), (256, 768, 512, 0, False),
+                 (768, 256, 0, 300, True), (768, 256, 0, 300, False))
+PARTIAL_DHS = (64, 128)
+
+
+def k3f_old_modes(reps: int = 50) -> dict:
+    """K3f's device ms at the three shapes that attention over one sequence
+    (Tq == Tk, no shift) gives it, all causal: serving's (bf16, B=1,
+    T=MAX_LEN) and training's (B=TRAIN_B, T=TRAIN_T) at f32 and bf16. The
+    shifted diagonal must leave these times as they were; the function
+    calls nothing the parent commit lacks, so it can time either."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+    dh = D_MODEL // N_HEADS
+    out = {}
+    for name, b, t, dtype in (("serving bf16", 1, MAX_LEN, torch.bfloat16),
+                              ("training f32", TRAIN_B, TRAIN_T,
+                               torch.float32),
+                              ("training bf16", TRAIN_B, TRAIN_T,
+                               torch.bfloat16)):
+        q, k, v = _qkv((b, N_HEADS, t, dh), dtype, seed=21)
+        out[name] = device_ms(lambda: fa.flash_attention_fwd(q, k, v, True),
+                              reps=reps)
+    return out
+
+
+def library_partials(q, k, v, causal: bool, shift: int):
+    """Device ms of one PyTorch call that computes a pair's partials (o and
+    its lse) at any Tq, Tk and shift: ``aten._scaled_dot_product_efficient_
+    attention`` with ``compute_log_sumexp``, the shifted causal diagonal as
+    a -1e30 additive bias of shape (Tq, Tk) broadcast over (B, H). None on
+    the CPU, where the op has no kernel."""
+    import torch
+
+    if q.device.type != "cuda":
+        return None
+    bias = None
+    if causal:
+        tq, tk = q.shape[2], k.shape[2]
+        rows = torch.arange(tq, device=q.device)[:, None]
+        cols = torch.arange(tk, device=q.device)[None, :]
+        bias = torch.zeros((tq, tk), dtype=q.dtype, device=q.device)
+        bias.masked_fill_(cols > rows + shift, -1e30)
+        bias = bias.expand(q.shape[0], q.shape[1], tq, tk)
+    return device_ms(
+        lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+            q, k, v, bias, True), reps=20)
+
+
+def partials_parity() -> dict:
+    """``blockwise_block_partials`` on the card against its plain version
+    (``flash_attention_reference`` at the pair's shift, the wrapper's CPU
+    route) at phase 2's K3f tolerances: one K3f launch a pair, none for a
+    pair wholly masked; rows that see no key come out as (o = 0, lse =
+    -1e30); a call that needs a gradient raises. At Dh=128 each case's
+    K3f launch (``flash_attention_fwd`` at the pair's shift, as the
+    partials call it, without their cast to f32) is timed beside the plain
+    version, the bound (``flash_attention_fwd_cost`` at (Tq, Tk, shift))
+    and ``library_partials``, a yardstick the port never calls."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+    b, h = TRAIN_B, N_HEADS
+    n, timed = 0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        tol = TOL[name]
+        for dh in PARTIAL_DHS:
+            for tq, tk, qo, ko, causal in PARTIAL_CASES:
+                seed = tq + 3 * tk + dh + int(causal)
+                q = _qkv((b, h, tq, dh), dtype, seed=seed)[0]
+                k, v = _qkv((b, h, tk, dh), dtype, seed=seed + 1)[:2]
+                _kernels.reset_launches()
+                o, lse = fa.blockwise_block_partials(q, k, v, qo, ko, causal)
+                sync()
+                launches = _kernels.LAUNCHES["flash_attention_fwd"]
+                shift = qo - ko if causal else 0
+                ro, rlse = fa.flash_attention_reference(q, k, v, causal,
+                                                        shift)
+                eo = (o - ro.float()).abs().max().item()
+                el = (lse - rlse).abs().max().item()
+                blind = (torch.arange(tq, device=q.device) + shift < 0
+                         if causal else torch.zeros(tq, dtype=torch.bool,
+                                                    device=q.device))
+                masked_ok = bool((o[:, :, blind] == 0).all().item()
+                                 and (lse[:, :, blind] == -1e30).all().item())
+                ok = (launches == 1 and o.dtype == lse.dtype == torch.float32
+                      and eo <= tol["o"] and el <= tol["lse"] and masked_ok
+                      and torch.isfinite(o).all().item())
+                case = (f"Tq={tq} Tk={tk} q_offset={qo} k_offset={ko} "
+                        f"causal={causal} Dh={dh} {name}")
+                log(f"[partials] {case}: o err {eo:.3g} lse err {el:.3g}, "
+                    f"{int(blind.sum())} rows see no key, {launches} "
+                    f"launch(es) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(
+                        f"blockwise_block_partials disagrees with its plain "
+                        f"version at {case}: o {eo} (tol {tol['o']}), lse "
+                        f"{el} (tol {tol['lse']}), launches {launches}, "
+                        f"masked rows (0, -1e30): {masked_ok}")
+                n += 1
+                if dh == 128:
+                    c = costs.flash_attention_fwd_cost(
+                        b, h, tq, dh, causal, q.element_size(), tk=tk,
+                        shift=shift)
+                    peak = (F32_PRODUCTS if dtype == torch.float32
+                            else PEAK_BF16_FLOPS)
+                    # the launch blockwise_block_partials makes: no K block
+                    # here lies wholly before its Q block, so each keeps
+                    # its causal flag
+                    entry = _kernel_entry(
+                        "flash_attention_fwd", "", device_ms(
+                            lambda: fa.flash_attention_fwd(
+                                q, k, v, causal, shift=shift), reps=20),
+                        time_ms(lambda: fa.flash_attention_reference(
+                            q, k, v, causal, shift), reps=5),
+                        c.flops, c.bytes, peak, max(eo, el),
+                        library_partials(q, k, v, causal, shift), case)
+                    timed[case] = {key: entry[key] for key in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms")}
+                del q, k, v, o, lse, ro, rlse
+    q = _qkv((1, 2, 64, 64), torch.float32, seed=3)[0]
+    _kernels.reset_launches()
+    o, lse = fa.blockwise_block_partials(q, q, q, 0, 64, causal=True)
+    if (_kernels.LAUNCHES["flash_attention_fwd"] != 0
+            or not (o == 0).all().item() or not (lse == -1e30).all().item()):
+        raise AssertionError("a K block wholly after the Q block launched "
+                             "or returned other than (0, -1e30)")
+    grad_raise = "(the CPU's plain version is differentiable)"
+    if DEVICE == "cuda":
+        qg = q.clone().requires_grad_()
+        try:
+            fa.blockwise_block_partials(qg, q, q, 64, 32, causal=True)
+            raise AssertionError("blockwise_block_partials returned "
+                                 "partials with no graph for a tensor "
+                                 "needing a grad")
+        except ValueError as e:
+            grad_raise = str(e)
+    log(f"[partials] {n} cases agree; a wholly masked pair launches "
+        f"nothing; a grad-needing call raises: {grad_raise[:60]}...")
+    log(f"[partials] device ms at Dh=128: {json.dumps(timed)}")
+    old_modes = k3f_old_modes()
+    log(f"[partials] K3f's old modes, device ms: {json.dumps(old_modes)}")
+    return {"cases": n, "timed": timed, "old_modes": old_modes}
 
 
 def flash_measure() -> dict:
@@ -3656,10 +3841,13 @@ def w2v_vocab(sents, smi: str) -> dict:
     return out
 
 
-def w2v_fit(name, sents, smi, profiled=True, **kw) -> dict:
+def w2v_fit(name, sents, smi, profiled=True, keep_vectors=False,
+            **kw) -> dict:
     """A warm fit, then one fit timed to the fence (block_until_ready):
     words/s and last_fit_timings; with ``profiled`` one more fit under
-    torch.profiler for the busy share and the device operations a step."""
+    torch.profiler for the busy share and the device operations a step;
+    with ``keep_vectors`` the result carries the fitted syn0 (host, f32)
+    and the vocabulary's words in index order (most frequent first)."""
     from torch.profiler import ProfilerActivity, profile
 
     from deeplearning4j_tpu_torch.models.word2vec import neg_group_size
@@ -3705,6 +3893,9 @@ def w2v_fit(name, sents, smi, profiled=True, **kw) -> dict:
             "top_device_ops_per_step": {
                 k: n / n_steps for k, n in list(counts.items())[:8]}}
     log(f"[w2v] fit {json.dumps(out)}")
+    if keep_vectors:
+        out["vectors"] = np.array(table.syn0, np.float32)
+        out["words"] = [w.word for w in vec.vocab.words()]
     return out
 
 
@@ -3935,6 +4126,7 @@ def slice6(smi: str) -> dict:
         large = _w2v_corpus(**W2V_LARGE)
         out = {"vocab": w2v_vocab(large, smi)}
         out["large"] = w2v_fit("word2vec_large", large, smi,
+                               keep_vectors=True,
                                layer_size=W2V_LARGE["layer_size"],
                                batch_size=W2V_LARGE["batch_size"])
         del large
@@ -5658,7 +5850,7 @@ def ring_phase() -> dict:
     kernel route (attention_core "blockwise") at phase 2's tolerances,
     K3f, K3k and K3q each launched P(P+1)/2 times a call, prefetch=True
     and False bit-identical, device ms of the ring's pass beside the
-    unsharded one's; then an unaligned block_partials offset raises."""
+    unsharded one's."""
     import torch
 
     from deeplearning4j_tpu_torch.ops import _kernels
@@ -5710,15 +5902,6 @@ def ring_phase() -> dict:
             run["unsharded_ms"] = device_ms(whole, reps=10)
         out[name] = run
         del q, k, v, o, o2, grads, grads2, ref_o, ref_g
-    qa = torch.zeros((1, 1, 64, dh), device=DEVICE)
-    try:
-        fa.blockwise_block_partials(qa, qa, qa, 64, 32, causal=True)
-        out["unaligned_raise"] = None
-    except ValueError as e:
-        out["unaligned_raise"] = str(e)
-    if DEVICE == "cuda" and out["unaligned_raise"] is None:
-        raise AssertionError("an unaligned block_partials offset ran on the "
-                             "card")
     log(f"[ring] {json.dumps(out)}")
     return out
 
@@ -7898,6 +8081,283 @@ def slice21bc(smi: str, params, phase3: dict) -> dict:
 
 # ---------------------------------------------------------------- main ----
 
+# ------------------------------------------------------------ phase 19 ----
+
+# item 21d over word2vec_large's fitted vectors (phase 10): KMeans with k
+# 64 for 100 Lloyd steps over every vector; exact t-SNE at its defaults
+# over the TSNE_N most frequent words; the card against the CPU's run of
+# the same code: KMeans' first Lloyd step (centers within KM_TOL of their
+# max; assignments equal but where the two nearest centers tie within
+# KM_TIE relative), t-SNE's P and its first TSNE_CHECK_ITERS iterations
+# at TSNE_CHECK_N words, each iteration from the card's state (f32 sums
+# in other orders: P ~1e-6 of its max). The descent at lr 500 blows y up
+# from 1e-4 to O(10) in its first iterations and amplifies an f32
+# difference as it goes: two free runs from one draw parted by 8.8e-4
+# and by 0.119 of max|y| after 10 iterations, so each step is held from
+# a shared state, as the RNTN's bucket steps are. Barnes-Hut t-SNE is
+# host numpy: BH_N points for BH_ITERS iterations (a thousand points take
+# minutes of Python tree walks).
+KM_K, KM_ITERS = 64, 100
+KM_TOL, KM_TIE = 1e-5, 1e-5
+TSNE_N, TSNE_CHECK_N, TSNE_CHECK_ITERS = 10_000, 1_000, 10
+TSNE_P_TOL, TSNE_STEP_TOL = 1e-5, 1e-4
+BH_N, BH_ITERS = 250, 50
+PHASE19_S = 120.0
+
+
+def kmeans_card(vectors) -> dict:
+    """KMeansClustering over every fitted vector: the first Lloyd step on
+    the card against the CPU's from the same seeded centers, the ms of a
+    Lloyd step, then a full fixed-iteration run (costs finite and not
+    rising)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.clustering import kmeans as km
+
+    n, d = vectors.shape
+    model = km.KMeansClustering(KM_K, KM_ITERS, device=DEVICE)
+    t0 = time.perf_counter()
+    centers0 = model._kpp_init(vectors)
+    seed_s = time.perf_counter() - t0
+    xg = torch.as_tensor(vectors, device=DEVICE)
+    cg = torch.as_tensor(centers0, device=DEVICE)
+    c_card, a_card, _, cost_card = km._lloyd_step(xg, cg, KM_K, "euclidean")
+    xc, cc = torch.as_tensor(vectors), torch.as_tensor(centers0)
+    c_cpu, a_cpu, _, cost_cpu = km._lloyd_step(xc, cc, KM_K, "euclidean")
+    sq = ((xc * xc).sum(1, keepdim=True) - 2.0 * xc @ cc.T
+          + (cc * cc).sum(1)[None, :])
+    two = sq.topk(2, dim=1, largest=False).values
+    tie = (two[:, 1] - two[:, 0]) <= KM_TIE * two[:, 0].abs().clamp_min(
+        1e-30)
+    differ = a_card.cpu() != a_cpu
+    if (differ & ~tie).any():
+        raise AssertionError(f"KMeans: {int((differ & ~tie).sum())} "
+                             "assignments differ from the CPU's without a "
+                             "tie")
+    if differ.any():  # ties only: hold the update on the card's assignment
+        a_ref = a_card.cpu()
+        counts = torch.bincount(a_ref, minlength=KM_K).float()
+        sums = torch.zeros_like(cc).index_add_(0, a_ref, xc)
+        c_cpu = torch.where(counts[:, None] > 0,
+                            sums / counts.clamp_min(1.0)[:, None], cc)
+    err = ((c_card.cpu() - c_cpu).abs().max()
+           / c_cpu.abs().max()).item()
+    cost_err = abs(cost_card.item() - cost_cpu.item()) / cost_cpu.item()
+    if err > KM_TOL or cost_err > KM_TOL:
+        raise AssertionError(f"KMeans' first Lloyd step: centers {err} of "
+                             f"their max, cost {cost_err} (tol {KM_TOL})")
+    step_ms = device_ms(lambda: km._lloyd_step(xg, cg, KM_K, "euclidean"),
+                        reps=20)
+    sync()
+    t0 = time.perf_counter()
+    clusters = model.apply_to(vectors)
+    sync()
+    wall = time.perf_counter() - t0
+    costs_ = model.iteration_costs
+    if (len(costs_) != KM_ITERS or not np.isfinite(costs_).all()
+            or costs_[-1] > costs_[0]
+            or sum(len(c.points) for c in clusters.clusters) != n):
+        raise AssertionError(f"KMeans run: {len(costs_)} costs, first "
+                             f"{costs_[0]}, last {costs_[-1]}")
+    out = {"points": n, "dim": d, "k": KM_K, "iterations": KM_ITERS,
+           "first_step_center_err": err, "first_step_cost_err": cost_err,
+           "assignments_differing_at_ties": int(differ.sum()),
+           "lloyd_step_ms": step_ms, "seeding_s": seed_s,
+           "run_wall_s": wall, "cost_first": costs_[0],
+           "cost_last": costs_[-1]}
+    log(f"[kmeans] {json.dumps(out)}")
+    return out
+
+
+def tsne_card(vectors, words, smi) -> dict:
+    """Exact t-SNE: P and the first TSNE_CHECK_ITERS iterations at
+    TSNE_CHECK_N words on the card against the CPU's (each iteration's y,
+    velocity and cost from the card's state before it, the seeded draw
+    first); then the defaults (perplexity 30, lr 500, 1000
+    iterations) over the TSNE_N most frequent words, timed with the
+    allocator's peak; the coordinates through a UiServer's /api/tsne."""
+    import urllib.request
+
+    import torch
+
+    from deeplearning4j_tpu_torch.plot import tsne as ts
+    from deeplearning4j_tpu_torch.ui import UiServer
+
+    x = vectors[:TSNE_CHECK_N]
+    p_card = ts._d2p(ts._pairwise_sq_dists(torch.as_tensor(
+        x, device=DEVICE)), 30.0).cpu()
+    p_cpu = ts._d2p(ts._pairwise_sq_dists(torch.as_tensor(x)), 30.0)
+    p_err = ((p_card - p_cpu).abs().max() / p_cpu.max()).item()
+    model = ts.Tsne(device=DEVICE)
+    state = [ts._initial_y(model.seed, TSNE_CHECK_N, 2, DEVICE)]
+    state += [torch.zeros_like(state[0]), torch.ones_like(state[0])]
+    p_card = p_card.to(DEVICE)
+    step_err = cost_err = 0.0
+    for i in range(TSNE_CHECK_ITERS):
+        lying = model.exaggeration if i < model.stop_lying_iteration else 1.0
+        args = (model._momentum_at(i), model.learning_rate, model.min_gain)
+        *nxt, cost = ts._descent_step(p_card * lying, *state, *args)
+        *ref, ref_cost = ts._descent_step(p_cpu * lying,
+                                          *(t.cpu() for t in state), *args)
+        for got, want in zip(nxt[:2], ref[:2]):  # y and the velocity
+            step_err = max(step_err, _rel_err(got.cpu(), want))
+        cost_err = max(cost_err, abs(cost.item() - ref_cost.item())
+                       / ref_cost.item())
+        state = nxt
+    if p_err > TSNE_P_TOL or step_err > TSNE_STEP_TOL or \
+            cost_err > TSNE_STEP_TOL:
+        raise AssertionError(f"t-SNE card against CPU at N={TSNE_CHECK_N}: "
+                             f"P {p_err} (tol {TSNE_P_TOL}), steps {step_err}"
+                             f", costs {cost_err} (tol {TSNE_STEP_TOL})")
+    del p_card, p_cpu, state
+    sync()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    y = model.calculate(vectors[:TSNE_N])
+    sync()
+    wall = time.perf_counter() - t0
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if DEVICE == "cuda" else None)
+    c = model.costs
+    falls = bool(c[-1] < c[model.stop_lying_iteration + 10])
+    if not (np.isfinite(y).all() and np.isfinite(c).all() and falls):
+        raise AssertionError(f"t-SNE at N={TSNE_N}: finite y "
+                             f"{np.isfinite(y).all()}, costs {c[0]} -> "
+                             f"{c[-1]}")
+    ui = UiServer()
+    ui.upload_tsne(y, words[:TSNE_N])
+    ui.start(port=0)
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{ui.port}/api/tsne", timeout=60) as r:
+            got = json.loads(r.read())
+    finally:
+        ui.stop()
+    if got["coords"] != y.tolist() or got["labels"] != words[:TSNE_N]:
+        raise AssertionError("/api/tsne did not return the uploaded "
+                             "coordinates and labels")
+    out = {"check_n": TSNE_CHECK_N, "check_iterations": TSNE_CHECK_ITERS,
+           "p_err": p_err, "step_err": step_err, "cost_err": cost_err,
+           "n": TSNE_N, "dim": int(vectors.shape[1]),
+           "iterations": model.max_iter, "wall_s": wall,
+           "ms_per_iteration": wall * 1e3 / model.max_iter,
+           "peak_mem_gb": peak_gb, "cost_first": float(c[0]),
+           "cost_after_exaggeration": float(
+               c[model.stop_lying_iteration + 10]),
+           "cost_last": float(c[-1]), "cost_falls": falls,
+           "api_tsne_points": len(got["coords"]), "card": smi}
+    log(f"[tsne] {json.dumps(out)}")
+    return out
+
+
+def plot_listener() -> dict:
+    """NeuralNetPlotter's iteration listener on two iterations of the
+    MNIST MLP's fit (K1 twice an iteration)."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.models.zoo import mnist_mlp
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.plot.iteration_listener import \
+        PlotterIterationListener
+
+    x, y = _mnist(MLP_BATCH, seed=9)
+    net = MultiLayerNetwork(mnist_mlp(MLP_H1, MLP_H2, num_iterations=2),
+                            device=DEVICE).init()
+    with tempfile.TemporaryDirectory() as work:
+        listener = PlotterIterationListener(frequency=1, out_dir=work)
+        net.set_listeners([listener])
+        _kernels.reset_launches()
+        net.fit(x, labels=y)
+        sync()
+        launches = _kernels.LAUNCHES["fused_dense"]
+        found = [os.path.exists(p) or os.path.exists(p + ".json")
+                 for p in listener.paths]
+    if len(listener.paths) != 2 or not all(found) or launches != 4:
+        raise AssertionError(f"plotter listener: {len(listener.paths)} "
+                             f"renders, files {found}, K1 {launches}")
+    return {"renders": len(listener.paths), "k1_launches": launches}
+
+
+def slice21d(smi: str, params, w2v: dict) -> dict:
+    """Phase 19, item 21d: KMeans and exact t-SNE on the card over
+    word2vec_large's vectors, the t-SNE view through the UI, Barnes-Hut
+    t-SNE on the host, the plotter listener, phase 3's serving burst armed
+    and unarmed under lockwatch, and the warmed burst and LM steps under
+    retrace_guard(0)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer_lm import \
+        make_single_device_train_step
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.plot import BarnesHutTsne
+    from deeplearning4j_tpu_torch.telemetry.registry import MetricsRegistry
+    from deeplearning4j_tpu_torch.utils import lockwatch as lw
+    from deeplearning4j_tpu_torch.utils.retrace_guard import retrace_guard
+
+    t_phase = time.perf_counter()
+    vectors, words = w2v["vectors"], w2v["words"]
+    out = {"kmeans": kmeans_card(vectors),
+           "tsne": tsne_card(vectors, words, smi)}
+    t0 = time.perf_counter()
+    bh = BarnesHutTsne(max_iter=BH_ITERS).fit_transform(vectors[:BH_N])
+    out["barnes_hut"] = {"n": BH_N, "iterations": BH_ITERS,
+                         "wall_s": time.perf_counter() - t0}
+    if not np.isfinite(bh).all():
+        raise AssertionError("Barnes-Hut t-SNE: non-finite coordinates")
+    out["plot_listener"] = plot_listener()
+
+    tparams, tokens, targets = _train_setup()
+    step = make_single_device_train_step(N_HEADS, device=DEVICE)
+    tparams, loss = step(tparams, tokens, targets)  # warm-up
+    sync()
+    sink = MetricsRegistry()
+    with retrace_guard(0, label="phase 19: warmed serving and LM steps") \
+            as guard:
+        plain = serve(params, None, PROMPT_LENS, seed=1)
+        lw.reset()
+        lw.enable(registry=sink, raise_on_cycle=True)
+        try:
+            armed = serve(params, None, PROMPT_LENS, seed=1)
+            watch = lw.summary()
+        finally:
+            lw.disable()
+            lw.reset()
+        _kernels.reset_launches()
+        for _ in range(3):
+            tparams, loss = step(tparams, tokens, targets)
+        sync()
+        train_launches = _check_launches("phase 19 LM steps", 3)
+    acquires = sum(s["acquires"] for s in watch["locks"].values())
+    engine_acquires = sink.counter("lockwatch_acquires_total",
+                                   {"lock": "serve.engine"}).value
+    if (armed["streams"] != plain["streams"] or watch["cycles"]
+            or not acquires or not engine_acquires
+            or not np.isfinite(float(loss))):
+        raise AssertionError(f"lockwatch-armed burst: streams equal "
+                             f"{armed['streams'] == plain['streams']}, "
+                             f"cycles {watch['cycles']}, acquires "
+                             f"{acquires}, serve.engine {engine_acquires}")
+    out["lockwatch"] = {
+        "unarmed_tokens_per_s": plain["tokens_per_s"],
+        "armed_tokens_per_s": armed["tokens_per_s"],
+        "armed_over_unarmed": armed["tokens_per_s"] / plain["tokens_per_s"],
+        "k3f_launches": armed["kernel_launches"],
+        "k3f_admissions": armed["kernel_admissions"], "cycles": 0,
+        "acquires": acquires, "locks": sorted(watch["locks"]),
+        "serve_engine_hold_ms_max":
+            watch["locks"]["serve.engine"]["hold_ms_max"]}
+    out["retrace_guard"] = {"budget": 0, "compiles": guard.count,
+                            "lm_steps": 3, "launches": train_launches}
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[slice21d] {json.dumps({k: v for k, v in out.items()})} on {smi}")
+    if out["wall_s"] > PHASE19_S:
+        raise AssertionError(f"phase 19 took {out['wall_s']:.1f} s, over "
+                             f"its {PHASE19_S:.0f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7920,8 +8380,10 @@ def main() -> int:
 
     build_kernels()
     flash_parity()
+    partials = partials_parity()
     bwd_parity()
     serve_entry = flash_measure()
+    serve_entry["partials"] = partials
     train_entries = train_shape_measure()
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -8025,7 +8487,14 @@ def main() -> int:
     params = init_lm_params(gen, VOCAB, D_MODEL, N_HEADS, N_EXPERTS, D_FF,
                             n_layers=N_LAYERS, device=DEVICE)
     s21bc = slice21bc(smi, params, main_run)
+    s21d = slice21d(smi, params, nlp["large"])
     del params
+    # item 21d (phase 19): K3f over the lockwatch-armed burst, the three
+    # training kernels over the retrace-guarded LM steps
+    serve_entry["lockwatch_launches"] = s21d["lockwatch"]["k3f_launches"]
+    for entry in train_entries:
+        entry["retrace_guard_launches"] = \
+            s21d["retrace_guard"]["launches"][entry["name"]]
     # items 21b and 21c (phase 18): K3f's key splits at each row's shape,
     # the HTTP burst's and the routed request's launches, the lm_seam
     # search's launches of the three training kernels

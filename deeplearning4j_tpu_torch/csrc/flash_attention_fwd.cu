@@ -8,10 +8,16 @@
 // the JAX package's "flash" and "blockwise" cores land here on a CUDA
 // tensor; the split between them was a TPU scheduling matter.
 //
-// Computes, over (B, H, T, Dh) row-major inputs:
+// Computes, over row-major q (B, H, Tq, Dh) and k, v (B, H, Tk, Dh):
 //   o   = softmax(q k^T / sqrt(Dh) [+ causal mask]) v      (dtype of q)
-//   lse = logsumexp of the scaled, masked scores           (f32, (B, H, T))
-// with the reference's numerics: scores, running max, running sum and the
+//   lse = logsumexp of the scaled, masked scores          (f32, (B, H, Tq))
+// Under causal, key j is seen by row i iff j <= i + shift, where shift =
+// q_offset - k_offset is the diagonal shift of a (Q shard, K/V shard) pair
+// at global sequence offsets (blockwise_block_partials; ring attention's
+// pairs). Attention over one sequence is Tq == Tk, shift 0. A row that
+// sees no key (shift < 0 leaves the first -shift rows so) comes out as
+// o = 0, lse = -1e30: zero weight in a logsumexp merge.
+// The reference's numerics: scores, running max, running sum and the
 // output accumulator are f32; P is rounded to V's dtype before the PV
 // product, as the reference's p.astype(v.dtype) does (the row sum keeps
 // the f32 p); masked scores are -1e30 and the row sum is guarded by
@@ -26,13 +32,18 @@
 //   against 33.7 MB, 10.0 us. f32 (three TF32 products each): 104 us of
 //   operations against 67.2 MB, 20.1 us; on the CUDA cores' 67 TFLOP/s it
 //   would be 256 us. Bound by operations at both types.
+// A pair at a shift scores the pairs on or below its shifted diagonal, and
+// the tile walk skips the tiles above it: its bound is ops/_kernels.py's
+// flash_attention_fwd_cost at (tq, tk, shift).
 //
 // Design (FlashAttention-2's online softmax on mma.sync; wgmma and TMA are
 // a later step; the staging and the tile products are flash_tiles.cuh's,
 // shared with the backward pair):
 // - one block per (b*h, 64-row q tile), 4 warps along the tile, 16 rows
 //   each; under causal the q tiles launch heaviest first (the block index
-//   is reversed), so the short tiles near the start fill the tail;
+//   is reversed), so the short tiles near the start fill the tail (at a
+//   shift too: row i sees i + shift + 1 keys). A tile whose rows see no
+//   key walks no K/V tile;
 // - key split: at f32, and at bf16 when the grid cannot give every SM two
 //   blocks (serving's B*H = 4: 128 blocks), the block has 8 warps, and the
 //   two warps of each 16 rows take the two halves of every K/V tile, each
@@ -181,14 +192,21 @@ __device__ __forceinline__ bool merge_key_halves(float* xchg, int slot,
   return true;
 }
 
-template <typename T, int DH, bool kVec16, int kSplit>
+// kShifted: Tq != Tk or a causal shift. Without it tk and shift fold to
+// tq and 0, so the old modes (attention over one sequence) compile to the
+// loop they had before the shift existed; tk and shift come last, after
+// the parameters the old modes read.
+template <typename T, int DH, bool kVec16, int kSplit, bool kShifted>
 __global__ void __launch_bounds__(kRowWarps * kSplit * 32)
     flash_attention_fwd_kernel(const T* __restrict__ q,
                                const T* __restrict__ k,
                                const T* __restrict__ v, T* __restrict__ o,
-                               float* __restrict__ lse, int t, int dh,
-                               int causal, float scale, int width) {
+                               float* __restrict__ lse, int tq, int dh,
+                               int causal, float scale, int width,
+                               int tk_arg, int shift_arg) {
   constexpr bool kF32 = sizeof(T) == 4;
+  const int tk = kShifted ? tk_arg : tq;
+  const int shift = kShifted ? shift_arg : 0;
   constexpr int kThreads = kRowWarps * kSplit * 32;
   constexpr int BK = Cfg<T>::kBlockK;  // keys a warp takes of a tile
   constexpr int kTileK = kSplit * BK;
@@ -208,24 +226,29 @@ __global__ void __launch_bounds__(kRowWarps * kSplit * 32)
   const int n_qt = gridDim.y;
   const int q0 = (causal ? n_qt - 1 - (int)blockIdx.y : (int)blockIdx.y) *
                  kBlockQ;
-  const size_t base = (size_t)bh * t * dh;
-  const T* qb = q + base;
-  const T* kb = k + base;
-  const T* vb = v + base;
+  const size_t q_base = (size_t)bh * tq * dh;
+  const size_t k_base = (size_t)bh * tk * dh;
+  const T* qb = q + q_base;
+  const T* kb = k + k_base;
+  const T* vb = v + k_base;
 
-  const int n_tiles = (t + kTileK - 1) / kTileK;
-  const int last_q = min(q0 + kBlockQ, t) - 1;
-  const int n_kt = causal ? min(n_tiles, last_q / kTileK + 1) : n_tiles;
+  const int n_tiles = (tk + kTileK - 1) / kTileK;
+  // under causal the tile's last row sees keys up to last_k: the walk
+  // stops at its tile, and a tile that sees none walks no tile
+  const int last_k = min(q0 + kBlockQ, tq) - 1 + shift;
+  const int n_kt = !causal                 ? n_tiles
+                   : kShifted && last_k < 0 ? 0
+                                            : min(n_tiles, last_k / kTileK + 1);
 
   // Q and the first kKVStages - 1 K/V tiles, one commit group each
-  stage_rows<T, DH, kBlockQ, kVec16, kThreads>(qs, qb, q0, t, dh, width);
+  stage_rows<T, DH, kBlockQ, kVec16, kThreads>(qs, qb, q0, tq, dh, width);
 #pragma unroll
   for (int st = 0; st < kKVStages - 1; ++st) {
     if (st < n_kt) {
       stage_rows<T, DH, kTileK, kVec16, kThreads>(
-          ks + st * kStageBytes, kb, st * kTileK, t, dh, width);
+          ks + st * kStageBytes, kb, st * kTileK, tk, dh, width);
       stage_rows<T, DH, kTileK, kVec16, kThreads>(
-          vs + st * kStageBytes, vb, st * kTileK, t, dh, width);
+          vs + st * kStageBytes, vb, st * kTileK, tk, dh, width);
     }
     cp_async_commit();
   }
@@ -235,13 +258,13 @@ __global__ void __launch_bounds__(kRowWarps * kSplit * 32)
   // one ex2 an element; max(scale s) = scale max(s) (scale > 0).
   const float c2 = scale * 1.4426950408889634f;
   const int row = rw * 16 + g;  // this thread's rows: row, row + 8
-  int lim[2];                   // the last key each row sees
+  int lim[2];  // the last key each row sees (< 0: none)
 #pragma unroll
   for (int h = 0; h < 2; ++h)
-    lim[h] = causal ? min(q0 + row + 8 * h, t - 1) : t - 1;
-  // a warp's keys need the mask if they reach past T or, under causal,
-  // past the warp's first row
-  const int warp_lim = causal ? min(q0 + rw * 16, t - 1) : t - 1;
+    lim[h] = causal ? min(q0 + row + 8 * h + shift, tk - 1) : tk - 1;
+  // a warp's keys need the mask if they reach past Tk or, under causal,
+  // past the warp's first row's last key
+  const int warp_lim = causal ? min(q0 + rw * 16 + shift, tk - 1) : tk - 1;
   float m[2] = {kNegInf, kNegInf};  // running max of the raw scores
   float l[2] = {0.f, 0.f};          // this thread's share of the row sums
   float acc[DH / 8][4];
@@ -267,9 +290,9 @@ __global__ void __launch_bounds__(kRowWarps * kSplit * 32)
     if (next < n_kt) {
       const int slot = next % kKVStages;
       stage_rows<T, DH, kTileK, kVec16, kThreads>(
-          ks + slot * kStageBytes, kb, next * kTileK, t, dh, width);
+          ks + slot * kStageBytes, kb, next * kTileK, tk, dh, width);
       stage_rows<T, DH, kTileK, kVec16, kThreads>(
-          vs + slot * kStageBytes, vb, next * kTileK, t, dh, width);
+          vs + slot * kStageBytes, vb, next * kTileK, tk, dh, width);
     }
     cp_async_commit();
     const int cur = (j % kKVStages) * kStageBytes + kw * BK * kRowBytes;
@@ -343,14 +366,14 @@ __global__ void __launch_bounds__(kRowWarps * kSplit * 32)
       return;
   }
 
-  T* ob = o + base;
+  T* ob = o + q_base;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float lh = l[h];
     lh += __shfl_xor_sync(0xffffffffu, lh, 1);
     lh += __shfl_xor_sync(0xffffffffu, lh, 2);
     const int gr = q0 + row + 8 * h;
-    if (gr >= t) continue;
+    if (gr >= tq) continue;
     const float li = fmaxf(lh, 1e-30f);
 #pragma unroll
     for (int n = 0; n < DH / 8; ++n) {
@@ -363,39 +386,59 @@ __global__ void __launch_bounds__(kRowWarps * kSplit * 32)
       else
         *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(o0, o1);
     }
-    if (qd == 0) lse[(size_t)bh * t + gr] = m[h] * scale + logf(li);
+    // a row that saw no key keeps m = -1e30: o = 0 above, lse = -1e30
+    if (qd == 0)
+      lse[(size_t)bh * tq + gr] = kShifted && m[h] == kNegInf
+                                      ? kNegInf
+                                      : m[h] * scale + logf(li);
   }
 }
 
-template <typename T, int DH, bool kVec16, int kSplit>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int bh, int t, int dh, int causal, float scale,
-                   int width, cudaStream_t stream) {
+// One launch's arguments, passed down the dispatch on the templates.
+struct Args {
+  const void *q, *k, *v;
+  void *o, *lse;
+  int bh, tq, tk, dh, causal, shift;
+  float scale;
+  int width;
+  cudaStream_t stream;
+};
+
+template <typename T, int DH, bool kVec16, int kSplit, bool kShifted>
+cudaError_t launch(const Args& a) {
   static bool smem_set[kMaxDevices] = {};
   constexpr int smem = smem_bytes<T, DH, kSplit>();
-  const auto kernel = flash_attention_fwd_kernel<T, DH, kVec16, kSplit>;
+  const auto kernel = flash_attention_fwd_kernel<T, DH, kVec16, kSplit,
+                                                 kShifted>;
   cudaError_t err = set_smem_limit_once(kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (t + kBlockQ - 1) / kBlockQ);
-  kernel<<<grid, kRowWarps * kSplit * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      t, dh, causal, scale, width);
+  const dim3 grid(a.bh, (a.tq + kBlockQ - 1) / kBlockQ);
+  kernel<<<grid, kRowWarps * kSplit * 32, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o),
+      static_cast<float*>(a.lse), a.tq, a.dh, a.causal, a.scale, a.width,
+      a.tk, a.shift);
   return cudaGetLastError();
 }
 
-template <typename T, bool kVec16, int kSplit>
-cudaError_t launch_dh(const void* q, const void* k, const void* v, void* o,
-                      void* lse, int bh, int t, int dh, int causal,
-                      float scale, int width, cudaStream_t stream) {
-  if (dh <= 32)
-    return launch<T, 32, kVec16, kSplit>(q, k, v, o, lse, bh, t, dh, causal,
-                                         scale, width, stream);
-  if (dh <= 64)
-    return launch<T, 64, kVec16, kSplit>(q, k, v, o, lse, bh, t, dh, causal,
-                                         scale, width, stream);
-  return launch<T, 128, kVec16, kSplit>(q, k, v, o, lse, bh, t, dh, causal,
-                                        scale, width, stream);
+template <typename T, bool kVec16, int kSplit, bool kShifted>
+cudaError_t launch_dh(const Args& a) {
+  if (a.dh <= 32) return launch<T, 32, kVec16, kSplit, kShifted>(a);
+  if (a.dh <= 64) return launch<T, 64, kVec16, kSplit, kShifted>(a);
+  return launch<T, 128, kVec16, kSplit, kShifted>(a);
+}
+
+template <typename T, int kSplit, bool kShifted>
+cudaError_t launch_copy(const Args& a) {
+  return a.width == 16 ? launch_dh<T, true, kSplit, kShifted>(a)
+                       : launch_dh<T, false, kSplit, kShifted>(a);
+}
+
+template <typename T, int kSplit>
+cudaError_t launch_split(const Args& a) {
+  return a.tq != a.tk || (a.causal && a.shift != 0)
+             ? launch_copy<T, kSplit, true>(a)
+             : launch_copy<T, kSplit, false>(a);
 }
 
 // The SMs of the current device, read once per device.
@@ -410,64 +453,46 @@ int sm_count() {
   return count[dev];
 }
 
-template <typename T, int kSplit>
-cudaError_t launch_split(const void* q, const void* k, const void* v,
-                         void* o, void* lse, int bh, int t, int dh,
-                         int causal, float scale, int width,
-                         cudaStream_t stream) {
-  return width == 16 ? launch_dh<T, true, kSplit>(q, k, v, o, lse, bh, t, dh,
-                                                  causal, scale, width, stream)
-                     : launch_dh<T, false, kSplit>(q, k, v, o, lse, bh, t, dh,
-                                                   causal, scale, width,
-                                                   stream);
-}
-
 template <typename T>
-cudaError_t launch_width(const void* q, const void* k, const void* v,
-                         void* o, void* lse, int bh, int t, int dh,
-                         int causal, float scale, int width, int key_split,
-                         cudaStream_t stream) {
+cudaError_t launch_width(const Args& a, int key_split) {
   if (key_split == 0) {
     // Split each K/V tile's keys over two warp groups at f32, whose
     // products keep more warps busy, and at bf16 when the grid cannot give
     // every SM two blocks (serving's B*H = 4); else two 4-warp blocks
     // share an SM.
-    const long long blocks = (long long)bh * ((t + kBlockQ - 1) / kBlockQ);
+    const long long blocks =
+        (long long)a.bh * ((a.tq + kBlockQ - 1) / kBlockQ);
     key_split = (sizeof(T) == 4 || blocks < 2LL * sm_count()) ? 2 : 1;
   }
-  return key_split == 2
-             ? launch_split<T, 2>(q, k, v, o, lse, bh, t, dh, causal, scale,
-                                  width, stream)
-             : launch_split<T, 1>(q, k, v, o, lse, bh, t, dh, causal, scale,
-                                  width, stream);
+  return key_split == 2 ? launch_split<T, 2>(a) : launch_split<T, 1>(a);
 }
 
 }  // namespace
 
 // Plain C entry point bound with ctypes. Pointers are device pointers of
-// contiguous (B*H, T, Dh) tensors (lse: (B*H, T) f32); is_bf16 selects the
-// element type (0: f32, 1: bf16); key_split the launch (0: the rule of
+// contiguous q and o (B*H, Tq, Dh) and k, v (B*H, Tk, Dh) tensors (lse:
+// (B*H, Tq) f32); shift is the causal diagonal's (key j seen by row i iff
+// j <= i + shift; ignored without causal); is_bf16 selects the element
+// type (0: f32, 1: bf16); key_split the launch (0: the rule of
 // launch_width, 1: 4 warps a block, 2: 8 warps splitting each K/V tile's
 // keys). Returns cudaGetLastError() of the launch.
 extern "C" int dl4j_flash_attention_fwd(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
-                                        int bh, int t, int dh, int causal,
-                                        float scale, int is_bf16,
-                                        int key_split, void* stream) {
-  if (bh < 1 || t < 1 || dh < 8 || dh > kMaxDh || dh % 8 != 0 ||
-      (t + kBlockQ - 1) / kBlockQ > 65535 || key_split < 0 || key_split > 2)
+                                        int bh, int tq, int tk, int dh,
+                                        int causal, int shift, float scale,
+                                        int is_bf16, int key_split,
+                                        void* stream) {
+  if (bh < 1 || tq < 1 || tk < 1 || dh < 8 || dh > kMaxDh || dh % 8 != 0 ||
+      (tq + kBlockQ - 1) / kBlockQ > 65535 || key_split < 0 ||
+      key_split > 2)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   // rows are dh * elt bytes, a multiple of 16: the bases set the width
   const long long align = reinterpret_cast<long long>(q) |
                           reinterpret_cast<long long>(k) |
                           reinterpret_cast<long long>(v);
-  const int width = copy_width(reinterpret_cast<const void*>(align), 16);
-  const cudaError_t err =
-      is_bf16 ? launch_width<__nv_bfloat16>(q, k, v, o, lse, bh, t, dh,
-                                            causal, scale, width, key_split,
-                                            s)
-              : launch_width<float>(q, k, v, o, lse, bh, t, dh, causal,
-                                    scale, width, key_split, s);
-  return (int)err;
+  const Args a{q, k, v, o, lse, bh, tq, tk, dh, causal, shift, scale,
+               copy_width(reinterpret_cast<const void*>(align), 16),
+               static_cast<cudaStream_t>(stream)};
+  return (int)(is_bf16 ? launch_width<__nv_bfloat16>(a, key_split)
+                       : launch_width<float>(a, key_split));
 }

@@ -28,7 +28,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 from deeplearning4j_tpu_torch._capture import KernelCost
 
@@ -50,6 +50,9 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 # ptxas/nvcc output of the builds this process ran: {source name: text}
 build_logs: Dict[str, str] = {}
+# called as hook(name, signature) after each nvcc build: the compile
+# events a listener counts (``utils.retrace_guard`` registers one)
+compile_hooks: List[Callable[[str, str], None]] = []
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -59,7 +62,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "flash_attention_fwd": {
         "dl4j_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                     _F, _I, _I, _P],
+                                     _I, _I, _F, _I, _I, _P],
     },
     "flash_attention_bwd_dkv": {
         "dl4j_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -139,7 +142,9 @@ def _library_path(name: str) -> Path:
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its hashed library exists; returns
-    the library path. The compiler's output is kept in ``build_logs``."""
+    the library path. The compiler's output is kept in ``build_logs``, and
+    each compile calls ``compile_hooks`` with ``nvcc:<name>`` and its
+    signature (the source with its hash, and the flags)."""
     out = _library_path(name)
     if out.exists():
         return out
@@ -152,6 +157,10 @@ def build(name: str) -> Path:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{build_logs[name]}")
     os.replace(tmp, out)
+    signature = (f"{name}.cu@{out.stem.rsplit('_', 1)[-1]}, "
+                 f"{' '.join(NVCC_FLAGS)}")
+    for hook in list(compile_hooks):
+        hook(f"nvcc:{name}", signature)
     return out
 
 
@@ -174,24 +183,43 @@ def load(name: str) -> ctypes.CDLL:
 # Causal attention computes the scores on or below the diagonal: half of
 # the (T, T) products and exponentials, as the kernels' tile walk skips
 # the blocks above it. ``_pairs`` states that halving once for K3f, K3k
-# and K3q.
+# and K3q, and K3f's pairs at a shifted diagonal (Tq rows against Tk keys,
+# key j seen by row i iff j <= i + shift) as the same area: the part of
+# the (Tq, Tk) rectangle on or below the line j = i + shift.
 
 
-def _pairs(b: int, h: int, t: int, causal: bool) -> float:
-    """(query, key) pairs the attention scores: B·H·T², halved when
-    causal."""
-    n = float(b) * h * t * t
-    return n / 2 if causal else n
+def _pairs(b: int, h: int, t: int, causal: bool, tk: int = None,
+           shift: int = 0) -> float:
+    """(query, key) pairs the attention scores: B·H·T·Tk (Tk defaults to
+    T), and under causal the area of the rectangle under the diagonal
+    shifted by ``shift``: B·H·T²/2 at Tk = T, shift 0."""
+    tk = t if tk is None else tk
+    if not causal:
+        return float(b) * h * t * tk
+
+    def under(u: float) -> float:
+        # ∫ min(max(w, 0), tk) dw from -∞ to u
+        if u <= 0:
+            return 0.0
+        if u <= tk:
+            return u * u / 2.0
+        return tk * tk / 2.0 + float(tk) * (u - tk)
+
+    return float(b) * h * (under(t + shift) - under(shift))
 
 
 def flash_attention_fwd_cost(b: int, h: int, t: int, dh: int, causal: bool,
-                             elt: int) -> KernelCost:
-    """K3f: two products over the pairs (Q·Kᵀ and P·V), one exp per pair;
-    q, k, v read and o written (``elt`` bytes an element), lse (f32)
-    written."""
-    pairs = _pairs(b, h, t, causal)
-    tile = float(b) * h * t * dh * elt
-    return KernelCost(4.0 * pairs * dh, pairs, 4 * tile + 4.0 * b * h * t)
+                             elt: int, tk: int = None,
+                             shift: int = 0) -> KernelCost:
+    """K3f over ``t`` query rows and ``tk`` keys (default ``t``) at the
+    causal diagonal's ``shift``: two products over the pairs (Q·Kᵀ and
+    P·V), one exp per pair; q, k, v read and o written (``elt`` bytes an
+    element), lse (f32) written."""
+    tk = t if tk is None else tk
+    pairs = _pairs(b, h, t, causal, tk, shift)
+    rows = float(b) * h * dh * elt
+    return KernelCost(4.0 * pairs * dh, pairs,
+                      rows * (2 * t + 2 * tk) + 4.0 * b * h * t)
 
 
 def flash_attention_bwd_dkv_cost(b: int, h: int, t: int, dh: int,

@@ -150,21 +150,31 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, causal: bool = False
+                              v: torch.Tensor, causal: bool = False,
+                              shift: int = 0
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch version of the kernel: (o, lse) over (B, H, T, Dh).
+    """Plain torch version of the kernel: (o, lse) of q (B, H, Tq, Dh)
+    against k, v (B, H, Tk, Dh).
 
     One online-softmax step over a block holding every key: f32 scores,
-    -1e30 mask, P rounded to V's dtype before the PV product, the row sum
-    guarded by max(l, 1e-30). ``o`` has q's dtype, ``lse`` is f32 (B,H,T).
-    A float64 input computes in float64 (gradcheck's precision)."""
+    -1e30 mask (under ``causal``, key j is seen by row i iff j <= i +
+    ``shift``), P rounded to V's dtype before the PV product, the row sum
+    guarded by max(l, 1e-30). ``o`` has q's dtype, ``lse`` is f32
+    (B, H, Tq). A row that sees no key (``shift`` < 0) comes out as the
+    kernel's (o = 0, lse = -1e30). A float64 input computes in float64
+    (gradcheck's precision)."""
     acc = _acc_dtype(q.dtype)
-    s = _scores(q, k, causal)
+    s = _scores(q, k, causal, shift)
     m = s.amax(-1)
     p = torch.exp(s - m[..., None])
     l = torch.clamp_min(p.sum(-1), 1e-30)
     o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).to(acc), v.to(acc))
-    return (o / l[..., None]).to(q.dtype), m + torch.log(l)
+    o, lse = (o / l[..., None]).to(q.dtype), m + torch.log(l)
+    if causal and shift < 0:
+        blind = torch.arange(q.shape[2], device=q.device) + shift < 0
+        o = o.masked_fill(blind[:, None], 0.0)
+        lse = lse.masked_fill(blind, _NEG_INF)
+    return o, lse
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -172,15 +182,18 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
-def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+            shift: int = 0) -> torch.Tensor:
     """q·kᵀ/√Dh in the accumulation type, masked to -1e30 above the
-    diagonal when ``causal``."""
+    diagonal shifted by ``shift`` when ``causal`` (key j seen by row i
+    iff j <= i + shift)."""
     acc = _acc_dtype(q.dtype)
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * (
         1.0 / (q.shape[-1] ** 0.5))
     if causal:
-        pos = torch.arange(q.shape[2], device=q.device)
-        s = s.masked_fill(pos[:, None] < pos[None, :], _NEG_INF)
+        qp = torch.arange(q.shape[2], device=q.device) + shift
+        kp = torch.arange(k.shape[2], device=q.device)
+        s = s.masked_fill(qp[:, None] < kp[None, :], _NEG_INF)
     return s
 
 
@@ -238,11 +251,12 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
 
 
 def _check_kernel_inputs(q, k, v, **more) -> None:
-    """What the kernels take: q, k, v of one shape, dtype and device, f32 or
-    bf16, with a head dim that is a multiple of 8 up to 128; ``more``
-    (the backward's ``do``, ``lse``, ``delta``) checked by
-    ``_check_bwd_values``. Shapes and types first, then contiguity and the
-    device of every tensor."""
+    """What the kernels take: q (B, H, Tq, Dh) and k, v (B, H, Tk, Dh) of
+    one dtype and device, f32 or bf16, with a head dim that is a multiple
+    of 8 up to 128; ``more`` (the backward's ``do``, ``lse``, ``delta``)
+    checked by ``_check_bwd_values``, which also takes Tq == Tk only.
+    Shapes and types first, then contiguity and the device of every
+    tensor."""
     if q.dim() != 4:
         raise ValueError(f"expected (B, H, T, Dh) tensors, got {q.dim()}-D")
     if q.dtype not in _KERNEL_DTYPES:
@@ -252,14 +266,17 @@ def _check_kernel_inputs(q, k, v, **more) -> None:
     if d % 8 or not 8 <= d <= _MAX_HEAD_DIM:
         raise ValueError(f"flash kernel takes a head dim that is a multiple "
                          f"of 8 up to {_MAX_HEAD_DIM}, got {d}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.dtype != q.dtype or x.shape != q.shape or x.device != q.device:
-            raise ValueError("q, k, v must share shape, dtype and device; "
-                             f"got {tuple(q.shape)}/{q.dtype}/{q.device} "
-                             f"and {name} {tuple(x.shape)}/{x.dtype}/"
-                             f"{x.device}")
+    for name, x in (("k", k), ("v", v)):
+        if (x.dtype != q.dtype or x.device != q.device or x.dim() != 4
+                or x.shape != k.shape
+                or (x.shape[:2], x.shape[3]) != (q.shape[:2], q.shape[3])):
+            raise ValueError("q, k, v must share dtype, device, batch, heads "
+                             "and head dim, k and v their length too; got "
+                             f"q {tuple(q.shape)}/{q.dtype}/{q.device}, k "
+                             f"{tuple(k.shape)} and {name} {tuple(x.shape)}/"
+                             f"{x.dtype}/{x.device}")
     if more:
-        _check_bwd_values(q, **more)
+        _check_bwd_values(q, k, **more)
     named = (("q", q), ("k", k), ("v", v), *more.items())
     for name, x in named:
         if not x.is_contiguous():
@@ -271,8 +288,12 @@ def _check_kernel_inputs(q, k, v, **more) -> None:
                              "CUDA tensors")
 
 
-def _check_bwd_values(q, do, lse, delta) -> None:
-    """``do`` like q; ``lse`` and ``delta`` f32 (B, H, T) on q's device."""
+def _check_bwd_values(q, k, do, lse, delta) -> None:
+    """``do`` like q; ``lse`` and ``delta`` f32 (B, H, T) on q's device;
+    k as long as q (the backward kernels have no shifted diagonal)."""
+    if k.shape != q.shape:
+        raise ValueError(f"the backward kernels take Tq == Tk, got q "
+                         f"{tuple(q.shape)} and k {tuple(k.shape)}")
     if do.dtype != q.dtype or do.shape != q.shape or do.device != q.device:
         raise ValueError(f"do must share q's shape, dtype and device; got "
                          f"{tuple(do.shape)}/{do.dtype}/{do.device}")
@@ -284,9 +305,10 @@ def _check_bwd_values(q, do, lse, delta) -> None:
                              f"got {tuple(x.shape)}/{x.dtype}/{x.device}")
 
 
-def _fwd_cost(q, k, v, causal=False, key_split=0):
+def _fwd_cost(q, k, v, causal=False, key_split=0, shift=0):
     return _kernels.flash_attention_fwd_cost(*q.shape, bool(causal),
-                                             q.element_size())
+                                             q.element_size(),
+                                             tk=k.shape[2], shift=shift)
 
 
 def _bwd_cost(cost):
@@ -298,9 +320,13 @@ def _bwd_cost(cost):
 
 @priced("flash_attention_fwd", _fwd_cost)
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = False, key_split: int = 0
+                        causal: bool = False, key_split: int = 0,
+                        shift: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """softmax(q·kᵀ/√Dh)·v and its logsumexp over (B, H, T, Dh).
+    """softmax(q·kᵀ/√Dh)·v and its logsumexp, q (B, H, Tq, Dh) against
+    k, v (B, H, Tk, Dh); under ``causal`` key j is seen by row i iff
+    j <= i + ``shift`` (0 for one sequence; a pair's q_offset - k_offset),
+    and a row that sees no key comes out as (o = 0, lse = -1e30).
 
     On a CUDA tensor: launches ``csrc/flash_attention_fwd.cu`` on the
     current stream (or raises); q, k, v must be contiguous. ``key_split``
@@ -310,8 +336,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     value there)."""
     if key_split not in (0, 1, 2):
         raise ValueError(f"key_split is 0, 1 or 2, got {key_split!r}")
+    shift = int(shift) if causal else 0
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal)
+        return flash_attention_reference(q, k, v, causal, shift)
     _check_kernel_inputs(q, k, v)
     b, h, t, d = q.shape
     o = torch.empty_like(q)
@@ -320,11 +347,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.dl4j_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b * h, t, d, int(bool(causal)), 1.0 / (d ** 0.5),
-        int(q.dtype == torch.bfloat16), int(key_split), stream)
+        lse.data_ptr(), b * h, t, k.shape[2], d, int(bool(causal)), shift,
+        1.0 / (d ** 0.5), int(q.dtype == torch.bfloat16), int(key_split),
+        stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
-                           f"{rc} at shape {tuple(q.shape)}, {q.dtype}, "
+                           f"{rc} at q {tuple(q.shape)}, k "
+                           f"{tuple(k.shape)}, {q.dtype}, shift {shift}, "
                            f"key split {key_split}")
     _kernels.count_launch("flash_attention_fwd")
     return o, lse
@@ -432,27 +461,6 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 key_split_for(block_q, block_k))
 
 
-def _partials_plain(q, k, v, q_offset: int, k_offset: int, causal: bool):
-    """The plain version of ``blockwise_block_partials`` for any shapes
-    and offsets: one block spanning every key, f32 scores with the JAX
-    package's ADDITIVE -1e30 mask (a row masked everywhere comes out with
-    lse ≈ -1e30 and drops out of a merge), P rounded to V's dtype before
-    the PV product, the row sum guarded by max(l, 1e-30)."""
-    acc = _acc_dtype(q.dtype)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * (
-        1.0 / (q.shape[-1] ** 0.5))
-    if causal:
-        qp = q_offset + torch.arange(q.shape[2], device=q.device)
-        kp = k_offset + torch.arange(k.shape[2], device=q.device)
-        s = s + torch.where(qp[:, None] >= kp[None, :], 0.0,
-                            _NEG_INF).to(acc)
-    m = s.amax(-1)
-    p = torch.exp(s - m[..., None])
-    l = torch.clamp_min(p.sum(-1), 1e-30)
-    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).to(acc), v.to(acc))
-    return o / l[..., None], m + torch.log(l)
-
-
 def blockwise_block_partials(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, q_offset: int = 0,
                              k_offset: int = 0, causal: bool = False,
@@ -461,21 +469,27 @@ def blockwise_block_partials(q: torch.Tensor, k: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Online softmax over ONE Q-shard × K/V-shard pair at GLOBAL sequence
     offsets: ``(o_norm, lse)``, both f32 (B, H, Tq, ·), the pair's
-    softmax-normalized output and logsumexp. Shards merge exactly by
-    logsumexp weights, ``o = Σ_j o_norm_j · exp(lse_j − LSE)``: ring
-    attention's online merge with (m=lse, l=1).
+    softmax-normalized output and logsumexp, for any Tq, Tk and offsets.
+    Shards merge exactly by logsumexp weights, ``o = Σ_j o_norm_j ·
+    exp(lse_j − LSE)``: ring attention's online merge with (m=lse, l=1).
 
-    On a CUDA tensor one K3f launch, ``flash_attention_fwd``, whose modes
-    cover what the ring produces: equal-length shards (``Tq == Tk``) at
-    offsets that are multiples of the shard length. ``k_offset ==
-    q_offset`` runs causal=1, a K block wholly before the Q block (or
-    ``causal=False``, where offsets do not matter) causal=0, and a K block
-    wholly after it masks every row: the JAX package's ``(0, -1e30)``
-    partials come back with no launch, on either device. On a CPU tensor
-    these modes go through the same wrapper (its plain version), and any
-    other shapes and offsets through ``_partials_plain``; on a CUDA tensor
-    they raise, naming the limit. ``block_q``/``block_k`` set the JAX
-    package's tiling and change no value here."""
+    One call of ``flash_attention_fwd`` at the diagonal shift ``q_offset -
+    k_offset`` (a causal K block wholly before the Q block runs causal=0,
+    the launch of a pair without a mask): on a CUDA tensor one K3f launch,
+    on a CPU tensor its plain version. A causal K block wholly after the Q
+    block calls nothing.
+
+    A row that sees no key of the pair comes out as (o = 0, lse = -1e30)
+    on both devices, with zero weight in any merge. The JAX package's
+    additive mask gives such a row mean(v) instead (every score -1e30,
+    so p = 1 on every key) at the same lse ≈ -1e30, so weight 0 too:
+    the merged output is the same, the row's o_norm is not.
+
+    The JAX package's version is lax and differentiable. On the card the
+    partials have no backward (the ring differentiates through its own
+    VJP, ``parallel.ring_attention``): a CUDA call whose q, k or v needs a
+    gradient, with grad mode on, raises. ``block_q``/``block_k`` set the
+    JAX package's tiling and change no value here."""
     tq, tk = q.shape[2], k.shape[2]
     q_offset, k_offset = int(q_offset), int(k_offset)
     if causal and k_offset >= q_offset + tq:
@@ -484,24 +498,18 @@ def blockwise_block_partials(q: torch.Tensor, k: torch.Tensor,
                             device=q.device),
                 torch.full((b, h, tq), _NEG_INF, dtype=torch.float32,
                            device=q.device))
-    kernel_mode = tq == tk and (not causal or k_offset == q_offset
-                                or k_offset + tk <= q_offset)
-    if kernel_mode:
-        o, lse = flash_attention_fwd(q.contiguous(), k.contiguous(),
-                                     v.contiguous(),
-                                     causal and k_offset == q_offset)
-        return o.to(_acc_dtype(o.dtype)), lse
-    if q.device.type == "cpu":
-        return _partials_plain(q, k, v, q_offset, k_offset, causal)
-    if tq != tk:
+    causal = causal and k_offset + tk > q_offset
+    if q.device.type != "cpu" and torch.is_grad_enabled() and any(
+            x.requires_grad for x in (q, k, v)):
         raise ValueError(
-            f"blockwise_block_partials on the card takes equal-length "
-            f"shards (one K3f launch), got Tq={tq}, Tk={tk}")
-    raise ValueError(
-        f"blockwise_block_partials on the card takes a causal K block on "
-        f"the Q block's diagonal or wholly before or after it, got "
-        f"q_offset={q_offset}, k_offset={k_offset} at shard length {tq}: "
-        "the kernel has no offset mask")
+            "blockwise_block_partials on the card has no backward (K3k and "
+            "K3q take no shifted diagonal nor an lse cotangent); call it "
+            "under torch.no_grad() or on detached tensors, or differentiate "
+            "through ring_attention's own VJP")
+    o, lse = flash_attention_fwd(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal,
+                                 shift=q_offset - k_offset if causal else 0)
+    return o.to(_acc_dtype(o.dtype)), lse
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,14 +1,16 @@
-"""Counterpart of ``deeplearning4j_tpu/plot/``.
+"""Counterpart of ``deeplearning4j_tpu/plot/``: the same exports.
 
-Only the artifact renderers (``renderers.py``: ``NeuralNetPlotter``,
-``FilterRenderer`` and the histogram payload the UI's views share) are
-ported so far; t-SNE, Barnes-Hut t-SNE and the plotting iteration
-listener come with ROADMAP item 21d.
+Exact t-SNE runs on the card (``tsne.py``, plain torch); Barnes-Hut t-SNE
+(over the port's ``SpTree`` and ``VPTree``), the artifact renderers and
+the plotting iteration listener are host code copied from the JAX
+package.
 """
 
+from deeplearning4j_tpu_torch.plot.barnes_hut_tsne import BarnesHutTsne
 from deeplearning4j_tpu_torch.plot.renderers import (
     FilterRenderer,
     NeuralNetPlotter,
 )
+from deeplearning4j_tpu_torch.plot.tsne import Tsne
 
-__all__ = ["NeuralNetPlotter", "FilterRenderer"]
+__all__ = ["Tsne", "BarnesHutTsne", "NeuralNetPlotter", "FilterRenderer"]

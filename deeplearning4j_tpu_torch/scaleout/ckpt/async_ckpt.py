@@ -41,6 +41,7 @@ import torch
 
 from deeplearning4j_tpu_torch._device import tree_map
 from deeplearning4j_tpu_torch.telemetry import trace as _trace
+from deeplearning4j_tpu_torch.utils.lockwatch import make_lock
 
 log = logging.getLogger(__name__)
 
@@ -95,7 +96,7 @@ class AsyncCheckpointer:
         self.registry = checkpointer.registry
         self.prefix = checkpointer.prefix
         self._queue: "queue.Queue" = queue.Queue(maxsize=max(1, max_pending))
-        self._error_lock = threading.Lock()
+        self._error_lock = make_lock("ckpt.async.error")
         self.last_error: Optional[BaseException] = None
         self._thread = threading.Thread(target=self._writer_loop,
                                         daemon=True, name="ckpt-writer")

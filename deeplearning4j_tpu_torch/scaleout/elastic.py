@@ -69,7 +69,8 @@ arm ``telemetry.alerts.arm_watchtower``; the default rules
 Blobs are npz bytes in the JAX package's layout (``leaf_<i>``,
 ``__paths__`` as keystr JSON, ``__meta__``), so a JAX worker can train
 against a port master and the other way round. Locks are plain
-``threading`` primitives (the lock-order watchdog is ROADMAP item 21d).
+``threading`` primitives, as the JAX package's elastic module's are (no
+lockwatch seam there).
 """
 
 from __future__ import annotations

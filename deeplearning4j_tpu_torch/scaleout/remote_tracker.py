@@ -46,8 +46,8 @@ retries / failures land in the telemetry registry
 (``tracker_reconnects_total`` / ``tracker_retries_total`` /
 ``tracker_failures_total``).
 
-The client's request lock is a plain ``threading.Lock``: the JAX package's
-lock-order watchdog (``utils/lockwatch``) comes with ROADMAP item 21d.
+The client's request lock is the ``tracker.client`` lockwatch seam
+(``utils.lockwatch.make_lock``).
 """
 
 from __future__ import annotations
@@ -68,6 +68,7 @@ from deeplearning4j_tpu_torch.scaleout.statetracker import (
 )
 from deeplearning4j_tpu_torch.telemetry import trace as _trace
 from deeplearning4j_tpu_torch.utils import netwatch
+from deeplearning4j_tpu_torch.utils.lockwatch import make_lock
 
 _HDR = struct.Struct(">I")
 _MAX_FRAME = 1 << 30
@@ -267,7 +268,7 @@ class StateTrackerClient(StateTracker):
 
             registry = default_registry()
         self._registry = registry
-        self._lock = threading.Lock()
+        self._lock = make_lock("tracker.client")  # lockwatch seam
         self._sock: Optional[socket.socket] = None
         # version bookkeeping for clear_updates(expected) — see module doc
         self._snapshot_versions: Dict[int, Dict[str, int]] = {}

@@ -9,19 +9,17 @@ and its Hazelcast implementation BaseHazelCastStateTracker.java:78-100.
 
 The in-memory implementation is thread-safe (the reference's tests run the
 whole cluster in one JVM against embedded Hazelcast; same play here — one
-process, many threads, shared tracker). Its lock is a plain
-``threading.RLock``, as in the port's ``telemetry/trace.py``: the JAX
-package's lock-order watchdog (``utils/lockwatch``) comes with ROADMAP item
-21d.
+process, many threads, shared tracker). Its lock is the
+``tracker.state`` lockwatch seam (``utils.lockwatch.make_rlock``).
 """
 
 from __future__ import annotations
 
-import threading
 from collections import defaultdict
 from typing import Any, Dict, List, Optional
 
 from deeplearning4j_tpu_torch.scaleout.job import Job
+from deeplearning4j_tpu_torch.utils.lockwatch import make_rlock
 
 
 class StateTracker:
@@ -82,7 +80,7 @@ class InMemoryStateTracker(StateTracker):
 
     def __init__(self, metrics_registry=None):
         self._registry = metrics_registry
-        self._lock = threading.RLock()
+        self._lock = make_rlock("tracker.state")  # lockwatch seam
         self._workers: List[str] = []
         self._jobs: Dict[str, Job] = {}
         self._updates: Dict[str, Job] = {}

@@ -114,6 +114,7 @@ from deeplearning4j_tpu_torch.serve.speculative import (
     resolve_speculative,
 )
 from deeplearning4j_tpu_torch.telemetry import trace as _trace
+from deeplearning4j_tpu_torch.utils.lockwatch import make_condition, make_rlock
 
 _UNSET = object()
 
@@ -313,8 +314,8 @@ class DecodeEngine:
             # serve_spec_accept_rate stays unborn until 8 verify steps
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(int(seed))
-        self._lock = threading.RLock()
-        self._work = threading.Condition(self._lock)
+        self._lock = make_rlock("serve.engine")
+        self._work = make_condition(self._lock, name="serve.engine")
         self._queue: List[ServeRequest] = []
         self._slots: List[Optional[ServeRequest]] = [None] * self.n_slots
         # host mirrors of the decode step's per-slot inputs

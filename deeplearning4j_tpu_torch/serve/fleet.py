@@ -32,8 +32,8 @@ Each replica owns its engine, and so its KV cache and its sampling
 params they were built from. ``--watch`` arms a watchtower
 (``telemetry/alerts.arm_watchtower``) over the engine's registry: every
 load publish ticks it, so SLO-burn verdicts ride the load row's
-``alerts_firing`` and the tracker's alert rows. The replica's lock is a
-plain ``threading.Lock`` (the lock-order watchdog comes with item 21d).
+``alerts_firing`` and the tracker's alert rows. The replica's lock is the
+``fleet.replica`` lockwatch seam (``utils.lockwatch.make_lock``).
 """
 
 from __future__ import annotations
@@ -55,6 +55,7 @@ from deeplearning4j_tpu_torch.serve.router import (
     REQ_PREFIX,
     _env_float,
 )
+from deeplearning4j_tpu_torch.utils.lockwatch import make_lock
 
 log = logging.getLogger(__name__)
 
@@ -104,7 +105,7 @@ class FleetReplica:
         self._pusher = MetricsPusher(self.tracker, self.replica_id,
                                      registry=engine.registry,
                                      interval_s=self.publish_s)
-        self._lock = threading.Lock()
+        self._lock = make_lock("fleet.replica")  # lockwatch seam
         # full request-row keys already claimed (rows outlive requests in
         # the KV — last-write-wins store, no deletes)
         self._claimed: set = set()

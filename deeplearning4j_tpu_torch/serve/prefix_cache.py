@@ -31,8 +31,8 @@ The K/V stored per page is a function of the token prefix alone (position
 ``j``'s K/V depends only on tokens ``0..j``), which is what makes reuse
 exact. Only PROMPT pages are inserted.
 
-Thread-safety: all table state sits behind one ``threading.Lock``, taken
-strictly after the engine's scheduler lock on engine paths. Metrics land
+Thread-safety: all table state sits behind one lock (the
+``serve.prefix_cache`` lockwatch seam), taken strictly after the engine's scheduler lock on engine paths. Metrics land
 in the engine's registry under ``serve_prefix_cache_*``.
 """
 
@@ -40,11 +40,13 @@ from __future__ import annotations
 
 import hashlib
 import itertools
-import threading
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from deeplearning4j_tpu_torch.utils.lockwatch import make_lock
+
 
 _ROOT_KEY = b"root"
 
@@ -102,7 +104,7 @@ class PrefixPageCache:
         self.capacity_pages = int(capacity_pages)
         self.registry = registry if registry is not None else \
             default_registry()
-        self._lock = threading.Lock()
+        self._lock = make_lock("serve.prefix_cache")  # lockwatch seam
         # counters/pages exist (at 0) from construction so metrics_record
         # renders them; the hit_rate gauge stays unborn until the first
         # lookup ("no lookups yet" reads as no data, not as 0.0)

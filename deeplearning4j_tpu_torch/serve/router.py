@@ -44,8 +44,7 @@ The router exposes the engine driver protocol (``submit`` / ``has_work``
 / ``step``), so ``serve/loadgen.run_open_loop`` drives a fleet exactly
 like one engine, and the UI's POST ``/api/generate`` and GET
 ``/api/fleet`` (``UiServer.attach_fleet``) front it. The router's lock
-is a plain ``threading.RLock`` (the lock-order watchdog comes with item
-21d).
+is the ``fleet.router`` lockwatch seam (``utils.lockwatch.make_rlock``).
 """
 
 from __future__ import annotations
@@ -57,6 +56,8 @@ import threading
 import time
 import uuid
 from typing import Callable, Dict, List, Optional, Sequence
+
+from deeplearning4j_tpu_torch.utils.lockwatch import make_rlock
 
 LOAD_PREFIX = "fleet.load."
 REQ_PREFIX = "fleet.req."
@@ -188,7 +189,7 @@ class FleetRouter:
         self.poll_s = (poll_s if poll_s is not None
                        else _env_float("DL4J_TPU_FLEET_POLL_S", 0.01))
         self.cold_start = cold_start
-        self._lock = threading.RLock()
+        self._lock = make_rlock("fleet.router")  # lockwatch seam
         self._halt = threading.Event()
         # membership: replica_id -> view dict (state/load/heartbeat book)
         self._views: Dict[str, Dict] = {}

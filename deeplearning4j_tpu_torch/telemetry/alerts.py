@@ -56,8 +56,8 @@ live registry histogram — ``/api/alerts`` links a firing latency rule
 straight to offending traces, and ``tools/trace_report.py``
 (``find_trace``) resolves them to real spans.
 
-Threading mirrors history's sampler: a plain ``threading.Lock`` (the
-lock-order watchdog is ROADMAP item 21d), handle-swap stop, join outside
+Threading mirrors history's sampler: the ``telemetry.alerts``
+lockwatch seam (``utils.lockwatch.make_lock``), handle-swap stop, join outside
 the lock, idempotent and restartable. Zero-cost unconfigured — no
 engine, no evaluation.
 
@@ -78,6 +78,8 @@ import os
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+from deeplearning4j_tpu_torch.utils.lockwatch import make_lock
 
 
 log = logging.getLogger(__name__)
@@ -257,7 +259,7 @@ class AlertEngine:
             # opened here, never under the lock (blocking-under-lock)
             self._fh = open(log_path, "a", buffering=1)
         self.log_path = log_path
-        self._lock = threading.Lock()
+        self._lock = make_lock("telemetry.alerts")  # lockwatch seam
         self._states: Dict[str, _RuleState] = {
             r.name: _RuleState(r) for r in self.rules}
         self._seq = 0

@@ -40,8 +40,8 @@ local registries (pushes, push failures, collects, process/stale-process
 gauges). :meth:`ClusterAggregator.prometheus_snapshot` builds the
 cluster snapshot that ``telemetry/prometheus.render_snapshot`` renders;
 the UI serves it at ``/api/cluster`` and ``/metrics?scope=cluster``
-(``UiServer.attach_federation``). The pusher's lock is a plain
-``threading.Lock`` (the lock-order watchdog comes with item 21d).
+(``UiServer.attach_federation``). The pusher's lock is the
+``federation.pusher`` lockwatch seam (``utils.lockwatch``).
 """
 
 from __future__ import annotations
@@ -57,6 +57,7 @@ from deeplearning4j_tpu_torch.telemetry.alerts import (
     ALERT_KV_PREFIX,
     SCHEMA as ALERT_SCHEMA,
 )
+from deeplearning4j_tpu_torch.utils.lockwatch import make_lock
 
 log = logging.getLogger(__name__)
 
@@ -90,7 +91,7 @@ class MetricsPusher:
         self.process = str(process)
         self.registry = registry
         self.interval_s = float(interval_s)
-        self._lock = threading.Lock()
+        self._lock = make_lock("federation.pusher")  # lockwatch seam
         self._seq = 0
         self._fail_streak = 0
         self._stop = threading.Event()

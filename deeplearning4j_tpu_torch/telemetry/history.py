@@ -43,8 +43,8 @@ Query semantics (shared by every rule kind in telemetry/alerts.py):
 - :meth:`last_point` / series timestamps back absence/staleness rules.
 
 Threading: the background sampler (``start()``/``stop()``) keeps its
-state under a plain ``threading.Lock`` (the lock-order watchdog is
-ROADMAP item 21d), the thread handle swapped under the lock and joined
+state under the ``telemetry.history`` lockwatch seam
+(``utils.lockwatch.make_lock``), the thread handle swapped under the lock and joined
 outside it with a timeout, stop idempotent, start-after-stop supported —
 and the spill file handle is opened in the constructor, never under the
 lock. Zero-cost unconfigured: nothing samples until a ``MetricsHistory``
@@ -66,6 +66,8 @@ import threading
 import time
 from collections import deque
 from typing import Dict, List, Optional, Tuple
+
+from deeplearning4j_tpu_torch.utils.lockwatch import make_lock
 
 
 SCHEMA = "dl4j-tpu-history-v1"
@@ -106,7 +108,7 @@ class MetricsHistory:
             # opened OUTSIDE the lock (no blocking call under it);
             # line-buffered so each sample is one durable line
             self._fh = open(spill_path, "a", buffering=1)
-        self._lock = threading.Lock()
+        self._lock = make_lock("telemetry.history")  # lockwatch seam
         # (kind, name, label_key) -> deque[(ts, value-or-hist-snapshot)]
         self._series: Dict[Tuple[str, str, LabelKey], deque] = {}
         self._samples = 0

@@ -16,8 +16,9 @@ Semantics follow the Prometheus client model:
 Instruments are identified by (name, labels) and are get-or-create. Every
 instrument guards its state with its own ``threading.Lock``; the registry's
 get-or-create maps are guarded by one ``threading.RLock`` and instrument
-methods never take it, so there is no lock-ordering cycle. The JAX
-package's lockwatch seam is not ported yet.
+methods never take it, so there is no lock-ordering cycle. The registry's
+RLock is the ``telemetry.registry`` lockwatch seam
+(``utils.lockwatch.make_rlock``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from __future__ import annotations
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from deeplearning4j_tpu_torch.utils.lockwatch import make_rlock
 
 # per-iteration wall-clock style measurements land in milliseconds
 DEFAULT_BUCKETS: Tuple[float, ...] = (
@@ -180,7 +183,7 @@ class MetricsRegistry:
     """Get-or-create instrument store keyed by (name, sorted labels)."""
 
     def __init__(self) -> None:
-        self._lock = threading.RLock()
+        self._lock = make_rlock("telemetry.registry")  # lockwatch seam
         self._counters: Dict[Tuple, Counter] = {}
         self._gauges: Dict[Tuple, Gauge] = {}
         self._histograms: Dict[Tuple, Histogram] = {}

@@ -72,6 +72,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from deeplearning4j_tpu_torch._device import tree_leaves
+from deeplearning4j_tpu_torch.utils.lockwatch import make_lock
 
 ENV_RUNPROF = "DL4J_TPU_RUNPROF"
 ENV_RUNPROF_DIR = "DL4J_TPU_RUNPROF_DIR"
@@ -164,7 +165,7 @@ class RunProfiler:
         self.session_dir = session_dir
         self.peak_flops = (float(peak_flops) if peak_flops is not None
                            else DEFAULT_PEAK_FLOPS)
-        self._lock = threading.Lock()
+        self._lock = make_lock("telemetry.runprof")  # lockwatch seam
         self._labels: Dict[str, _LabelState] = {}
         # session state: swapped under the lock, written outside it
         self._session_id: Optional[str] = None

@@ -28,8 +28,8 @@ fire on unhandled exceptions (``install_crash_hooks`` chains
 
 Unconfigured is free: every instrumentation site goes through
 ``maybe_span()`` / ``get_tracer()``, which are then a global read and a
-no-op context manager. The tracer's lock is a plain ``threading.Lock``;
-the JAX package's lockwatch seam comes with a later slice.
+no-op context manager. The tracer's lock is the ``telemetry.trace``
+lockwatch seam (``utils.lockwatch.make_lock``).
 """
 
 from __future__ import annotations
@@ -45,6 +45,8 @@ import time
 import uuid
 from collections import deque
 from typing import Dict, Iterator, List, Optional
+
+from deeplearning4j_tpu_torch.utils.lockwatch import make_lock
 
 SCHEMA = "dl4j-tpu-trace-v1"
 
@@ -185,7 +187,7 @@ class Tracer:
                 trace_dir, f"flightrec_{safe}.json")
         self.path = path
         self.flight_path = flight_path
-        self._lock = threading.Lock()
+        self._lock = make_lock("telemetry.trace")  # lockwatch seam
         self._fh = open(path, "a", buffering=1) if path else None
         self._ring: deque = deque(maxlen=max(1, int(ring)))
         self._open: Dict[str, Span] = {}

@@ -70,6 +70,7 @@ from torch.utils._pytree import tree_leaves as _pytree_leaves
 from torch.utils.flop_counter import flop_registry
 
 from deeplearning4j_tpu_torch import _capture
+from deeplearning4j_tpu_torch.utils.lockwatch import make_lock
 
 log = logging.getLogger(__name__)
 
@@ -472,7 +473,7 @@ class ProfileStore:
     ``{"step": label}``. Thread-safe."""
 
     def __init__(self, registry=None):
-        self._lock = threading.Lock()
+        self._lock = make_lock("profile.store")  # lockwatch seam
         self._profiles: Dict[str, Dict] = {}
         self._registry = registry
 
@@ -591,7 +592,7 @@ class MemoryWatermarkSampler:
 
             registry = default_registry()
         self._registry = registry
-        self._lock = threading.Lock()
+        self._lock = make_lock("profile.memwatch")  # lockwatch seam
         self._watermarks: Dict[str, int] = {}
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()

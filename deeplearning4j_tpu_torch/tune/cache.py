@@ -28,8 +28,8 @@ A corrupted cache file is ignored LOUDLY: one ``logging`` warning naming
 the file and the parse error, then default-config behavior (empty cache).
 Reads and writes share a lock and writes are atomic (unique tmp +
 ``os.replace``), so concurrent searchers never tear the file. The locks
-are plain ``threading.Lock``s (JAX's come from ``utils/lockwatch``, which
-the port does not have yet).
+are the ``tune.cache`` and ``tune.cache.default`` lockwatch seams
+(``utils.lockwatch.make_lock``).
 """
 
 from __future__ import annotations
@@ -39,8 +39,10 @@ import json
 import logging
 import os
 import tempfile
-import threading
 from typing import Any, Dict, Optional
+
+from deeplearning4j_tpu_torch.utils.lockwatch import make_lock
+
 
 
 __all__ = [
@@ -89,7 +91,7 @@ class TuningCache:
 
     def __init__(self, path: Optional[str] = None, registry=None):
         self.path = path or default_cache_path()
-        self._lock = threading.Lock()
+        self._lock = make_lock("tune.cache")  # lockwatch seam
         self._registry = registry
 
     # -- registry ----------------------------------------------------------
@@ -206,7 +208,7 @@ class TuningCache:
 
 
 _default_cache: Optional[TuningCache] = None
-_default_lock = threading.Lock()
+_default_lock = make_lock("tune.cache.default")
 
 
 def _shared_cache() -> TuningCache:

@@ -17,16 +17,9 @@ import types
 
 import pytest
 
-# names of unported slices, by subpackage (ROADMAP Queue 1)
-UNPORTED = {
-    "utils": {"DiskBasedQueue", "Viterbi", "clamp", "entropy",
-              "information_gain", "normalize_to_range", "rounded",
-              "sigmoid", "sum_of_squares", "uniform"},         # item 21d
-    "telemetry": set(),
-    "clustering": {"Cluster", "ClusterSet", "Point", "KMeansClustering",
-                   "KDTree", "QuadTree", "SpTree"},                # item 21d
-    "plot": {"Tsne", "BarnesHutTsne"},                              # item 21d
-}
+# names of unported slices, by subpackage (ROADMAP Queue 1, empty since
+# item 21d)
+UNPORTED = {}
 
 # names only the port exports
 PORT_ONLY = {

@@ -192,3 +192,66 @@ def test_selection_chain_rejects_what_jax_rejects(clean_chain):
 def test_default_block_policy_matches_jax():
     for t in (1, 8, 100, 512, 768, 1000, 1024, 1536, 2048, 2500):
         assert tfa.default_block_policy(t) == jfa.default_block_policy(t)
+
+
+# ------------------------------------- pairs at any shapes and offsets ----
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("tq,tk,q_off,k_off", [
+    (64, 64, 96, 57), (32, 96, 64, 0), (96, 32, 0, 40), (96, 32, 60, 80)])
+def test_block_partials_any_shape_and_offset_match_jax(tq, tk, q_off, k_off,
+                                                       causal, dtype):
+    """Tq != Tk and shifts that are no multiple of a shard, through the
+    wrapper's one route (``flash_attention_fwd`` at the shift; its plain
+    version here): rows that see a key equal JAX's (o and lse). A row that
+    sees none is the kernel's (o = 0, lse = -1e30), where JAX's additive
+    mask gives mean(v) at lse ≈ -1e30: both weigh 0 in a merge."""
+    rng = np.random.RandomState(tq + 3 * tk + q_off)
+    arrs = [rng.randn(2, 2, t, 16).astype(np.float32) for t in (tq, tk, tk)]
+    jq, jk, jv = (jnp.asarray(a, JDT[dtype]) for a in arrs)
+    q, k, v = (torch.from_numpy(a).to(TDT[dtype]) for a in arrs)
+    o, lse = tfa.blockwise_block_partials(q, k, v, q_off, k_off, causal)
+    jo, jl = jfa.blockwise_block_partials(jq, jk, jv, q_off, k_off, causal,
+                                          tq, tk)
+    assert o.dtype == lse.dtype == torch.float32
+    assert tuple(o.shape) == jo.shape and tuple(lse.shape) == jl.shape
+    seen = np.ones(tq, bool)
+    if causal:
+        seen = q_off + np.arange(tq) >= k_off
+    np.testing.assert_allclose(_np(o)[:, :, seen], _np(jo)[:, :, seen],
+                               atol=ATOL[dtype], rtol=0)
+    np.testing.assert_allclose(_np(lse)[:, :, seen], _np(jl)[:, :, seen],
+                               atol=ATOL[dtype], rtol=ATOL[dtype])
+    if seen.all():
+        return
+    assert (_np(o)[:, :, ~seen] == 0).all()
+    assert (_np(lse)[:, :, ~seen] == -1e30).all()
+    assert (_np(jl)[:, :, ~seen] < -1e29).all()
+    mean_v = _np(jv).mean(2, keepdims=True)
+    np.testing.assert_allclose(
+        _np(jo)[:, :, ~seen],
+        np.broadcast_to(mean_v, _np(jo)[:, :, ~seen].shape),
+        atol=ATOL[dtype], rtol=0)
+
+
+def test_fwd_cost_old_modes_equal_and_shifted_pairs_the_area():
+    """K3f's cost at Tq == Tk and shift 0 is the old one (B·H·T²/2 pairs
+    causal, B·H·T² not); at a shift it is the area under the shifted
+    diagonal, within Tq/2 pairs of the exact count a head; the bytes read
+    k and v at Tk."""
+    from deeplearning4j_tpu_torch.ops import _kernels
+
+    for causal in (True, False):
+        c = _kernels.flash_attention_fwd_cost(4, 4, 2048, 128, causal, 2)
+        t = 2048.0 * 2048 * 16
+        assert c.transcendentals == (t / 2 if causal else t)
+        assert c.flops == 4 * c.transcendentals * 128
+        assert c.bytes == 4 * 16 * 2048 * 128 * 2 + 4.0 * 16 * 2048
+    for tq, tk, shift in ((256, 768, 512), (768, 256, -300), (512, 512, 37),
+                          (64, 64, -200), (64, 64, 500)):
+        c = _kernels.flash_attention_fwd_cost(1, 1, tq, 8, True, 4, tk=tk,
+                                              shift=shift)
+        exact = np.clip(np.arange(tq) + shift + 1, 0, tk).sum()
+        assert abs(c.transcendentals - exact) <= tq / 2
+        assert c.bytes == 8 * 4 * (2 * tq + 2 * tk) + 4.0 * tq

@@ -390,14 +390,15 @@ def test_block_partials_match_jax_and_merge_unaligned(causal):
 
 def test_block_partials_kernel_modes_and_the_card_only_raise(monkeypatch):
     """On a tensor off the CPU (the meta device stands in for the card)
-    a pair on the diagonal is one K3f launch at causal=1, a block wholly
-    before it one at causal=0, a block wholly after it JAX's (0, -1e30)
-    with no launch, and any other offset or Tq != Tk raises naming the
-    limit."""
+    every pair is one K3f launch at its diagonal shift: on the diagonal
+    causal=1 shift 0, a block wholly before it causal=0, any other offset
+    or Tq != Tk causal=1 at q_offset - k_offset; a block wholly after it
+    is JAX's (0, -1e30) with no launch. The only raise left on the card
+    is a call that needs a gradient."""
     calls = []
 
-    def fwd(q, k, v, causal=False):
-        calls.append(bool(causal))
+    def fwd(q, k, v, causal=False, shift=0):
+        calls.append((bool(causal), shift, q.shape[2], k.shape[2]))
         return torch.empty_like(q), q.new_empty(q.shape[:3])
 
     monkeypatch.setattr(tfa, "flash_attention_fwd", fwd)
@@ -405,16 +406,22 @@ def test_block_partials_kernel_modes_and_the_card_only_raise(monkeypatch):
     tfa.blockwise_block_partials(q, k, v, 64, 64, causal=True)
     tfa.blockwise_block_partials(q, k, v, 128, 0, causal=True)
     tfa.blockwise_block_partials(q, k, v, 0, 96, causal=False)
-    assert calls == [True, False, False]
+    assert calls == [(True, 0, 64, 64), (False, 0, 64, 64),
+                     (False, 0, 64, 64)]
     o, lse = tfa.blockwise_block_partials(q, k, v, 0, 64, causal=True)
-    assert calls == [True, False, False] and o.device.type == "meta"
+    assert len(calls) == 3 and o.device.type == "meta"
     cpu = [torch.from_numpy(a[:, :, :64]) for a in _qkv(seed=12)]
     o, lse = tfa.blockwise_block_partials(*cpu, 0, 64, causal=True)
     assert (o == 0).all() and (lse == -1e30).all()
-    with pytest.raises(ValueError, match="offset mask"):
+    tfa.blockwise_block_partials(q, k, v, 64, 32, causal=True)
+    tfa.blockwise_block_partials(q, k[:, :, :32], v[:, :, :32], 0, 0)
+    assert calls[3:] == [(True, 32, 64, 64), (False, 0, 64, 32)]
+    with pytest.raises(ValueError, match="no backward"):
+        tfa.blockwise_block_partials(q.requires_grad_(), k, v, 64, 32,
+                                     causal=True)
+    with torch.no_grad():
         tfa.blockwise_block_partials(q, k, v, 64, 32, causal=True)
-    with pytest.raises(ValueError, match="equal-length"):
-        tfa.blockwise_block_partials(q, k[:, :, :32], v[:, :, :32], 0, 0)
+    assert len(calls) == 6
 
 
 def test_blockwise_attention_is_the_kernel_route():
