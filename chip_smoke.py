@@ -7,25 +7,32 @@ Phases, each fatal on failure:
 
 1. build: compile every kernel from csrc/ with nvcc for sm_90a (one nvcc
    per source, started together; a library is named by a digest of its
-   source and the csrc headers it includes) and print the build time, the
-   ptxas report and each library's count of tensor-core (HMMA)
-   instructions and of local-memory spill instructions (STL, LDL) from
-   cuobjdump -sass, or that cuobjdump is absent; a tensor-core kernel (K3f,
-   K3k, K3q, K1) with no HMMA fails;
+   source and the csrc headers it includes) and print the build time and
+   each library's nvcc seconds, the ptxas report and each library's count
+   of tensor-core (HMMA) instructions and of local-memory spill
+   instructions (STL, LDL) from cuobjdump -sass, or that cuobjdump is
+   absent; a tensor-core kernel (K3f, K3k, K3q, K1, and the three flash
+   kernels' wide twins for head dims above 128) with no HMMA fails;
 2. kernel parity: each kernel against its plain PyTorch version on the card:
    the forward (K3f) as (o, lse) over T in {8, 65, 100, 512, 1000, 1024,
-   2048} (65 and 1000 ragged), Dh in {16, 24, 64, 128} (each head-dim
-   bucket), causal and not, f32 and bf16, and on element-offset views at
-   T=100; blockwise_block_partials (one K3f launch at the pair's diagonal
+   2048} (65 and 1000 ragged), Dh in {16, 24, 64, 128, 136, 200, 256}
+   (each head-dim bucket, the wide source's among them), causal and not,
+   f32 and bf16, and on element-offset views at T=100;
+   blockwise_block_partials (one K3f launch at the pair's diagonal
    shift) at B=4, H=4, Dh 64 and 128, f32 and bf16, over (Tq, Tk) =
    (512, 512) at a shift of 300, (256, 768) and (768, 256), causal and
    not, the last causal pair with 300 rows that see no key (o = 0, lse =
-   -1e30), one launch each, none for a pair wholly masked, a call that
-   needs a gradient raising, each Dh-128 case timed beside its plain
-   version and its bound; the backward pair (K3k: dK, dV; K3q: dQ) from
-   K3f's o and lse
-   over T in {1, 65, 100, 512, 2048}, Dh in {8, 40, 64, 96, 128} (each
-   head-dim bucket), causal and not, f32 and bf16; then K3f's time at the
+   -1e30), one launch each, each Dh-128 case timed beside its plain
+   version and its bound; the partials' backward at the same pairs and
+   Dh 24, 64, 128 and 256 with cotangents on both outputs against torch's
+   autograd of the plain version (one K3f, one K3k and one K3q launch a
+   pair, none and no graph for a pair wholly masked, zero dq on rows
+   that see no key; each Dh-128 case's K3k and K3q timed beside their
+   plain versions, their bounds and the library's backward); the
+   backward pair (K3k: dK, dV; K3q: dQ) from K3f's o and lse
+   over T in {1, 65, 100, 512, 2048}, Dh in {8, 40, 64, 96, 128, 136,
+   200, 256} (each head-dim bucket), causal and not, f32 and bf16; then
+   K3f's time at the
    serving shape (B=1, H=4, T=2048, Dh=128, causal, bf16) and all three at
    the training shape (B=4, H=4, T=2048, Dh=128, causal; f32, the training
    path's type, and bf16), each beside its plain version's time, torch's
@@ -85,8 +92,8 @@ Phases, each fatal on failure:
    per leaf (logged); two steps of the Adam step with guard= and
    with_metrics= run through the kernels; the timed steps run once more
    under torch.profiler for the busy share; one step at d_model / n_heads
-   = 256 (2 heads), T=1024, with the auto core runs dense attention (the
-   kernels take Dh up to 128): finite, no flash launch;
+   = 528 / 2 = 264, T=1024, with the auto core runs dense attention (the
+   kernels take Dh up to 256): finite, no flash launch;
 5. the MNIST MLP (models/zoo.mnist_mlp at the bench's full width:
    784-500-300-10, relu, softmax/MCXENT, SGD lr 0.1 momentum 0.9, batch 512,
    data from synthetic_mnist): the fused-dense kernel K1 against its plain
@@ -408,7 +415,20 @@ Phases, each fatal on failure:
    lockwatch_acquires_total > 0, K3f n_layers x admissions, tokens/s of
    both), both bursts and 3 LM training steps (K3f, K3k, K3q n_layers
    each a step) inside retrace_guard(0); the phase within 120 s;
-20. output: the card's name and power limit from nvidia-smi, one JSON line
+20. the flagship at 2 heads of 256 (``wide_phase``; the wide kernels;
+   B·H·T²·Dh as at 4 heads of 128): phase 3's burst through
+   DecodeEngine(serve_dtype="bf16") with the auto core (K3f exactly
+   n_layers x the kernel admissions) and with "dense" (no launch; equal
+   streams counted), then both at f32, whose streams must be equal or
+   part only at a top-2 tie within 1e-3 (phase 3b's rule); phase 4's 10
+   f32 SGD steps at B=4, T=2048, the auto core resolving "blockwise"
+   (K3f, K3k, K3q exactly n_layers x 10; losses finite and falling), one
+   step's loss and grads through the kernels against dense attention at
+   phase 4's tolerances; K3f at the serving shape (B=1, H=2, T=2048,
+   Dh=256, bf16) and all three at the training shape (B=4, H=2, f32 and
+   bf16) by device_ms beside their plain versions, SDPA and the bound;
+   the phase within 120 s;
+21. output: the card's name and power limit from nvidia-smi, one JSON line
    listing each kernel (K3f at the serving shape; K3f, K3k, K3q at the
    training shape in f32 and bf16 with their launches over the timed f32
    training run; K1 at both MLP layer shapes in f32 and bf16 with its
@@ -437,7 +457,11 @@ Phases, each fatal on failure:
    ``partials``, phase 2's partials cases and their times, and
    ``lockwatch_launches``, its count over phase 19's armed burst; the
    training rows ``retrace_guard_launches``, their counts over phase
-   19's guarded LM steps), and as the
+   19's guarded LM steps; K3k's and K3q's training rows
+   ``partials_bwd``, phase 2's partials' backward times at the row's
+   type; then the wide kernels' rows, K3f at phase 20's serving shape
+   with its launches over the bf16 burst and K3f, K3k, K3q at its
+   training shape with their launches over the timed f32 steps), and as the
    last line {"ok": true, "device": {"platform": "gpu", "kind": ...,
    "count": ...}}. An f32 row's bound is that of f32-accurate products: the least
    of the CUDA cores' 67 TFLOP/s and three TF32 products at 495 (the
@@ -602,7 +626,12 @@ def device_ms(fn, reps: int = 30, warmup: int = 3) -> float:
 # the kernels built on csrc/hopper_mma.cuh's mma.sync: their SASS must hold
 # tensor-core instructions
 TENSOR_CORE_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv",
-                       "flash_attention_bwd_dq", "fused_dense")
+                       "flash_attention_bwd_dq", "fused_dense",
+                       "flash_attention_fwd_wide",
+                       "flash_attention_bwd_dkv_wide",
+                       "flash_attention_bwd_dq_wide")
+# each library's nvcc seconds, HMMA and spill counts (phase 1)
+BUILD = {}
 
 
 def build_kernels() -> None:
@@ -616,12 +645,18 @@ def build_kernels() -> None:
         return {"path": path.name, "built": fresh,
                 "build_s": time.perf_counter() - t}
 
-    names = sorted(_kernels.LAUNCHES)
+    def timed_build(name):
+        t = time.perf_counter()
+        path = _kernels.build(name)
+        return path, time.perf_counter() - t
+
+    names = sorted(_kernels.SOURCES)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(names) + 1) as pool:
         native = pool.submit(native_build)  # g++ beside the nvcc builds
-        for name, path in zip(names, pool.map(_kernels.build, names)):
-            log(f"[build] {name}: {path.name}")
+        for name, (path, secs) in zip(names, pool.map(timed_build, names)):
+            BUILD[name] = {"build_s": secs}
+            log(f"[build] {name}: {path.name} in {secs:.2f} s")
             for line in _kernels.build_logs.get(name, "").splitlines():
                 if any(w in line for w in ("registers", "spill", "error",
                                            "warning")):
@@ -642,6 +677,7 @@ def build_kernels() -> None:
                               capture_output=True, text=True).stdout
         counts = {op: len(re.findall(rf"\b{op}\b", sass))
                   for op in ("HMMA", "STL", "LDL")}
+        BUILD[name].update(counts)
         log(f"[build] {name}: {counts['HMMA']} tensor-core (HMMA) "
             f"instructions in its SASS; local-memory spills: "
             f"{counts['STL']} STL, {counts['LDL']} LDL")
@@ -678,10 +714,11 @@ def _qkv(shape, dtype, seed, offset=0):
 
 
 # K3f parity: T across the 64-row tiles' edges (65 and 1000 are ragged),
-# Dh in each head-dim bucket (16, 24: 32; 64; 128), then element-offset
-# views at T=100
+# Dh in each head-dim bucket (16, 24: 32; 64; 128; 136, 200, 256: the
+# wide source's 256, 136 and 200 with columns past dh), then
+# element-offset views at T=100
 FLASH_TS = (8, 65, 100, 512, 1000, 1024, 2048)
-FLASH_DHS = (16, 24, 64, 128)
+FLASH_DHS = (16, 24, 64, 128, 136, 200, 256)
 
 
 def flash_parity() -> None:
@@ -754,24 +791,55 @@ def k3f_old_modes(reps: int = 50) -> dict:
     return out
 
 
+def bwd_old_modes(reps: int = 50) -> dict:
+    """K3k's and K3q's device ms at the training shape that attention over
+    one sequence gives them (Tq == Tk, no shift, causal) at f32 and bf16,
+    from K3f's o and lse. The shifted backward must leave these times as
+    they were; the function calls nothing older commits lack, so it can
+    time either."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+    dh = D_MODEL // N_HEADS
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        q, k, v = _qkv((TRAIN_B, N_HEADS, TRAIN_T, dh), dtype, seed=21)
+        do = _qkv((TRAIN_B, N_HEADS, TRAIN_T, dh), dtype, seed=22)[0]
+        o, lse = fa.flash_attention_fwd(q, k, v, True)
+        delta = fa.attention_delta(o, do)
+        out[f"dkv {name}"] = device_ms(lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, lse, do, delta, True), reps=reps)
+        out[f"dq {name}"] = device_ms(lambda: fa.flash_attention_bwd_dq(
+            q, k, v, lse, do, delta, True), reps=reps)
+    return out
+
+
+def _shift_bias(q, k, causal: bool, shift: int):
+    """The shifted causal diagonal as a -1e30 additive bias of shape (Tq,
+    Tk) broadcast over (B, H), or None without causal."""
+    import torch
+
+    if not causal:
+        return None
+    tq, tk = q.shape[2], k.shape[2]
+    rows = torch.arange(tq, device=q.device)[:, None]
+    cols = torch.arange(tk, device=q.device)[None, :]
+    bias = torch.zeros((tq, tk), dtype=q.dtype, device=q.device)
+    bias.masked_fill_(cols > rows + shift, -1e30)
+    return bias.expand(q.shape[0], q.shape[1], tq, tk)
+
+
 def library_partials(q, k, v, causal: bool, shift: int):
     """Device ms of one PyTorch call that computes a pair's partials (o and
     its lse) at any Tq, Tk and shift: ``aten._scaled_dot_product_efficient_
-    attention`` with ``compute_log_sumexp``, the shifted causal diagonal as
-    a -1e30 additive bias of shape (Tq, Tk) broadcast over (B, H). None on
+    attention`` with ``compute_log_sumexp`` and ``_shift_bias``. None on
     the CPU, where the op has no kernel."""
     import torch
 
     if q.device.type != "cuda":
         return None
-    bias = None
-    if causal:
-        tq, tk = q.shape[2], k.shape[2]
-        rows = torch.arange(tq, device=q.device)[:, None]
-        cols = torch.arange(tk, device=q.device)[None, :]
-        bias = torch.zeros((tq, tk), dtype=q.dtype, device=q.device)
-        bias.masked_fill_(cols > rows + shift, -1e30)
-        bias = bias.expand(q.shape[0], q.shape[1], tq, tk)
+    bias = _shift_bias(q, k, causal, shift)
     return device_ms(
         lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
             q, k, v, bias, True), reps=20)
@@ -852,43 +920,181 @@ def partials_parity() -> dict:
                         "ms", "plain_ms", "bound_ms", "bound_by",
                         "library_ms")}
                 del q, k, v, o, lse, ro, rlse
-    q = _qkv((1, 2, 64, 64), torch.float32, seed=3)[0]
-    _kernels.reset_launches()
-    o, lse = fa.blockwise_block_partials(q, q, q, 0, 64, causal=True)
-    if (_kernels.LAUNCHES["flash_attention_fwd"] != 0
-            or not (o == 0).all().item() or not (lse == -1e30).all().item()):
-        raise AssertionError("a K block wholly after the Q block launched "
-                             "or returned other than (0, -1e30)")
-    grad_raise = "(the CPU's plain version is differentiable)"
-    if DEVICE == "cuda":
-        qg = q.clone().requires_grad_()
-        try:
-            fa.blockwise_block_partials(qg, q, q, 64, 32, causal=True)
-            raise AssertionError("blockwise_block_partials returned "
-                                 "partials with no graph for a tensor "
-                                 "needing a grad")
-        except ValueError as e:
-            grad_raise = str(e)
-    log(f"[partials] {n} cases agree; a wholly masked pair launches "
-        f"nothing; a grad-needing call raises: {grad_raise[:60]}...")
+    log(f"[partials] {n} cases agree")
     log(f"[partials] device ms at Dh=128: {json.dumps(timed)}")
     old_modes = k3f_old_modes()
     log(f"[partials] K3f's old modes, device ms: {json.dumps(old_modes)}")
     return {"cases": n, "timed": timed, "old_modes": old_modes}
 
 
-def flash_measure() -> dict:
-    """The kernel at the serving shape: its device time (``device_ms``),
-    beside it with the host's launch in the interval (``time_ms``), the
-    plain version, the library call (SDPA, ``device_ms``) and the bound.
-    Inputs stay resident in the 50 MB L2 between calls, as q/k/v do when
-    prefill's projections have just written them."""
+# 24: the column-split kernels' 32 bucket, with columns past dh
+PARTIAL_BWD_DHS = (24, 64, 128, 256)
+BWD_KERNELS = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+
+
+def library_partials_bwd(q, k, v, causal: bool, shift: int, do):
+    """Device ms of the backward of ``library_partials``' call: its
+    fwd+bwd through autograd minus its fwd, with ``do`` on its output (its
+    lse has no gradient there, so ``dlse`` is left out). None on the
+    CPU."""
+    import torch
+
+    if q.device.type != "cuda":
+        return None
+    bias = _shift_bias(q, k, causal, shift)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def fwd():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            qg, kg, vg, bias, True)[0]
+
+    def fwd_bwd():
+        o = fwd()
+        return torch.autograd.grad(o, (qg, kg, vg), do.to(o.dtype))
+
+    return device_ms(fwd_bwd, reps=20) - device_ms(fwd, reps=20)
+
+
+def partials_bwd_parity() -> dict:
+    """``blockwise_block_partials``' backward on the card (``BlockPartials``:
+    K3k and K3q once each at the pair's shift, on delta - dlse) at the
+    PARTIAL_CASES shapes, Dh 24, 64, 128 and 256, f32 and bf16, cotangents
+    on both outputs, against torch's autograd of the plain version
+    (``flash_attention_reference`` at the pair's shift, as the wrapper's
+    CPU route computes it) at phase 2's backward tolerances: one K3f, one
+    K3k and one K3q launch a pair, none for a pair wholly masked; rows
+    that see no key get no gradient from either. At Dh=128 each case's
+    K3k and K3q launch is timed beside the plain versions, the bound
+    (the cost functions at (Tq, Tk, shift)) and the library's backward
+    (``library_partials_bwd``), a yardstick the port never calls."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import _kernels
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+    b, h = TRAIN_B, N_HEADS
+    n, timed = 0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        tol = BWD_TOL[name]
+        for dh in PARTIAL_BWD_DHS:
+            for tq, tk, qo, ko, causal in PARTIAL_CASES:
+                seed = tq + 5 * tk + dh + int(causal)
+                q = _qkv((b, h, tq, dh), dtype, seed=seed)[0]
+                k, v = _qkv((b, h, tk, dh), dtype, seed=seed + 1)[:2]
+                gen = torch.Generator(device=DEVICE).manual_seed(seed + 2)
+                do = torch.randn((b, h, tq, dh), generator=gen,
+                                 device=DEVICE)
+                dlse = torch.randn((b, h, tq), generator=gen, device=DEVICE)
+                qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+                _kernels.reset_launches()
+                o, lse = fa.blockwise_block_partials(qg, kg, vg, qo, ko,
+                                                     causal)
+                got = torch.autograd.grad((o, lse), (qg, kg, vg), (do, dlse))
+                sync()
+                launches = {key: _kernels.LAUNCHES[key]
+                            for key in TRAIN_KERNELS}
+                shift = qo - ko if causal else 0
+                rq, rk, rv = (x.detach().requires_grad_() for x in (q, k, v))
+                ro, rlse = fa.flash_attention_reference(rq, rk, rv, causal,
+                                                        shift)
+                want = torch.autograd.grad((ro.float(), rlse), (rq, rk, rv),
+                                           (do, dlse))
+                errs = [_rel_err(g, w) for g, w in zip(got, want)]
+                blind = (torch.arange(tq, device=q.device) + shift < 0
+                         if causal else torch.zeros(tq, dtype=torch.bool,
+                                                    device=q.device))
+                quiet = bool((got[0][:, :, blind] == 0).all().item())
+                ok = (launches == dict.fromkeys(TRAIN_KERNELS, 1)
+                      and all(e <= tol for e in errs) and quiet
+                      and all(g.dtype == dtype
+                              and torch.isfinite(g.float()).all().item()
+                              for g in got))
+                case = (f"Tq={tq} Tk={tk} q_offset={qo} k_offset={ko} "
+                        f"causal={causal} Dh={dh} {name}")
+                log(f"[partials bwd] {case}: rel err dq {errs[0]:.3g} dk "
+                    f"{errs[1]:.3g} dv {errs[2]:.3g}, launches "
+                    f"{json.dumps(launches)} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(
+                        f"blockwise_block_partials' backward disagrees with "
+                        f"the plain version's autograd at {case}: dq/dk/dv "
+                        f"{errs} (tol {tol}), launches {launches}, blind "
+                        f"rows' dq zero {quiet}")
+                n += 1
+                if dh == 128:
+                    timed[case] = _partials_bwd_times(
+                        q, k, v, causal, shift, do, dlse, max(errs))
+                del q, k, v, do, dlse, o, lse, got, want, ro, rlse
+    q = _qkv((1, 2, 64, 64), torch.float32, seed=3)[0].requires_grad_()
+    _kernels.reset_launches()
+    o, lse = fa.blockwise_block_partials(q, q, q, 0, 64, causal=True)
+    if (any(_kernels.LAUNCHES[key] for key in TRAIN_KERNELS)
+            or o.requires_grad or lse.requires_grad
+            or not (o == 0).all().item() or not (lse == -1e30).all().item()):
+        raise AssertionError("a K block wholly after the Q block launched, "
+                             "carried a graph or returned other than "
+                             "(0, -1e30)")
+    log(f"[partials bwd] {n} cases agree; a wholly masked pair launches "
+        f"nothing and carries no graph")
+    log(f"[partials bwd] device ms at Dh=128: {json.dumps(timed)}")
+    return {"cases": n, "timed": timed}
+
+
+def _partials_bwd_times(q, k, v, causal, shift, do, dlse, err) -> dict:
+    """K3k and K3q of one pair as ``BlockPartials`` launches them (delta'
+    from the kernel forward's o), each beside its plain version and its
+    bound; the library's backward for the pair beside their sum."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, shift=shift)
+    delta = (fa.attention_delta(o, do) - dlse).contiguous()
+    dot = do.to(q.dtype).contiguous()
+    b, h, tq, dh = q.shape
+    peak = F32_PRODUCTS if q.element_size() == 4 else PEAK_BF16_FLOPS
+    out = {}
+    for key, kernel, plain, cost in (
+            ("dkv", fa.flash_attention_bwd_dkv, fa._bwd_dkv_plain,
+             costs.flash_attention_bwd_dkv_cost),
+            ("dq", fa.flash_attention_bwd_dq, fa._bwd_dq_plain,
+             costs.flash_attention_bwd_dq_cost)):
+        c = cost(b, h, tq, dh, causal, q.element_size(), tk=k.shape[2],
+                 shift=shift)
+        entry = _kernel_entry(
+            f"flash_attention_bwd_{key}", "", device_ms(
+                lambda: kernel(q, k, v, lse, dot, delta, causal, shift),
+                reps=20),
+            time_ms(lambda: plain(q, k, v, lse, dot, delta, causal, shift),
+                    reps=5),
+            c.flops, c.bytes, peak, err, None, "")
+        out[key] = {f: entry[f] for f in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by")}
+    out["library_bwd_ms"] = library_partials_bwd(q, k, v, causal, shift, do)
+    return out
+
+
+def _source(name: str, dh: int) -> dict:
+    """The kernels line's ``source`` of kernel ``name`` at head dim ``dh``:
+    its wide twin's above 128."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+    return {"source": "deeplearning4j_tpu_torch/csrc/"
+                      f"{fa._library(name, dh)}.cu"}
+
+
+def flash_measure(h: int = N_HEADS, sweeps: bool = True) -> dict:
+    """The kernel at the serving shape (``h`` heads of D_MODEL / h): its
+    device time (``device_ms``), beside it with the host's launch in the
+    interval (``time_ms``), the plain version, the library call (SDPA,
+    ``device_ms``) and the bound. Inputs stay resident in the 50 MB L2
+    between calls, as q/k/v do when prefill's projections have just
+    written them. ``sweeps`` adds one head and the unmasked call."""
     import torch
     import torch.nn.functional as F
 
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
 
-    b, h, t, dh = 1, N_HEADS, MAX_LEN, D_MODEL // N_HEADS
+    b, t, dh = 1, MAX_LEN, D_MODEL // h
     q, k, v = _qkv((b, h, t, dh), torch.bfloat16, seed=7)
     o, _ = fa.flash_attention_fwd(q, k, v, True)
     ro, _ = fa.flash_attention_reference(q, k, v, True)
@@ -905,7 +1111,7 @@ def flash_measure() -> dict:
         "flash_attention_fwd", "deeplearning4j_tpu/ops/flash_attention.py:405",
         kernel_ms, plain_ms, flops, nbytes, PEAK_BF16_FLOPS, err, library_ms,
         f"B={b} H={h} T={t} Dh={dh} causal bfloat16 (serving)",
-        ms_with_launch=host_ms)
+        ms_with_launch=host_ms, **_source("flash_attention_fwd", dh))
     log(f"[measure] flash_attention_fwd {entry['shape']}: kernel "
         f"{kernel_ms:.4f} ms ({host_ms:.4f} ms with the host's launch in the "
         f"interval), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms; "
@@ -914,7 +1120,7 @@ def flash_measure() -> dict:
         f"{flops / kernel_ms / 1e9:.2f} TFLOP/s; max abs err {err:.3g}")
     # B*H = 4 gives 128 blocks of 64 q rows; if one block's walk over the
     # keys bounds the time, it stays flat with one head and without the mask
-    for heads, causal in ((1, True), (h, False)):
+    for heads, causal in ((1, True), (h, False)) if sweeps else ():
         q, k, v = _qkv((b, heads, t, dh), torch.bfloat16, seed=8)
         ms = device_ms(lambda: fa.flash_attention_fwd(q, k, v, causal))
         lib = device_ms(lambda: F.scaled_dot_product_attention(
@@ -927,9 +1133,10 @@ def flash_measure() -> dict:
 
 # K3k/K3q parity: T from one row through ragged edges (65, 100) to the
 # training length; Dh in every head-dim bucket (8: 32; 40, 64: 64; 96, 128:
-# 128), columns past dh zero-filled in all but 64 and 128
+# 128; 136, 200, 256: the wide sources' 256), columns past dh zero-filled
+# in all but 64, 128 and 256
 BWD_TS = (1, 65, 100, 512, 2048)
-BWD_DHS = (8, 40, 64, 96, 128)
+BWD_DHS = (8, 40, 64, 96, 128, 136, 200, 256)
 
 
 def bwd_parity() -> None:
@@ -1012,9 +1219,10 @@ def _kernel_entry(name, replaces, ms, plain_ms, flops, nbytes, peak, err,
             "library_ms": library_ms, "shape": shape, **extra}
 
 
-def train_shape_measure() -> list:
-    """K3f, K3k and K3q at the training shape (B=4, H=4, T=2048, Dh=128,
-    causal) in f32, the training path's type, and bf16: each kernel's time
+def train_shape_measure(h: int = N_HEADS) -> list:
+    """K3f, K3k and K3q at the training shape (B=4, ``h`` heads of
+    D_MODEL / h, T=2048, causal; Dh=128 at the flagship's 4 heads) in f32,
+    the training path's type, and bf16: each kernel's time
     beside its plain version's, its bound, and torch's SDPA (forward for
     K3f; fwd+bwd minus fwd for the K3k+K3q pair), a yardstick the port
     never calls. The kernels and SDPA are timed by ``device_ms`` (each
@@ -1026,7 +1234,7 @@ def train_shape_measure() -> list:
 
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
 
-    b, h, t, dh = TRAIN_B, N_HEADS, TRAIN_T, D_MODEL // N_HEADS
+    b, t, dh = TRAIN_B, TRAIN_T, D_MODEL // h
     entries = []
     for dtype, peak in ((torch.float32, F32_PRODUCTS),
                         (torch.bfloat16, PEAK_BF16_FLOPS)):
@@ -1080,21 +1288,24 @@ def train_shape_measure() -> list:
                           "deeplearning4j_tpu/ops/flash_attention.py:405",
                           fwd_ms, fwd_plain, fwd_c.flops, fwd_c.bytes, peak,
                           err_fwd, sdpa_fwd_dev, shape,
-                          ms_with_launch=fwd_host),
+                          ms_with_launch=fwd_host,
+                          **_source("flash_attention_fwd", dh)),
             _kernel_entry("flash_attention_bwd_dkv",
                           "jax/experimental/pallas/ops/tpu/"
                           "flash_attention.py:1121 (_flash_attention_bwd_dkv,"
                           " via deeplearning4j_tpu/ops/flash_attention.py:405)",
                           dkv_ms, dkv_plain, dkv_c.flops, dkv_c.bytes,
                           peak, err_dkv, sdpa_bwd, shape,
-                          library_covers=pair_note, ms_with_launch=dkv_host),
+                          library_covers=pair_note, ms_with_launch=dkv_host,
+                          **_source("flash_attention_bwd_dkv", dh)),
             _kernel_entry("flash_attention_bwd_dq",
                           "jax/experimental/pallas/ops/tpu/"
                           "flash_attention.py:1456 (_flash_attention_bwd_dq,"
                           " via deeplearning4j_tpu/ops/flash_attention.py:405)",
                           dq_ms, dq_plain, dq_c.flops, dq_c.bytes,
                           peak, err_dq, sdpa_bwd, shape,
-                          library_covers=pair_note, ms_with_launch=dq_host)]
+                          library_covers=pair_note, ms_with_launch=dq_host,
+                          **_source("flash_attention_bwd_dq", dh))]
         for e in group:
             log(f"[measure] {e['name']} {shape}: kernel {e['ms']:.4f} ms "
                 f"({e['ms_with_launch']:.4f} ms with the host's launch in "
@@ -1160,14 +1371,14 @@ def device_busy(prof, wall_s: float) -> dict:
 
 
 def serve(params, attn_impl, prompt_lens, seed, profiled=False,
-          runprof=None) -> dict:
+          runprof=None, n_heads=N_HEADS, serve_dtype="bf16") -> dict:
     """One engine, every request submitted before run_until_idle(); the
-    kernel's launches are counted from 0 over exactly that run. With
-    ``profiled`` the run goes under torch.profiler (its times then carry
-    the profiler's cost) and the device busy share is reported;
-    ``runprof`` arms the engine's runtime profiler. The result carries
-    the generated streams and the engine's decode ticks, warm-up
-    included."""
+    kernel's launches are counted from 0 over exactly that run (none for
+    attn_impl "dense"). With ``profiled`` the run goes under
+    torch.profiler (its times then carry the profiler's cost) and the
+    device busy share is reported; ``runprof`` arms the engine's runtime
+    profiler. The result carries the generated streams and the engine's
+    decode ticks, warm-up included."""
     import contextlib
 
     from torch.profiler import ProfilerActivity, profile
@@ -1177,8 +1388,8 @@ def serve(params, attn_impl, prompt_lens, seed, profiled=False,
     from deeplearning4j_tpu_torch.telemetry.registry import MetricsRegistry
 
     registry = MetricsRegistry()
-    engine = DecodeEngine(params, N_HEADS, n_slots=N_SLOTS, max_len=MAX_LEN,
-                          serve_dtype="bf16", attn_impl=attn_impl,
+    engine = DecodeEngine(params, n_heads, n_slots=N_SLOTS, max_len=MAX_LEN,
+                          serve_dtype=serve_dtype, attn_impl=attn_impl,
                           registry=registry, seed=seed, runprof=runprof,
                           device=DEVICE)
     rng = np.random.RandomState(seed)
@@ -1214,7 +1425,7 @@ def serve(params, attn_impl, prompt_lens, seed, profiled=False,
     if launches != want:
         raise AssertionError(f"flash kernel launched {launches} times over "
                              f"the run, expected {want}")
-    if want == 0:
+    if want == 0 and attn_impl != "dense":
         raise AssertionError("no admission resolved to the flash kernel")
     tokens = sum(len(r.generated) for r in reqs)
     by_bucket = {}
@@ -1222,6 +1433,7 @@ def serve(params, attn_impl, prompt_lens, seed, profiled=False,
         by_bucket.setdefault(r.bucket, []).append(r.prefill_ms)
     decode_steps = decode_hist.count - d_count0
     out = {"attn_impl": attn_impl, "profiled": profiled,
+           "n_heads": n_heads, "serve_dtype": serve_dtype,
            "requests": len(reqs), "tokens": tokens,
            "wall_s": wall, "tokens_per_s": tokens / wall,
            "kernel_launches": launches, "kernel_admissions":
@@ -1232,6 +1444,7 @@ def serve(params, attn_impl, prompt_lens, seed, profiled=False,
     if profiled:
         out.update(device_busy(prof, wall))
     log(f"[serve] {json.dumps(out)}")
+    out["prompts"] = prompts
     out["streams"] = [list(r.generated) for r in reqs]
     out["engine_decode_steps"] = engine.decode_steps
     return out
@@ -1477,7 +1690,7 @@ def _fp_mode(req) -> str:
             else "suffix" if req.cached_tokens else "chunked")
 
 
-def _fp_divergence(params, prompt, want, got) -> tuple:
+def _fp_divergence(params, prompt, want, got, n_heads=N_HEADS) -> tuple:
     """The first position where ``got`` leaves ``want``, and the top-2 gap
     of the logits there over the largest |logit|, from an f32 dense
     forward of the prompt and ``want``'s tokens before it; (None, None)
@@ -1492,7 +1705,7 @@ def _fp_divergence(params, prompt, want, got) -> tuple:
         return None, None
     toks = torch.tensor([prompt + want[:pos]], device=DEVICE)
     with torch.inference_mode():
-        logits = lm_prefill(params, toks, N_HEADS, attn_impl="dense")[0]
+        logits = lm_prefill(params, toks, n_heads, attn_impl="dense")[0]
     last = logits[0, -1].float()
     top = torch.topk(last, 2).values
     return pos, ((top[0] - top[1]) / last.abs().max()).item()
@@ -1734,15 +1947,16 @@ def _fp_summary(run: dict) -> dict:
 
 # ------------------------------------------------------------- phase 4 ----
 
-def _train_setup(seed: int = 0):
-    """Fresh f32 flagship params from a generator seeded ``seed`` and one
-    (B, T) batch of tokens and next-token targets from a numpy seed."""
+def _train_setup(seed: int = 0, n_heads: int = N_HEADS):
+    """Fresh f32 flagship params (``n_heads`` heads) from a generator
+    seeded ``seed`` and one (B, T) batch of tokens and next-token targets
+    from a numpy seed."""
     import torch
 
     from deeplearning4j_tpu_torch.models.transformer_lm import init_lm_params
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    params = init_lm_params(gen, VOCAB, D_MODEL, N_HEADS, N_EXPERTS, D_FF,
+    params = init_lm_params(gen, VOCAB, D_MODEL, n_heads, N_EXPERTS, D_FF,
                             n_layers=N_LAYERS, device=DEVICE)
     toks = np.random.RandomState(5).randint(0, VOCAB,
                                             (TRAIN_B, TRAIN_T + 1))
@@ -1762,12 +1976,12 @@ def _check_launches(run: str, steps: int) -> dict:
     return launches
 
 
-def train(profiled: bool = False) -> dict:
-    """The flagship's single-device training step at full width with the
-    auto attention core (the flash kernels at T=2048): 2 warm-up steps,
-    then TRAIN_STEPS timed steps on one batch, launches counted from 0 over
-    exactly those steps. With ``profiled`` the steps run under
-    torch.profiler for the device busy share."""
+def train(profiled: bool = False, n_heads: int = N_HEADS) -> dict:
+    """The flagship's single-device training step at full width (in
+    ``n_heads`` heads) with the auto attention core (the flash kernels at
+    T=2048): 2 warm-up steps, then TRAIN_STEPS timed steps on one batch,
+    launches counted from 0 over exactly those steps. With ``profiled``
+    the steps run under torch.profiler for the device busy share."""
     import contextlib
 
     import torch
@@ -1779,11 +1993,12 @@ def train(profiled: bool = False) -> dict:
     )
     from deeplearning4j_tpu_torch.ops import _kernels
 
-    impl = selected_attn_impl(TRAIN_T, head_dim=D_MODEL // N_HEADS)
+    impl = selected_attn_impl(TRAIN_T, head_dim=D_MODEL // n_heads)
     if impl not in ("flash", "blockwise"):
-        raise AssertionError(f"auto core at T={TRAIN_T} is {impl!r}")
-    params, tokens, targets = _train_setup()
-    step = make_single_device_train_step(N_HEADS, donate=True, device=DEVICE)
+        raise AssertionError(f"auto core at T={TRAIN_T}, Dh="
+                             f"{D_MODEL // n_heads} is {impl!r}")
+    params, tokens, targets = _train_setup(n_heads=n_heads)
+    step = make_single_device_train_step(n_heads, donate=True, device=DEVICE)
     for _ in range(2):
         params, loss = step(params, tokens, targets)
     sync()
@@ -1806,7 +2021,8 @@ def train(profiled: bool = False) -> dict:
         raise AssertionError(f"training losses {losses}: not finite or not "
                              "falling")
     ms = wall * 1e3 / TRAIN_STEPS
-    out = {"profiled": profiled, "attn_impl": impl, "steps": TRAIN_STEPS,
+    out = {"profiled": profiled, "attn_impl": impl, "n_heads": n_heads,
+           "steps": TRAIN_STEPS,
            "batch": [TRAIN_B, TRAIN_T], "wall_s": wall, "ms_per_step": ms,
            "samples_per_s": TRAIN_B * 1e3 / ms,
            "tokens_per_s": TRAIN_B * TRAIN_T * 1e3 / ms,
@@ -1820,17 +2036,19 @@ def train(profiled: bool = False) -> dict:
     return out
 
 
-def grad_parity() -> None:
+def grad_parity(n_heads: int = N_HEADS, attribution: bool = True) -> dict:
     """One step's loss and grads through the flash kernels
-    (attn_impl="blockwise") against dense attention, f32 with TF32 off. The
-    grads of wq, wk and wv must be non-zero in every layer: the first
-    slice's flash output carried no graph, and those leaves got none.
+    (attn_impl="blockwise") against dense attention, f32 with TF32 off, in
+    ``n_heads`` heads. The grads of wq, wk and wv must be non-zero in every
+    layer: the first slice's flash output carried no graph, and those
+    leaves got none.
 
-    Both routes are also held against a float64 dense run on the same
-    params and tokens, leaf by leaf, to attribute their gap (logged, not
-    gated): if it comes from ReLU units of the expert FFNs at their kink,
-    both f32 routes sit about equally far from float64 on the leaves fed
-    by those units; if from the kernels, the kernel route sits farther."""
+    With ``attribution`` both routes are also held against a float64 dense
+    run on the same params and tokens, leaf by leaf, to attribute their gap
+    (logged, not gated): if it comes from ReLU units of the expert FFNs at
+    their kink, both f32 routes sit about equally far from float64 on the
+    leaves fed by those units; if from the kernels, the kernel route sits
+    farther."""
     import torch
 
     from deeplearning4j_tpu_torch._device import tree_leaves, tree_map
@@ -1840,10 +2058,10 @@ def grad_parity() -> None:
         lm_value_and_grad,
     )
 
-    params, tokens, targets = _train_setup()
-    kl, kg = lm_value_and_grad(dense_loss_fn(N_HEADS, attn_impl="blockwise"),
+    params, tokens, targets = _train_setup(n_heads=n_heads)
+    kl, kg = lm_value_and_grad(dense_loss_fn(n_heads, attn_impl="blockwise"),
                                params, tokens, targets)
-    dl, dg = lm_value_and_grad(dense_loss_fn(N_HEADS, attn_impl="dense"),
+    dl, dg = lm_value_and_grad(dense_loss_fn(n_heads, attn_impl="dense"),
                                params, tokens, targets)
     loss_err = abs(float(kl) - float(dl))
     errs = {}
@@ -1851,12 +2069,14 @@ def grad_parity() -> None:
         ".".join(path), _rel_err(g, _leaf(dg, path))), kg)
     grad_err = max(errs.values())
     log(f"[parity] grad rel err per leaf: {json.dumps(errs)}")
-    f64_attribution(params, tokens, targets, kl, kg, dl, dg, errs)
+    if attribution:
+        f64_attribution(params, tokens, targets, kl, kg, dl, dg, errs)
     zero = [key for key in ("wq", "wk", "wv")
             if not bool((kg["blocks"][key].abs().amax((1, 2)) > 0).all())]
     finite = all(torch.isfinite(g).all().item() for g in tree_leaves(kg))
     log(f"[parity] training step flash kernels vs dense, f32, B={TRAIN_B} "
-        f"T={TRAIN_T}: loss {float(kl):.6f} vs {float(dl):.6f} (abs err "
+        f"T={TRAIN_T} Dh={D_MODEL // n_heads}: loss {float(kl):.6f} vs "
+        f"{float(dl):.6f} (abs err "
         f"{loss_err:.3g}), worst leaf grad rel err {grad_err:.3g}, "
         f"zero-grad attention leaves {zero}")
     if not (loss_err <= LOSS_TOL and grad_err <= GRAD_TOL and not zero
@@ -1865,6 +2085,7 @@ def grad_parity() -> None:
             f"kernel vs dense training step: loss err {loss_err} (tol "
             f"{LOSS_TOL}), grad rel err {grad_err} (tol {GRAD_TOL}), zero "
             f"grads {zero}, finite {finite}")
+    return {"loss_err": loss_err, "worst_grad_rel_err": grad_err}
 
 
 def f64_attribution(params, tokens, targets, kl, kg, dl, dg,
@@ -1914,13 +2135,13 @@ def f64_attribution(params, tokens, targets, kl, kg, dl, dg,
         torch.cuda.empty_cache()
 
 
-# a head dim the kernels refuse: the flagship's width in 2 heads of 256
-WIDE_HEADS, WIDE_T = 2, 1024
+# a head dim the kernels refuse: 2 heads of 264 (d_model 528)
+REFUSED_HEADS, REFUSED_D_MODEL, REFUSED_T = 2, 528, 1024
 
 
 def wide_head_step() -> None:
-    """One training step of the LM at d_model / n_heads = 256, T=1024, with
-    the auto core: T alone would pick the kernels, which take Dh up to 128,
+    """One training step of the LM at d_model / n_heads = 264, T=1024, with
+    the auto core: T alone would pick the kernels, which take Dh up to 256,
     so auto must run dense attention, launch no flash kernel and give a
     finite loss and grads."""
     import torch
@@ -1936,15 +2157,15 @@ def wide_head_step() -> None:
         resolve_attention_impl,
     )
 
-    head_dim = D_MODEL // WIDE_HEADS
-    by_t = resolve_attention_impl(WIDE_T)
-    impl = selected_attn_impl(WIDE_T, head_dim=head_dim)
+    head_dim = REFUSED_D_MODEL // REFUSED_HEADS
+    by_t = resolve_attention_impl(REFUSED_T)
+    impl = selected_attn_impl(REFUSED_T, head_dim=head_dim)
     gen = torch.Generator(device=DEVICE).manual_seed(4)
-    params = init_lm_params(gen, VOCAB, D_MODEL, WIDE_HEADS, N_EXPERTS, D_FF,
-                            n_layers=N_LAYERS, device=DEVICE)
+    params = init_lm_params(gen, VOCAB, REFUSED_D_MODEL, REFUSED_HEADS,
+                            N_EXPERTS, D_FF, n_layers=N_LAYERS, device=DEVICE)
     toks = torch.as_tensor(np.random.RandomState(6).randint(
-        0, VOCAB, (TRAIN_B, WIDE_T + 1)), device=DEVICE)
-    step = make_single_device_train_step(WIDE_HEADS, device=DEVICE)
+        0, VOCAB, (TRAIN_B, REFUSED_T + 1)), device=DEVICE)
+    step = make_single_device_train_step(REFUSED_HEADS, device=DEVICE)
     _kernels.reset_launches()
     params, loss = step(params, toks[:, :-1], toks[:, 1:])
     sync()
@@ -1952,7 +2173,7 @@ def wide_head_step() -> None:
     finite = (np.isfinite(float(loss))
               and all(torch.isfinite(p).all().item()
                       for p in tree_leaves(params)))
-    out = {"head_dim": head_dim, "t": WIDE_T, "impl_by_t_alone": by_t,
+    out = {"head_dim": head_dim, "t": REFUSED_T, "impl_by_t_alone": by_t,
            "impl": impl, "loss": float(loss), "launches": launches}
     log(f"[train] wide heads under auto: {json.dumps(out)}")
     if not (by_t == "blockwise" and impl == "dense" and finite
@@ -8358,6 +8579,98 @@ def slice21d(smi: str, params, w2v: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 20 ----
+
+# the flagship in 2 heads of 256: B*H*T^2*Dh as at 4 heads of 128, so the
+# kernels' work and bounds are the Dh-128 rows'
+WIDE_HEADS = 2
+PHASE20_S = 120.0
+
+
+def _wide_streams(params, prompts_of, kernel_run, dense_run) -> dict:
+    """The kernel route's f32 streams against the dense route's: equal, or
+    leaving them only where the dense run's top-2 logits tie within FP_TIE
+    of the largest |logit| (phase 3b's rule)."""
+    diverged = []
+    for prompt, want, got in zip(prompts_of, dense_run["streams"],
+                                 kernel_run["streams"]):
+        pos, gap = _fp_divergence(params, prompt, want, got, WIDE_HEADS)
+        if pos is None:
+            continue
+        log(f"[wide] f32 streams part at token {pos}; the dense run's top-2 "
+            f"gap there is {gap:.3g} of its largest |logit|")
+        diverged.append(pos)
+        if not gap < FP_TIE:
+            raise AssertionError(
+                f"Dh=256 f32 serving: the kernel route leaves the dense "
+                f"route's stream at token {pos} where the top-2 gap is "
+                f"{gap:.3g} of the logit scale (a near-tie is < {FP_TIE})")
+    return {"requests": len(dense_run["streams"]), "diverged_at": diverged}
+
+
+def wide_phase(smi: str) -> dict:
+    """Phase 20: the flagship at 2 heads of 256 (Dh 256) on the wide
+    kernels. Serving: phase 3's burst through DecodeEngine(serve_dtype=
+    "bf16") with the auto core (K3f exactly n_layers x the kernel
+    admissions) and with "dense" (no launch; the share of equal streams
+    logged), then both at f32, whose streams must agree but at top-2
+    ties. Training: phase 4's 10 f32 SGD steps at B=4, T=2048 with the
+    auto core, which must resolve "blockwise" (K3f, K3k, K3q exactly
+    n_layers x 10), one step's loss and grads through the kernels against
+    dense attention at phase 4's tolerances. Times: K3f at the serving
+    shape and K3f, K3k, K3q at the training shape (f32, bf16), each beside
+    its plain version, its bound and SDPA."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer_lm import init_lm_params
+    from deeplearning4j_tpu_torch.ops.flash_attention import (
+        resolve_attention_impl,
+    )
+
+    t_phase = time.perf_counter()
+    dh = D_MODEL // WIDE_HEADS
+    impl = resolve_attention_impl(TRAIN_T, dh, torch.float32)
+    if impl != "blockwise":
+        raise AssertionError(f"auto at T={TRAIN_T}, Dh={dh} is {impl!r}")
+    gen = torch.Generator(device=DEVICE).manual_seed(20)
+    params = init_lm_params(gen, VOCAB, D_MODEL, WIDE_HEADS, N_EXPERTS, D_FF,
+                            n_layers=N_LAYERS, device=DEVICE)
+    runs = {(route, dtype): serve(params, route, PROMPT_LENS, seed=1,
+                                  n_heads=WIDE_HEADS, serve_dtype=dtype)
+            for route in (None, "dense") for dtype in ("bf16", None)}
+    bf16, bf16_dense = runs[(None, "bf16")], runs[("dense", "bf16")]
+    out = {"dh": dh, "serve": {
+        "bf16_tokens_per_s": bf16["tokens_per_s"],
+        "bf16_dense_tokens_per_s": bf16_dense["tokens_per_s"],
+        "k3f_launches": bf16["kernel_launches"],
+        "k3f_admissions": bf16["kernel_admissions"],
+        "bf16_equal_streams": sum(a == b for a, b in zip(
+            bf16["streams"], bf16_dense["streams"])),
+        "f32": _wide_streams(params, runs[("dense", None)]["prompts"],
+                             runs[(None, None)], runs[("dense", None)])}}
+    del params
+    train_run = train(n_heads=WIDE_HEADS)
+    train_run.pop("params")
+    out["train"] = {key: train_run[key] for key in (
+        "attn_impl", "ms_per_step", "tokens_per_s", "losses", "launches")}
+    out["grads"] = grad_parity(WIDE_HEADS, attribution=False)
+    torch.cuda.empty_cache()
+    out["serving_entry"] = flash_measure(WIDE_HEADS, sweeps=False)
+    out["serving_entry"]["launches"] = bf16["kernel_launches"]
+    out["training_entries"] = train_shape_measure(WIDE_HEADS)
+    for entry in out["training_entries"]:
+        entry["launches"] = train_run["launches"][entry["name"]]
+        entry["launches_cover"] = ("phase 20's timed f32 training run at "
+                                   "Dh 256")
+    out["wall_s"] = time.perf_counter() - t_phase
+    shown = ("dh", "serve", "train", "grads", "wall_s")
+    log(f"[wide] {json.dumps({k: out[k] for k in shown})} on {smi}")
+    if out["wall_s"] > PHASE20_S:
+        raise AssertionError(f"phase 20 took {out['wall_s']:.1f} s, over "
+                             f"its {PHASE20_S:.0f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -8381,6 +8694,7 @@ def main() -> int:
     build_kernels()
     flash_parity()
     partials = partials_parity()
+    partials_bwd = partials_bwd_parity()
     bwd_parity()
     serve_entry = flash_measure()
     serve_entry["partials"] = partials
@@ -8495,6 +8809,15 @@ def main() -> int:
     for entry in train_entries:
         entry["retrace_guard_launches"] = \
             s21d["retrace_guard"]["launches"][entry["name"]]
+        if entry["name"] in BWD_KERNELS:
+            # phase 2's partials backward at Dh=128: one launch a pair
+            kind = "dkv" if entry["name"].endswith("dkv") else "dq"
+            dtype = "bfloat16" if "bfloat16" in entry["shape"] else "float32"
+            entry["partials_bwd"] = {
+                case: {**t[kind], "library_bwd_ms": t["library_bwd_ms"]}
+                for case, t in partials_bwd["timed"].items()
+                if case.endswith(dtype)}
+            entry["partials_bwd_launches"] = "1 a pair"
     # items 21b and 21c (phase 18): K3f's key splits at each row's shape,
     # the HTTP burst's and the routed request's launches, the lm_seam
     # search's launches of the three training kernels
@@ -8516,10 +8839,14 @@ def main() -> int:
             "per_call": lm_tune["launches_per_call"][entry["name"]],
             "total": lm_tune["measured_calls"]
             * lm_tune["launches_per_call"][entry["name"]]}
+    wide = wide_phase(smi)
+    log(f"[build] {json.dumps(BUILD)}")
     log(f"[time] chip_smoke ran {time.perf_counter() - t_start:.1f} s")
 
     print(smi)
     print(json.dumps({"kernels": [serve_entry, *train_entries,
+                                  wide["serving_entry"],
+                                  *wide["training_entries"],
                                   *mlp_entries, *lstm_entries,
                                   *conv_entries]}))
     print(json.dumps({"ok": True, "device": {

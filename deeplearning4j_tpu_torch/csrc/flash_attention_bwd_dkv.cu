@@ -6,11 +6,17 @@
 // reached from deeplearning4j_tpu/ops/flash_attention.py::_flash_attention_tpu
 // (:405); its lax twin is the dk/dv pass of _blockwise_vjp_bwd (:262-311).
 //
-// Computes, over (B, H, T, Dh) row-major inputs, with lse and
-// delta = rowsum(do * o) in f32 (B, H, T):
+// Computes, over row-major q, do (B, H, Tq, Dh) and k, v (B, H, Tk, Dh),
+// with lse and delta = rowsum(do * o) in f32 (B, H, Tq):
 //   P  = exp(q k^T * scale [+ causal mask] - lse)            (f32)
 //   dv = P^T do                                        (dtype of v)
 //   dk = (P * (do v^T - delta))^T q * scale            (dtype of k)
+// Under causal, key j is seen by row i iff j <= i + shift (K3f's shifted
+// diagonal: a pair of blockwise_block_partials at its global offsets;
+// attention over one sequence is Tq == Tk, shift 0). A caller with an lse
+// cotangent passes delta - dlse: dS = P * (dP - delta + dlse). The kernel
+// below takes attention over one sequence; Tq != Tk or a shift runs
+// flash_bwd_split.cuh's column-split kernel at the same head-dim buckets.
 // Every sum is f32. bf16 inputs multiply as bf16 on the tensor cores, with
 // P and dS rounded to bf16 for the two products that take them (as
 // FlashAttention-2's backward does); f32 inputs go through the 3xTF32
@@ -50,7 +56,8 @@
 //   shared memory, FlashAttention-2's layout), and the 32 queries taken in
 //   two passes of 16;
 // - templated on a head-dim bucket (32, 64, 128): every dh % 8 == 0 up to
-//   128 runs, the columns past dh zero;
+//   128 runs, the columns past dh zero (flash_attention_bwd_dkv_wide.cu
+//   takes the head dims above);
 // - shared memory at Dh=128: K, V and two stages of q and do, 64 rows each,
 //   bf16 96 KB, f32 192 KB, plus 1 KB of lse and delta; one block an SM;
 // - the copy width (16, 8, 4 or 2 bytes) follows the inputs' alignment.
@@ -62,6 +69,7 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "flash_bwd_split.cuh"
 #include "flash_tiles.cuh"
 #include "hopper_mma.cuh"
 
@@ -282,24 +290,32 @@ cudaError_t launch_width(const void* q, const void* k, const void* v,
 }  // namespace
 
 // Plain C entry point bound with ctypes. Pointers are device pointers of
-// contiguous (B*H, T, Dh) tensors (lse, delta: (B*H, T) f32); is_bf16
-// selects the element type (0: f32, 1: bf16). Returns cudaGetLastError() of
-// the launch.
+// contiguous q, do (B*H, Tq, Dh) and k, v, dk, dv (B*H, Tk, Dh) tensors
+// (lse, delta: (B*H, Tq) f32); shift is the causal diagonal's (key j seen
+// by row i iff j <= i + shift; ignored without causal); is_bf16 selects
+// the element type (0: f32, 1: bf16). Returns cudaGetLastError() of the
+// launch.
 extern "C" int dl4j_flash_attention_bwd_dkv(const void* q, const void* k,
                                             const void* v, const void* lse,
                                             const void* dout,
                                             const void* delta, void* dk,
-                                            void* dv, int bh, int t, int dh,
-                                            int causal, float scale,
-                                            int is_bf16, void* stream) {
-  if (bh < 1 || t < 1 || dh < 8 || dh > kMaxDh || dh % 8 != 0 ||
-      (t + kBlock - 1) / kBlock > 65535)
+                                            void* dv, int bh, int tq, int tk,
+                                            int dh, int causal, int shift,
+                                            float scale, int is_bf16,
+                                            void* stream) {
+  if (bh < 1 || tq < 1 || tk < 1 || dh < 8 || dh > kMaxDh || dh % 8 != 0 ||
+      (tk + 31) / 32 > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_width<__nv_bfloat16>(q, k, v, lse, dout, delta, dk, dv,
-                                            bh, t, dh, causal, scale, s)
-              : launch_width<float>(q, k, v, lse, dout, delta, dk, dv, bh, t,
-                                    dh, causal, scale, s);
-  return (int)err;
+  if (tq == tk && !(causal && shift != 0))
+    return (int)(is_bf16
+                     ? launch_width<__nv_bfloat16>(q, k, v, lse, dout, delta,
+                                                   dk, dv, bh, tq, dh, causal,
+                                                   scale, s)
+                     : launch_width<float>(q, k, v, lse, dout, delta, dk, dv,
+                                           bh, tq, dh, causal, scale, s));
+  const BwdArgs a{q, k, v, lse, dout, delta, dk, dv, bh, tq, tk, dh,
+                  causal, causal ? shift : 0, scale, s};
+  return (int)(is_bf16 ? flash_split::launch_dkv<__nv_bfloat16, 32, 64, 128>(a)
+                       : flash_split::launch_dkv<float, 32, 64, 128>(a));
 }

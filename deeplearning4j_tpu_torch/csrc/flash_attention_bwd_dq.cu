@@ -5,11 +5,16 @@
 // reached from deeplearning4j_tpu/ops/flash_attention.py::_flash_attention_tpu
 // (:405); its lax twin is the dq pass of _blockwise_vjp_bwd (:237-260).
 //
-// Computes, over (B, H, T, Dh) row-major inputs, with lse and
-// delta = rowsum(do * o) in f32 (B, H, T):
+// Computes, over row-major q, do (B, H, Tq, Dh) and k, v (B, H, Tk, Dh),
+// with lse and delta = rowsum(do * o) in f32 (B, H, Tq):
 //   P  = exp(q k^T * scale [+ causal mask] - lse)            (f32)
 //   dS = P * (do v^T - delta)                                 (f32)
 //   dq = dS k * scale                                 (dtype of q)
+// Under causal, key j is seen by row i iff j <= i + shift (as K3k); a
+// caller with an lse cotangent passes delta - dlse. The kernel below takes
+// attention over one sequence (Tq == Tk, shift 0); Tq != Tk or a shift
+// runs flash_bwd_split.cuh's column-split kernel at the same head-dim
+// buckets.
 // Every sum is f32. bf16 inputs multiply as bf16 on the tensor cores, with
 // dS rounded to bf16 for the dS k product (as FlashAttention-2's backward
 // does); f32 inputs go through the 3xTF32 split and keep f32's accuracy. A
@@ -43,7 +48,8 @@
 // - the two warps of each 16 queries take the two 32-key halves of every
 //   K/V tile and add their dQ once at the end through shared memory;
 // - templated on a head-dim bucket (32, 64, 128): every dh % 8 == 0 up to
-//   128 runs, the columns past dh zero;
+//   128 runs, the columns past dh zero (flash_attention_bwd_dq_wide.cu
+//   takes the head dims above);
 // - shared memory at Dh=128: q, do and two stages of K and V, 64 rows
 //   each, bf16 96 KB, f32 192 KB; one block an SM;
 // - the copy width (16, 8, 4 or 2 bytes) follows the inputs' alignment.
@@ -55,6 +61,7 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "flash_bwd_split.cuh"
 #include "flash_tiles.cuh"
 #include "hopper_mma.cuh"
 
@@ -266,24 +273,30 @@ cudaError_t launch_width(const void* q, const void* k, const void* v,
 }  // namespace
 
 // Plain C entry point bound with ctypes. Pointers are device pointers of
-// contiguous (B*H, T, Dh) tensors (lse, delta: (B*H, T) f32); is_bf16
-// selects the element type (0: f32, 1: bf16). Returns cudaGetLastError() of
-// the launch.
+// contiguous q, do, dq (B*H, Tq, Dh) and k, v (B*H, Tk, Dh) tensors (lse,
+// delta: (B*H, Tq) f32); shift is the causal diagonal's (ignored without
+// causal); is_bf16 selects the element type (0: f32, 1: bf16). Returns
+// cudaGetLastError() of the launch.
 extern "C" int dl4j_flash_attention_bwd_dq(const void* q, const void* k,
                                            const void* v, const void* lse,
                                            const void* dout,
                                            const void* delta, void* dq,
-                                           int bh, int t, int dh, int causal,
-                                           float scale, int is_bf16,
-                                           void* stream) {
-  if (bh < 1 || t < 1 || dh < 8 || dh > kMaxDh || dh % 8 != 0 ||
-      (t + kBlock - 1) / kBlock > 65535)
+                                           int bh, int tq, int tk, int dh,
+                                           int causal, int shift, float scale,
+                                           int is_bf16, void* stream) {
+  if (bh < 1 || tq < 1 || tk < 1 || dh < 8 || dh > kMaxDh || dh % 8 != 0 ||
+      (tq + 31) / 32 > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_width<__nv_bfloat16>(q, k, v, lse, dout, delta, dq, bh,
-                                            t, dh, causal, scale, s)
-              : launch_width<float>(q, k, v, lse, dout, delta, dq, bh, t, dh,
-                                    causal, scale, s);
-  return (int)err;
+  if (tq == tk && !(causal && shift != 0))
+    return (int)(is_bf16
+                     ? launch_width<__nv_bfloat16>(q, k, v, lse, dout, delta,
+                                                   dq, bh, tq, dh, causal,
+                                                   scale, s)
+                     : launch_width<float>(q, k, v, lse, dout, delta, dq, bh,
+                                           tq, dh, causal, scale, s));
+  const BwdArgs a{q, k, v, lse, dout, delta, dq, nullptr, bh, tq, tk, dh,
+                  causal, causal ? shift : 0, scale, s};
+  return (int)(is_bf16 ? flash_split::launch_dq<__nv_bfloat16, 32, 64, 128>(a)
+                       : flash_split::launch_dq<float, 32, 64, 128>(a));
 }

@@ -359,6 +359,164 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst,
   }
 }
 
+// ------------------------------------------- the column-split kernels ---
+//
+// The column-split backward pair (flash_bwd_split.cuh: every mode at Dh
+// 256, and Tq != Tk or a shift below) splits its accumulators' head-dim
+// columns over the warps of a row group: each warp multiplies the whole
+// walked tile into NC output columns from column c0. The variants below
+// take that column window; the functions above are the narrow kernels'
+// and stay as they are.
+
+// acc (16 x NC) += p (16 x BK) B[:, c0 : c0 + NC], bf16; B's rows (the k
+// dimension) DH wide from ``bt``. c0 is a multiple of 16.
+template <int DH, int NC, int BK>
+__device__ __forceinline__ void pv_bf16_cols(float (&acc)[NC / 8][4],
+                                             const float (&p)[BK / 8][4],
+                                             const unsigned char* bt,
+                                             int lane, int c0) {
+  using Tile = RowTile<__nv_bfloat16, DH>;
+  constexpr int kSteps = BK / 16 * (NC / 16);
+  const int row = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int half = lane >> 4;
+  const int c16 = c0 / 16;
+  uint32_t pf[BK / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    pf[kk][0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
+    pf[kk][1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
+    pf[kk][2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+    pf[kk][3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+  }
+  uint32_t bf[2][4];
+  ldmatrix_x4_trans(bf[0], bt + Tile::offset(row, 2 * c16 + half));
+#pragma unroll
+  for (int i = 0; i < kSteps; ++i) {
+    const int kk = i / (NC / 16), dp = i % (NC / 16);
+    if (i + 1 < kSteps) {
+      const int kn = (i + 1) / (NC / 16), dn = (i + 1) % (NC / 16);
+      ldmatrix_x4_trans(bf[(i + 1) & 1],
+                        bt + Tile::offset(16 * kn + row,
+                                          2 * (c16 + dn) + half));
+    }
+    mma_bf16_16816(acc[2 * dp], pf[kk], bf[i & 1][0], bf[i & 1][1]);
+    mma_bf16_16816(acc[2 * dp + 1], pf[kk], bf[i & 1][2], bf[i & 1][3]);
+  }
+}
+
+// The same through 3xTF32: acc (16 x NC) += p (16 x BK) B[:, c0 : c0 +
+// NC], B's rows DH floats wide; c0 a multiple of 8.
+template <int DH, int NC, int BK>
+__device__ __forceinline__ void pv_f32_cols(float (&acc)[NC / 8][4],
+                                            const float (&p)[BK / 8][4],
+                                            const unsigned char* bt,
+                                            const F32Lanes<DH>& ln, int c0) {
+  constexpr int kGroup = NC / 8 < 4 ? NC / 8 : 4;
+  const int n8 = c0 / 8;
+  uint32_t ah[BK / 8][4], al[BK / 8][4];
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    split_tf32(p[j][0], ah[j][0], al[j][0]);
+    split_tf32(p[j][2], ah[j][1], al[j][1]);
+    split_tf32(p[j][1], ah[j][2], al[j][2]);
+    split_tf32(p[j][3], ah[j][3], al[j][3]);
+  }
+#pragma unroll
+  for (int n0 = 0; n0 < NC / 8; n0 += kGroup) {
+    float part[kGroup][4] = {};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int n = 0; n < kGroup; ++n) {
+        uint32_t b0h, b0l, b1h, b1l;
+        split_tf32(ln.pair(bt, j, 0, n8 + n0 + n), b0h, b0l);
+        split_tf32(ln.pair(bt, j, 1, n8 + n0 + n), b1h, b1l);
+        mma_3xtf32(part[n], part[n], ah[j], al[j], b0h, b1h, b0l, b1l);
+      }
+#pragma unroll
+    for (int n = 0; n < kGroup; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n0 + n][e] += part[n][e];
+  }
+}
+
+// acc * scale into rows ``row`` and row+8, columns [c0, c0 + NC), of a
+// (t, dh) array of T; the rows past t and the columns past dh left out
+template <typename T, int NC>
+__device__ __forceinline__ void store_cols(T* __restrict__ dst,
+                                           const float (&acc)[NC / 8][4],
+                                           int row, int t, int dh, int c0,
+                                           float scale, int q) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gr = row + 8 * h;
+    if (gr >= t) continue;
+#pragma unroll
+    for (int n = 0; n < NC / 8; ++n) {
+      const int dc = c0 + 8 * n + 2 * q;
+      if (dc >= dh) break;
+      const float a = acc[n][2 * h] * scale, b = acc[n][2 * h + 1] * scale;
+      T* at = dst + (size_t)gr * dh + dc;
+      if constexpr (sizeof(T) == 4)
+        *reinterpret_cast<float2*>(at) = make_float2(a, b);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(at) = __floats2bfloat162_rn(a, b);
+    }
+  }
+}
+
+// Stage N f32 values [row0, row0 + N) of a length-t vector into shared
+// ``dst``; past t zero. Threads [first, first + N) copy one value each.
+template <int N>
+__device__ __forceinline__ void stage_vec_n(float* dst,
+                                            const float* __restrict__ src,
+                                            int row0, int t, int first) {
+  const int i = (int)threadIdx.x - first;
+  if (i >= 0 && i < N) {
+    const bool ok = row0 + i < t;
+    cp_async_ca4(dst + i, ok ? src + row0 + i : src, ok ? 4 : 0);
+  }
+}
+
+// A warp's 16 x BN score tile through shared ``x`` to the other warps of
+// its row group, value-major (lane-minor), so that the stores and loads
+// are free of bank conflicts
+template <int BN>
+__device__ __forceinline__ void put_tile(float* x, int lane,
+                                         const float (&s)[BN / 8][4]) {
+#pragma unroll
+  for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[(4 * n + e) * 32 + lane] = s[n][e];
+}
+
+template <int BN>
+__device__ __forceinline__ void get_tile(const float* x, int lane,
+                                         float (&s)[BN / 8][4]) {
+#pragma unroll
+  for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = x[(4 * n + e) * 32 + lane];
+}
+
+// The warps of row group ``group`` meet: a named barrier (1 + group; 0 is
+// __syncthreads') over their kThreads threads
+template <int kThreads>
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(kThreads)
+               : "memory");
+}
+
+// One launch of a column-split backward kernel's arguments, passed down
+// the dispatch on the templates: out0, out1 are dk, dv (K3k) or dq (K3q)
+struct BwdArgs {
+  const void *q, *k, *v, *lse, *dout, *delta;
+  void *out0, *out1;
+  int bh, tq, tk, dh, causal, shift;
+  float scale;
+  cudaStream_t stream;
+};
+
 // The widest copy every row of q, k, v and do allows (rows are dh * elt
 // bytes, a multiple of 16: the bases set it).
 inline int bwd_copy_width(const void* q, const void* k, const void* v,

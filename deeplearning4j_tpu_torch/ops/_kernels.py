@@ -10,7 +10,9 @@ module of the package on a host without ``nvcc``.
 
 ``LAUNCHES`` holds one integer per kernel; a wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that the main path
-went through the kernel.
+went through the kernel. ``SOURCES`` names every library: each kernel's,
+and the wide twins of the three flash kernels (head dims above 128), whose
+launches count as their kernel's.
 
 Each kernel has one cost function here (``*_cost``): its FLOPs,
 transcendental operations and the bytes it must move at given shapes. The
@@ -46,6 +48,11 @@ LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                             "lstm_gates": 0,
                             "lstm_gates_bwd": 0}
 
+# the libraries: csrc/<name>.cu each
+SOURCES = tuple(sorted([*LAUNCHES, "flash_attention_fwd_wide",
+                        "flash_attention_bwd_dkv_wide",
+                        "flash_attention_bwd_dq_wide"]))
+
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 # ptxas/nvcc output of the builds this process ran: {source name: text}
@@ -58,20 +65,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+# the flash entry points' arguments: pointers, then (bh, tq, tk, dh,
+# causal, shift, scale, is_bf16), the forward's key split, the stream
+_FWD = [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P]
+_DKV = [_P] * 8 + [_I] * 6 + [_F, _I, _P]
+_DQ = [_P] * 7 + [_I] * 6 + [_F, _I, _P]
 # C signature of every exported entry point: {symbol: argtypes}
 _SIGNATURES = {
-    "flash_attention_fwd": {
-        "dl4j_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                     _I, _I, _F, _I, _I, _P],
-    },
-    "flash_attention_bwd_dkv": {
-        "dl4j_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                         _I, _I, _I, _F, _I, _P],
-    },
-    "flash_attention_bwd_dq": {
-        "dl4j_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                        _I, _I, _F, _I, _P],
-    },
+    "flash_attention_fwd": {"dl4j_flash_attention_fwd": _FWD},
+    "flash_attention_fwd_wide": {"dl4j_flash_attention_fwd_wide": _FWD},
+    "flash_attention_bwd_dkv": {"dl4j_flash_attention_bwd_dkv": _DKV},
+    "flash_attention_bwd_dkv_wide": {
+        "dl4j_flash_attention_bwd_dkv_wide": _DKV},
+    "flash_attention_bwd_dq": {"dl4j_flash_attention_bwd_dq": _DQ},
+    "flash_attention_bwd_dq_wide": {"dl4j_flash_attention_bwd_dq_wide": _DQ},
     "fused_dense": {
         "dl4j_fused_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
@@ -183,7 +190,7 @@ def load(name: str) -> ctypes.CDLL:
 # Causal attention computes the scores on or below the diagonal: half of
 # the (T, T) products and exponentials, as the kernels' tile walk skips
 # the blocks above it. ``_pairs`` states that halving once for K3f, K3k
-# and K3q, and K3f's pairs at a shifted diagonal (Tq rows against Tk keys,
+# and K3q, and their pairs at a shifted diagonal (Tq rows against Tk keys,
 # key j seen by row i iff j <= i + shift) as the same area: the part of
 # the (Tq, Tk) rectangle on or below the line j = i + shift.
 
@@ -223,24 +230,32 @@ def flash_attention_fwd_cost(b: int, h: int, t: int, dh: int, causal: bool,
 
 
 def flash_attention_bwd_dkv_cost(b: int, h: int, t: int, dh: int,
-                                 causal: bool, elt: int) -> KernelCost:
-    """K3k: four products over the pairs (S = Q·Kᵀ again, dP = dO·Vᵀ,
-    dV = Pᵀ·dO, dK = dSᵀ·Q), one exp per pair; q, k, v, do read, dk and dv
-    written, lse and delta (f32) read."""
-    pairs = _pairs(b, h, t, causal)
-    tile = float(b) * h * t * dh * elt
+                                 causal: bool, elt: int, tk: int = None,
+                                 shift: int = 0) -> KernelCost:
+    """K3k over ``t`` query rows and ``tk`` keys (default ``t``) at the
+    causal diagonal's ``shift``: four products over the pairs (S = Q·Kᵀ
+    again, dP = dO·Vᵀ, dV = Pᵀ·dO, dK = dSᵀ·Q), one exp per pair; q and do
+    (t rows), k and v (tk rows) read, dk and dv (tk rows) written, lse and
+    delta (f32, t) read."""
+    tk = t if tk is None else tk
+    pairs = _pairs(b, h, t, causal, tk, shift)
+    rows = float(b) * h * dh * elt
     return KernelCost(8.0 * pairs * dh, pairs,
-                      6 * tile + 8.0 * b * h * t)
+                      rows * (2 * t + 4 * tk) + 8.0 * b * h * t)
 
 
 def flash_attention_bwd_dq_cost(b: int, h: int, t: int, dh: int,
-                                causal: bool, elt: int) -> KernelCost:
-    """K3q: three products over the pairs (S, dP, dQ = dS·K), one exp per
-    pair; q, k, v, do read, dq written, lse and delta (f32) read."""
-    pairs = _pairs(b, h, t, causal)
-    tile = float(b) * h * t * dh * elt
+                                causal: bool, elt: int, tk: int = None,
+                                shift: int = 0) -> KernelCost:
+    """K3q over ``t`` query rows and ``tk`` keys (default ``t``) at the
+    causal diagonal's ``shift``: three products over the pairs (S, dP,
+    dQ = dS·K), one exp per pair; q and do (t rows), k and v (tk rows)
+    read, dq (t rows) written, lse and delta (f32, t) read."""
+    tk = t if tk is None else tk
+    pairs = _pairs(b, h, t, causal, tk, shift)
+    rows = float(b) * h * dh * elt
     return KernelCost(6.0 * pairs * dh, pairs,
-                      5 * tile + 8.0 * b * h * t)
+                      rows * (3 * t + 2 * tk) + 8.0 * b * h * t)
 
 
 # activations whose epilogue is a transcendental an element

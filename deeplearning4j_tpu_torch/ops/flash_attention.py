@@ -10,16 +10,19 @@ precedence chain as the JAX package (highest wins):
   3. the ``DL4J_TPU_ATTN_IMPL`` environment variable (dense|blockwise|flash),
   4. auto: "blockwise" for T >= 1024 with ``T % min(512, T) == 0``, else
      "dense"; and "dense" for a head dim or dtype the kernels refuse
-     (``kernel_takes``), where the JAX package's lax "blockwise" runs.
+     (``kernel_takes``: above 256, or not f32/bf16), where the JAX
+     package's lax "blockwise" runs.
 
 "flash" and "blockwise" both go through ``FlashAttention``, a
 ``torch.autograd.Function`` over three hand-written Hopper kernels: the
 forward ``csrc/flash_attention_fwd.cu`` (``flash_attention_fwd``) and the
 backward pair ``csrc/flash_attention_bwd_dkv.cu`` (dK, dV) and
-``csrc/flash_attention_bwd_dq.cu`` (dQ). In the JAX package the two impls
-were the same function split only by how the TPU scheduled them. "dense"
-stays plain torch (``parallel.ring_attention.reference_attention``) and is
-differentiated by autograd.
+``csrc/flash_attention_bwd_dq.cu`` (dQ), each for head dims up to 128, and
+their wide twins (``*_wide.cu``) for head dims above 128 up to 256. In the
+JAX package the two impls were the same function split only by how the TPU
+scheduled them. "dense" stays plain torch
+(``parallel.ring_attention.reference_attention``) and is differentiated by
+autograd.
 
 The blockwise core's tiles (``block_q``/``block_k``, the autotuner's
 ``flash_attention`` knobs) map to the one tile size of the kernels that
@@ -57,9 +60,11 @@ _IMPLS = ("flash", "blockwise", "dense")
 _BLOCKWISE_MIN_T = 1024
 _DEFAULT_BLOCK = 512
 
-# what the kernel takes: its element types and head widths
+# what the kernels take: their element types and head widths; head dims
+# above _NARROW_HEAD_DIM run the wide twins (``*_wide.cu``)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-_MAX_HEAD_DIM = 128
+_MAX_HEAD_DIM = 256
+_NARROW_HEAD_DIM = 128
 
 
 def set_attention_impl(impl: Optional[str]) -> None:
@@ -89,7 +94,7 @@ def get_attention_impl() -> Optional[str]:
 def kernel_takes(head_dim: Optional[int] = None,
                  dtype: Optional[torch.dtype] = None) -> bool:
     """Whether the flash kernels take this head dim and element type (a
-    multiple of 8 up to 128; f32 or bf16). None stands for any."""
+    multiple of 8 up to 256; f32 or bf16). None stands for any."""
     return ((head_dim is None
              or (head_dim % 8 == 0 and 8 <= head_dim <= _MAX_HEAD_DIM))
             and (dtype is None or dtype in _KERNEL_DTYPES))
@@ -182,6 +187,14 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
+def _hidden(q: torch.Tensor, k: torch.Tensor, shift: int) -> torch.Tensor:
+    """(Tq, Tk) True where the causal mask hides key j from row i: j >
+    i + ``shift``."""
+    qp = torch.arange(q.shape[2], device=q.device) + shift
+    kp = torch.arange(k.shape[2], device=q.device)
+    return qp[:, None] < kp[None, :]
+
+
 def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
             shift: int = 0) -> torch.Tensor:
     """q·kᵀ/√Dh in the accumulation type, masked to -1e30 above the
@@ -191,34 +204,37 @@ def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * (
         1.0 / (q.shape[-1] ** 0.5))
     if causal:
-        qp = torch.arange(q.shape[2], device=q.device) + shift
-        kp = torch.arange(k.shape[2], device=q.device)
-        s = s.masked_fill(qp[:, None] < kp[None, :], _NEG_INF)
+        s = s.masked_fill(_hidden(q, k, shift), _NEG_INF)
     return s
 
 
-def _bwd_p_ds(q, k, v, lse, do, delta, causal):
+def _bwd_p_ds(q, k, v, lse, do, delta, causal, shift=0):
     """The backward's recomputed P = exp(s - lse) and dS = P·(dP - delta),
     dP = do·vᵀ, all in the accumulation type (``_blockwise_vjp_bwd``'s
-    ``p_block`` and ``ds``)."""
+    ``p_block`` and ``ds``), q (Tq rows) against k, v (Tk rows) at the
+    causal diagonal's ``shift``. A masked element of P is selected to 0,
+    as the kernels do: a row that sees no key (lse = -1e30) would give
+    exp(-1e30 + 1e30) = 1 on every key, and gets zero gradient instead."""
     acc = _acc_dtype(q.dtype)
-    p = torch.exp(_scores(q, k, causal) - lse[..., None].to(acc))
+    p = torch.exp(_scores(q, k, causal, shift) - lse[..., None].to(acc))
+    if causal:
+        p = p.masked_fill(_hidden(q, k, shift), 0.0)
     dp = torch.einsum("bhqd,bhkd->bhqk", do.to(acc), v.to(acc))
     return p, p * (dp - delta[..., None].to(acc))
 
 
-def _bwd_dkv_plain(q, k, v, lse, do, delta, causal):
+def _bwd_dkv_plain(q, k, v, lse, do, delta, causal, shift=0):
     acc = _acc_dtype(q.dtype)
-    p, ds = _bwd_p_ds(q, k, v, lse, do, delta, causal)
+    p, ds = _bwd_p_ds(q, k, v, lse, do, delta, causal, shift)
     dv = torch.einsum("bhqk,bhqd->bhkd", p, do.to(acc))
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.to(acc)) * (
         1.0 / (q.shape[-1] ** 0.5))
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _bwd_dq_plain(q, k, v, lse, do, delta, causal):
+def _bwd_dq_plain(q, k, v, lse, do, delta, causal, shift=0):
     acc = _acc_dtype(q.dtype)
-    _, ds = _bwd_p_ds(q, k, v, lse, do, delta, causal)
+    _, ds = _bwd_p_ds(q, k, v, lse, do, delta, causal, shift)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.to(acc)) * (
         1.0 / (q.shape[-1] ** 0.5))
     return dq.to(q.dtype)
@@ -253,10 +269,9 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
 def _check_kernel_inputs(q, k, v, **more) -> None:
     """What the kernels take: q (B, H, Tq, Dh) and k, v (B, H, Tk, Dh) of
     one dtype and device, f32 or bf16, with a head dim that is a multiple
-    of 8 up to 128; ``more`` (the backward's ``do``, ``lse``, ``delta``)
-    checked by ``_check_bwd_values``, which also takes Tq == Tk only.
-    Shapes and types first, then contiguity and the device of every
-    tensor."""
+    of 8 up to 256; ``more`` (the backward's ``do``, ``lse``, ``delta``)
+    checked by ``_check_bwd_values``. Shapes and types first, then
+    contiguity and the device of every tensor."""
     if q.dim() != 4:
         raise ValueError(f"expected (B, H, T, Dh) tensors, got {q.dim()}-D")
     if q.dtype not in _KERNEL_DTYPES:
@@ -276,7 +291,7 @@ def _check_kernel_inputs(q, k, v, **more) -> None:
                              f"{tuple(k.shape)} and {name} {tuple(x.shape)}/"
                              f"{x.dtype}/{x.device}")
     if more:
-        _check_bwd_values(q, k, **more)
+        _check_bwd_values(q, **more)
     named = (("q", q), ("k", k), ("v", v), *more.items())
     for name, x in named:
         if not x.is_contiguous():
@@ -288,12 +303,9 @@ def _check_kernel_inputs(q, k, v, **more) -> None:
                              "CUDA tensors")
 
 
-def _check_bwd_values(q, k, do, lse, delta) -> None:
-    """``do`` like q; ``lse`` and ``delta`` f32 (B, H, T) on q's device;
-    k as long as q (the backward kernels have no shifted diagonal)."""
-    if k.shape != q.shape:
-        raise ValueError(f"the backward kernels take Tq == Tk, got q "
-                         f"{tuple(q.shape)} and k {tuple(k.shape)}")
+def _check_bwd_values(q, do, lse, delta) -> None:
+    """``do`` like q; ``lse`` and ``delta`` f32 (B, H, Tq) on q's
+    device."""
     if do.dtype != q.dtype or do.shape != q.shape or do.device != q.device:
         raise ValueError(f"do must share q's shape, dtype and device; got "
                          f"{tuple(do.shape)}/{do.dtype}/{do.device}")
@@ -305,6 +317,12 @@ def _check_bwd_values(q, k, do, lse, delta) -> None:
                              f"got {tuple(x.shape)}/{x.dtype}/{x.device}")
 
 
+def _library(name: str, head_dim: int) -> str:
+    """The library of kernel ``name`` for a head dim: its own source up to
+    128, its wide twin (``csrc/<name>_wide.cu``) above."""
+    return name if head_dim <= _NARROW_HEAD_DIM else f"{name}_wide"
+
+
 def _fwd_cost(q, k, v, causal=False, key_split=0, shift=0):
     return _kernels.flash_attention_fwd_cost(*q.shape, bool(causal),
                                              q.element_size(),
@@ -312,8 +330,9 @@ def _fwd_cost(q, k, v, causal=False, key_split=0, shift=0):
 
 
 def _bwd_cost(cost):
-    def of(q, k, v, lse, do, delta, causal=False):
-        return cost(*q.shape, bool(causal), q.element_size())
+    def of(q, k, v, lse, do, delta, causal=False, shift=0):
+        return cost(*q.shape, bool(causal), q.element_size(), tk=k.shape[2],
+                    shift=shift if causal else 0)
 
     return of
 
@@ -328,12 +347,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     j <= i + ``shift`` (0 for one sequence; a pair's q_offset - k_offset),
     and a row that sees no key comes out as (o = 0, lse = -1e30).
 
-    On a CUDA tensor: launches ``csrc/flash_attention_fwd.cu`` on the
-    current stream (or raises); q, k, v must be contiguous. ``key_split``
-    picks the launch: 0 the kernel's own rule, 1 a 4-warp block, 2 an
-    8-warp block that splits each K/V tile's keys (``key_split_for``). On
-    a CPU tensor: ``flash_attention_reference`` (the split changes no
-    value there)."""
+    On a CUDA tensor: launches ``csrc/flash_attention_fwd.cu`` (Dh up to
+    128) or ``csrc/flash_attention_fwd_wide.cu`` (above) on the current
+    stream, or raises; q, k, v must be contiguous. ``key_split`` picks the
+    launch: 0 the kernel's own rule, 1 a 4-warp block, 2 an 8-warp block
+    that splits each K/V tile's keys (``key_split_for``). On a CPU tensor:
+    ``flash_attention_reference`` (the split changes no value there)."""
     if key_split not in (0, 1, 2):
         raise ValueError(f"key_split is 0, 1 or 2, got {key_split!r}")
     shift = int(shift) if causal else 0
@@ -343,13 +362,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, t, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    lib = _kernels.load("flash_attention_fwd")
+    name = _library("flash_attention_fwd", d)
+    entry = getattr(_kernels.load(name), f"dl4j_{name}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.dl4j_flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b * h, t, k.shape[2], d, int(bool(causal)), shift,
-        1.0 / (d ** 0.5), int(q.dtype == torch.bfloat16), int(key_split),
-        stream)
+    rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+               lse.data_ptr(), b * h, t, k.shape[2], d, int(bool(causal)),
+               shift, 1.0 / (d ** 0.5), int(q.dtype == torch.bfloat16),
+               int(key_split), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
                            f"{rc} at q {tuple(q.shape)}, k "
@@ -359,36 +378,49 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
+def _bwd_launch(name: str, q, k, v, lse, do, delta, outs, causal: bool,
+                shift: int) -> None:
+    """Launch backward kernel ``name`` (``dkv``: outs (dk, dv); ``dq``:
+    outs (dq,)) at Tq rows against Tk keys and the causal ``shift``, after
+    the input checks; raises on a failed launch and counts one."""
+    _check_kernel_inputs(q, k, v, do=do, lse=lse, delta=delta)
+    b, h, tq, d = q.shape
+    lib = _library(name, d)
+    entry = getattr(_kernels.load(lib), f"dl4j_{lib}")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
+               do.data_ptr(), delta.data_ptr(), *(x.data_ptr() for x in outs),
+               b * h, tq, k.shape[2], d, int(bool(causal)), shift,
+               1.0 / (d ** 0.5), int(q.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} at q "
+                           f"{tuple(q.shape)}, k {tuple(k.shape)}, "
+                           f"{q.dtype}, shift {shift}")
+    _kernels.count_launch(name)
+
+
 @priced("flash_attention_bwd_dkv",
         _bwd_cost(_kernels.flash_attention_bwd_dkv_cost))
 def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, lse: torch.Tensor,
                             do: torch.Tensor, delta: torch.Tensor,
-                            causal: bool = False
+                            causal: bool = False, shift: int = 0
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) of the attention over (B, H, T, Dh), from the forward's
-    ``lse`` and ``delta = rowsum(do·o)`` (both f32 (B, H, T)).
+    """(dk, dv) of the attention of q (B, H, Tq, Dh) over k, v (B, H, Tk,
+    Dh), from the forward's ``lse`` and ``delta`` (both f32 (B, H, Tq);
+    delta = rowsum(do·o), less the lse's cotangent where the caller has
+    one); under ``causal`` key j is seen by row i iff j <= i + ``shift``.
 
-    On a CUDA tensor: launches ``csrc/flash_attention_bwd_dkv.cu`` on the
-    current stream (or raises). On a CPU tensor: the plain version's dk and
-    dv."""
+    On a CUDA tensor: launches ``csrc/flash_attention_bwd_dkv.cu`` (Dh up
+    to 128) or its ``_wide`` twin on the current stream, or raises. On a
+    CPU tensor: the plain version's dk and dv."""
+    shift = int(shift) if causal else 0
     if q.device.type == "cpu":
-        return _bwd_dkv_plain(q, k, v, lse, do, delta, causal)
-    _check_kernel_inputs(q, k, v, do=do, lse=lse, delta=delta)
-    b, h, t, d = q.shape
+        return _bwd_dkv_plain(q, k, v, lse, do, delta, causal, shift)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = _kernels.load("flash_attention_bwd_dkv")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.dl4j_flash_attention_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
-        do.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b * h, t, d, int(bool(causal)), 1.0 / (d ** 0.5),
-        int(q.dtype == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_bwd_dkv launch failed: CUDA "
-                           f"error {rc} at shape {tuple(q.shape)}, {q.dtype}")
-    _kernels.count_launch("flash_attention_bwd_dkv")
+    _bwd_launch("flash_attention_bwd_dkv", q, k, v, lse, do, delta,
+                (dk, dv), causal, shift)
     return dk, dv
 
 
@@ -397,28 +429,21 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, lse: torch.Tensor,
                            do: torch.Tensor, delta: torch.Tensor,
-                           causal: bool = False) -> torch.Tensor:
-    """dq of the attention over (B, H, T, Dh), from the forward's ``lse``
-    and ``delta = rowsum(do·o)`` (both f32 (B, H, T)).
+                           causal: bool = False,
+                           shift: int = 0) -> torch.Tensor:
+    """dq of the attention of q (B, H, Tq, Dh) over k, v (B, H, Tk, Dh),
+    from the forward's ``lse`` and ``delta`` (as ``flash_attention_bwd_dkv``
+    takes them) at the causal ``shift``.
 
-    On a CUDA tensor: launches ``csrc/flash_attention_bwd_dq.cu`` on the
-    current stream (or raises). On a CPU tensor: the plain version's dq."""
+    On a CUDA tensor: launches ``csrc/flash_attention_bwd_dq.cu`` (Dh up
+    to 128) or its ``_wide`` twin on the current stream, or raises. On a
+    CPU tensor: the plain version's dq."""
+    shift = int(shift) if causal else 0
     if q.device.type == "cpu":
-        return _bwd_dq_plain(q, k, v, lse, do, delta, causal)
-    _check_kernel_inputs(q, k, v, do=do, lse=lse, delta=delta)
-    b, h, t, d = q.shape
+        return _bwd_dq_plain(q, k, v, lse, do, delta, causal, shift)
     dq = torch.empty_like(q)
-    lib = _kernels.load("flash_attention_bwd_dq")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.dl4j_flash_attention_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
-        do.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * h, t, d,
-        int(bool(causal)), 1.0 / (d ** 0.5), int(q.dtype == torch.bfloat16),
-        stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_bwd_dq launch failed: CUDA "
-                           f"error {rc} at shape {tuple(q.shape)}, {q.dtype}")
-    _kernels.count_launch("flash_attention_bwd_dq")
+    _bwd_launch("flash_attention_bwd_dq", q, k, v, lse, do, delta, (dq,),
+                causal, shift)
     return dq
 
 
@@ -461,6 +486,37 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 key_split_for(block_q, block_k))
 
 
+class BlockPartials(torch.autograd.Function):
+    """One pair's ``(o_norm, lse)`` (both f32) at the causal ``shift``, with
+    the flash kernels on both passes: the forward is one K3f launch and
+    saves (q, k, v, o, lse); the backward takes the cotangents of both
+    outputs. With lse = logsumexp(s) and o = P·v, dS = P·(dP - delta) +
+    P·dlse, so K3k and K3q run unchanged on delta' = rowsum(do·o) - dlse,
+    one launch each at the pair's shift. A row that sees no key has P = 0
+    and zero gradient. On CPU tensors the wrappers compute the plain
+    versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, shift):
+        o, lse = flash_attention_fwd(q, k, v, causal, shift=shift)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.shift = causal, shift
+        return o.to(_acc_dtype(o.dtype)), lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        # an output without a cotangent arrives as zeros (autograd
+        # materializes them)
+        q, k, v, o, lse = ctx.saved_tensors
+        delta = (attention_delta(o, do) - dlse).contiguous()
+        do = do.to(q.dtype).contiguous()
+        dk, dv = flash_attention_bwd_dkv(q, k, v, lse, do, delta, ctx.causal,
+                                         ctx.shift)
+        dq = flash_attention_bwd_dq(q, k, v, lse, do, delta, ctx.causal,
+                                    ctx.shift)
+        return dq, dk, dv, None, None
+
+
 def blockwise_block_partials(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, q_offset: int = 0,
                              k_offset: int = 0, causal: bool = False,
@@ -473,22 +529,19 @@ def blockwise_block_partials(q: torch.Tensor, k: torch.Tensor,
     Shards merge exactly by logsumexp weights, ``o = Σ_j o_norm_j ·
     exp(lse_j − LSE)``: ring attention's online merge with (m=lse, l=1).
 
-    One call of ``flash_attention_fwd`` at the diagonal shift ``q_offset -
-    k_offset`` (a causal K block wholly before the Q block runs causal=0,
-    the launch of a pair without a mask): on a CUDA tensor one K3f launch,
-    on a CPU tensor its plain version. A causal K block wholly after the Q
-    block calls nothing.
+    ``BlockPartials`` at the diagonal shift ``q_offset - k_offset`` (a
+    causal K block wholly before the Q block runs causal=0, the launch of a
+    pair without a mask): on a CUDA tensor one K3f launch, on a CPU tensor
+    its plain version. A causal K block wholly after the Q block calls
+    nothing. Differentiable in q, k and v through both outputs, as the JAX
+    package's lax version: K3k and K3q once each at the same shift.
 
     A row that sees no key of the pair comes out as (o = 0, lse = -1e30)
-    on both devices, with zero weight in any merge. The JAX package's
-    additive mask gives such a row mean(v) instead (every score -1e30,
-    so p = 1 on every key) at the same lse ≈ -1e30, so weight 0 too:
-    the merged output is the same, the row's o_norm is not.
-
-    The JAX package's version is lax and differentiable. On the card the
-    partials have no backward (the ring differentiates through its own
-    VJP, ``parallel.ring_attention``): a CUDA call whose q, k or v needs a
-    gradient, with grad mode on, raises. ``block_q``/``block_k`` set the
+    with zero gradient on both devices, with zero weight in any merge. The
+    JAX package's additive mask gives such a row mean(v) instead (every
+    score -1e30, so p = 1 on every key) at the same lse ≈ -1e30, so weight
+    0 too: the merged output and its gradient are the same, the row's
+    o_norm and its own gradient are not. ``block_q``/``block_k`` set the
     JAX package's tiling and change no value here."""
     tq, tk = q.shape[2], k.shape[2]
     q_offset, k_offset = int(q_offset), int(k_offset)
@@ -499,17 +552,9 @@ def blockwise_block_partials(q: torch.Tensor, k: torch.Tensor,
                 torch.full((b, h, tq), _NEG_INF, dtype=torch.float32,
                            device=q.device))
     causal = causal and k_offset + tk > q_offset
-    if q.device.type != "cpu" and torch.is_grad_enabled() and any(
-            x.requires_grad for x in (q, k, v)):
-        raise ValueError(
-            "blockwise_block_partials on the card has no backward (K3k and "
-            "K3q take no shifted diagonal nor an lse cotangent); call it "
-            "under torch.no_grad() or on detached tensors, or differentiate "
-            "through ring_attention's own VJP")
-    o, lse = flash_attention_fwd(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), causal,
-                                 shift=q_offset - k_offset if causal else 0)
-    return o.to(_acc_dtype(o.dtype)), lse
+    return BlockPartials.apply(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal,
+                               q_offset - k_offset if causal else 0)
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

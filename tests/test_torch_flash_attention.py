@@ -16,6 +16,9 @@ import torch
 if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
 
+import contextlib
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -104,11 +107,13 @@ def test_ragged_causal_rows_finite():
 
 @pytest.mark.parametrize("bad,match", [
     (dict(dtype=torch.float16), "float32 or bfloat16"),
-    (dict(d=12), "head dim"), (dict(d=136), "head dim"),
-    (dict(), "CUDA tensors")])
+    (dict(d=12), "head dim"), (dict(d=264), "head dim"),
+    (dict(), "CUDA tensors"), (dict(d=136), "CUDA tensors")])
 def test_kernel_input_checks(bad, match):
     """What the kernel cannot take raises before any launch: shapes and
-    dtypes first, then the device (meta tensors stand in here)."""
+    dtypes first, then the device (meta tensors stand in here). A head dim
+    of 136 (the wide kernels') passes the shape checks; 264 is past
+    them."""
     d = bad.get("d", 16)
     x = torch.empty((1, 2, 8, d), dtype=bad.get("dtype", torch.float32),
                     device="meta")
@@ -150,30 +155,49 @@ def test_selection_chain_matches_jax(clean_chain, override, env):
 @pytest.mark.parametrize("t", [1024, 2048])
 def test_auto_gate_takes_dense_where_the_kernels_refuse(clean_chain, t):
     """Auto sends a head dim or dtype the kernels refuse to "dense" (the
-    JAX package's lax "blockwise" runs them); what they take stays
-    "blockwise". On meta tensors, auto runs at Dh=256, and a forced
+    JAX package's lax "blockwise" runs them): above 256, or not f32/bf16;
+    what they take, Dh 256 included, stays "blockwise" as JAX's chain
+    says. On meta tensors, auto runs at Dh=264 and 512, and a forced
     "blockwise" raises naming the limit before any launch."""
-    for head_dim, dtype in ((256, torch.float32), (12, torch.float32),
-                            (128, torch.float16), (64, torch.float16)):
+    for head_dim, dtype in ((264, torch.float32), (512, torch.bfloat16),
+                            (12, torch.float32), (128, torch.float16),
+                            (64, torch.float16)):
         assert tfa.resolve_attention_impl(t, head_dim, dtype) == "dense"
-    for head_dim in (8, 64, 128):
+    for head_dim in (8, 64, 128, 136, 256):
         for dtype in (torch.float32, torch.bfloat16):
             assert tfa.resolve_attention_impl(t, head_dim, dtype) == \
-                "blockwise"
+                "blockwise" == jfa.resolve_attention_impl(t)
     assert tfa.resolve_attention_impl(t) == jfa.resolve_attention_impl(t)
     from deeplearning4j_tpu_torch.models import transformer_lm as tlm
-    assert tlm.selected_attn_impl(t, head_dim=256) == "dense"
+    assert tlm.selected_attn_impl(t, head_dim=264) == "dense"
+    assert tlm.selected_attn_impl(t, head_dim=256) == "blockwise"
     assert tlm.selected_attn_impl(t, head_dim=128) == "blockwise"
-    x = torch.empty((1, 2, t, 256), device="meta")
-    out = tfa.attention_core(x, x, x, causal=True)
-    assert out.shape == x.shape and out.device.type == "meta"
-    with pytest.raises(ValueError, match="up to 128"):
-        tfa.attention_core(x, x, x, causal=True, impl="blockwise")
+    for head_dim in (264, 512):
+        x = torch.empty((1, 2, t, head_dim), device="meta")
+        out = tfa.attention_core(x, x, x, causal=True)
+        assert out.shape == x.shape and out.device.type == "meta"
+        with pytest.raises(ValueError, match="up to 256"):
+            tfa.attention_core(x, x, x, causal=True, impl="blockwise")
     clean_chain.setenv(jfa.ATTN_IMPL_ENV, "flash")
     assert tfa.resolve_attention_impl(t, 256, torch.float16) == "flash"
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         h = torch.empty((1, 2, t, 64), dtype=torch.float16, device="meta")
         tfa.attention_core(h, h, h, causal=True)
+
+
+@pytest.mark.parametrize("override,env", SETTINGS)
+def test_selection_chain_at_head_dim_256_matches_jax(clean_chain, override,
+                                                     env):
+    """With the head dim and dtype given, the chain at Dh 256 (f32, bf16)
+    is JAX's (which takes no head dim: its lax blockwise runs any)."""
+    if env is not None:
+        clean_chain.setenv(jfa.ATTN_IMPL_ENV, env)
+    jfa.set_attention_impl(override)
+    tfa.set_attention_impl(override)
+    for t in LENGTHS:
+        for dtype in (torch.float32, torch.bfloat16):
+            assert tfa.resolve_attention_impl(t, 256, dtype) == \
+                jfa.resolve_attention_impl(t), (t, dtype)
 
 
 def test_selection_chain_rejects_what_jax_rejects(clean_chain):
@@ -255,3 +279,94 @@ def test_fwd_cost_old_modes_equal_and_shifted_pairs_the_area():
         exact = np.clip(np.arange(tq) + shift + 1, 0, tk).sum()
         assert abs(c.transcendentals - exact) <= tq / 2
         assert c.bytes == 8 * 4 * (2 * tq + 2 * tk) + 4.0 * tq
+
+
+# ------------------------------------------------- head dims up to 256 ----
+
+def _eager(dtype):
+    return jax.disable_jit() if dtype == "bf16" else contextlib.nullcontext()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [64, 100])
+@pytest.mark.parametrize("d", [136, 256])
+@pytest.mark.parametrize("impl", ["blockwise", "flash"])
+def test_attention_core_wide_head_dims_match_jax(impl, d, t, causal, dtype):
+    """Head dims above 128 (the wide kernels' on the card; their plain
+    versions here) through ``attention_core``: o and the q, k, v grads
+    against ``jax.vjp`` of JAX's ``blockwise_attention`` (eager at bf16,
+    where each op rounds as torch's do)."""
+    rng = np.random.RandomState(d + t)
+    arrs = [rng.randn(1, 2, t, d).astype(np.float32) for _ in range(4)]
+    jq, jk, jv, jdo = (jnp.asarray(a, JDT[dtype]) for a in arrs)
+    q, k, v = (torch.from_numpy(a).to(TDT[dtype]).requires_grad_()
+               for a in arrs[:3])
+    do = torch.from_numpy(arrs[3]).to(TDT[dtype])
+    blk = jfa.default_block_policy(t)
+    with _eager(dtype):
+        want, vjp = jax.vjp(lambda a, b, c: jfa.blockwise_attention(
+            a, b, c, causal, blk, blk), jq, jk, jv)
+        want_grads = vjp(jdo)
+    got = tfa.attention_core(q, k, v, causal=causal, impl=impl)
+    grads = torch.autograd.grad(got, (q, k, v), do)
+    assert got.dtype == TDT[dtype] and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(_np(got.detach()), _np(want),
+                               atol=ATOL[dtype], rtol=0)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want_grads):
+        assert g.dtype == TDT[dtype], name
+        np.testing.assert_allclose(_np(g), _np(w), atol=ATOL[dtype], rtol=0,
+                                   err_msg=name)
+
+
+def test_bwd_costs_old_modes_equal_and_shifted_pairs_the_area():
+    """K3k's and K3q's costs at Tq == Tk and shift 0 are the old ones (four
+    and three products over B·H·T²/2 pairs causal; 6 and 5 (T, Dh) tiles
+    and lse, delta); at Tq != Tk and a shift the pairs are K3f's area,
+    within Tq/2 of the exact count a head, and the bytes read q, do at Tq
+    and k, v (and write dk, dv) at Tk."""
+    from deeplearning4j_tpu_torch.ops import _kernels
+
+    for causal in (True, False):
+        b, h, t, dh, elt = 4, 4, 2048, 128, 4
+        pairs = float(b * h * t * t) / (2 if causal else 1)
+        tile = float(b * h * t * dh * elt)
+        dkv = _kernels.flash_attention_bwd_dkv_cost(b, h, t, dh, causal, elt)
+        dq = _kernels.flash_attention_bwd_dq_cost(b, h, t, dh, causal, elt)
+        assert dkv.transcendentals == dq.transcendentals == pairs
+        assert dkv.flops == 8 * pairs * dh and dq.flops == 6 * pairs * dh
+        assert dkv.bytes == 6 * tile + 8.0 * b * h * t
+        assert dq.bytes == 5 * tile + 8.0 * b * h * t
+    for tq, tk, shift in ((256, 768, 512), (768, 256, -300), (512, 512, 37),
+                          (64, 64, -200), (64, 64, 500)):
+        fwd = _kernels.flash_attention_fwd_cost(1, 1, tq, 8, True, 4, tk=tk,
+                                                shift=shift)
+        dkv = _kernels.flash_attention_bwd_dkv_cost(1, 1, tq, 8, True, 4,
+                                                    tk=tk, shift=shift)
+        dq = _kernels.flash_attention_bwd_dq_cost(1, 1, tq, 8, True, 4,
+                                                  tk=tk, shift=shift)
+        exact = np.clip(np.arange(tq) + shift + 1, 0, tk).sum()
+        assert dkv.transcendentals == dq.transcendentals == \
+            fwd.transcendentals
+        assert abs(dkv.transcendentals - exact) <= tq / 2
+        assert dkv.flops == 8 * dkv.transcendentals * 8
+        assert dq.flops == 6 * dq.transcendentals * 8
+        assert dkv.bytes == 8 * 4 * (2 * tq + 4 * tk) + 8.0 * tq
+        assert dq.bytes == 8 * 4 * (3 * tq + 2 * tk) + 8.0 * tq
+
+
+def test_bwd_wrappers_price_the_pair_they_launch():
+    """The backward wrappers report to a step profile the cost at the
+    pair's Tk and shift (the CPU route prices as the card's), so a shifted
+    backward is priced by its area."""
+    from deeplearning4j_tpu_torch.ops import _kernels
+
+    q = torch.zeros(1, 2, 32, 16)
+    k = torch.zeros(1, 2, 96, 16)
+    want = _kernels.flash_attention_bwd_dq_cost(1, 2, 32, 16, True, 4,
+                                                tk=96, shift=64)
+    assert tfa._bwd_cost(_kernels.flash_attention_bwd_dq_cost)(
+        q, k, k, None, q, None, True, 64) == want
+    assert tfa._bwd_cost(_kernels.flash_attention_bwd_dq_cost)(
+        q, k, k, None, q, None, False, 64) == \
+        _kernels.flash_attention_bwd_dq_cost(1, 2, 32, 16, False, 4, tk=96)

@@ -65,7 +65,22 @@ def test_library_path_is_stable(fake_csrc):
     assert _kernels._library_path("k") == _kernels._library_path("k")
 
 
-@pytest.mark.parametrize("name", sorted(_kernels.LAUNCHES))
+def test_sources_are_the_kernels_and_the_wide_twins():
+    """Every counted kernel has a source, and the extra sources are the
+    three flash kernels' wide twins (head dims above 128), whose launches
+    count as their kernel's."""
+    extra = set(_kernels.SOURCES) - set(_kernels.LAUNCHES)
+    assert set(_kernels.LAUNCHES) <= set(_kernels.SOURCES)
+    assert extra == {f"{n}_wide" for n in (
+        "flash_attention_fwd", "flash_attention_bwd_dkv",
+        "flash_attention_bwd_dq")}
+    for name in _kernels.SOURCES:
+        assert (_kernels.CSRC / f"{name}.cu").is_file()
+        assert list(_kernels._SIGNATURES[name]) == [f"dl4j_{name}"] or \
+            name.startswith("lstm_gates")
+
+
+@pytest.mark.parametrize("name", sorted(_kernels.SOURCES))
 def test_real_sources_include_only_system_or_csrc_headers(name):
     """Every kernel source builds with one plain nvcc call and no include
     path: its angle includes are CUDA or C++ system headers, and its quoted
@@ -81,7 +96,10 @@ def test_real_sources_include_only_system_or_csrc_headers(name):
 
 
 TENSOR_CORE_KERNELS = ["flash_attention_fwd", "flash_attention_bwd_dkv",
-                       "flash_attention_bwd_dq", "fused_dense"]
+                       "flash_attention_bwd_dq", "fused_dense",
+                       "flash_attention_fwd_wide",
+                       "flash_attention_bwd_dkv_wide",
+                       "flash_attention_bwd_dq_wide"]
 
 
 def _kernel_text(name):

@@ -393,15 +393,27 @@ def test_block_partials_kernel_modes_and_the_card_only_raise(monkeypatch):
     every pair is one K3f launch at its diagonal shift: on the diagonal
     causal=1 shift 0, a block wholly before it causal=0, any other offset
     or Tq != Tk causal=1 at q_offset - k_offset; a block wholly after it
-    is JAX's (0, -1e30) with no launch. The only raise left on the card
-    is a call that needs a gradient."""
-    calls = []
+    is JAX's (0, -1e30) with no launch. No call raises any more: one that
+    needs a gradient backs through one K3k and one K3q launch at the
+    pair's shift and Tk, a wholly masked pair through none."""
+    calls, bwd = [], []
 
     def fwd(q, k, v, causal=False, shift=0):
         calls.append((bool(causal), shift, q.shape[2], k.shape[2]))
         return torch.empty_like(q), q.new_empty(q.shape[:3])
 
+    def dkv(q, k, v, lse, do, delta, causal=False, shift=0):
+        assert delta.shape == lse.shape == q.shape[:3]
+        bwd.append(("dkv", bool(causal), shift, q.shape[2], k.shape[2]))
+        return torch.empty_like(k), torch.empty_like(v)
+
+    def dq(q, k, v, lse, do, delta, causal=False, shift=0):
+        bwd.append(("dq", bool(causal), shift, q.shape[2], k.shape[2]))
+        return torch.empty_like(q)
+
     monkeypatch.setattr(tfa, "flash_attention_fwd", fwd)
+    monkeypatch.setattr(tfa, "flash_attention_bwd_dkv", dkv)
+    monkeypatch.setattr(tfa, "flash_attention_bwd_dq", dq)
     q, k, v = (torch.empty(1, 2, 64, 16, device="meta") for _ in range(3))
     tfa.blockwise_block_partials(q, k, v, 64, 64, causal=True)
     tfa.blockwise_block_partials(q, k, v, 128, 0, causal=True)
@@ -416,12 +428,24 @@ def test_block_partials_kernel_modes_and_the_card_only_raise(monkeypatch):
     tfa.blockwise_block_partials(q, k, v, 64, 32, causal=True)
     tfa.blockwise_block_partials(q, k[:, :, :32], v[:, :, :32], 0, 0)
     assert calls[3:] == [(True, 32, 64, 64), (False, 0, 64, 32)]
-    with pytest.raises(ValueError, match="no backward"):
-        tfa.blockwise_block_partials(q.requires_grad_(), k, v, 64, 32,
-                                     causal=True)
+    assert bwd == []
+    qg = q.clone().requires_grad_()
+    for q_off, k_off, kk, want in (
+            (64, 32, k, (True, 32, 64, 64)),
+            (0, 0, k[:, :, :32], (True, 0, 64, 32)),
+            (128, 0, k, (False, 0, 64, 64)),
+            (10, 40, k[:, :, :48], (True, -30, 64, 48))):
+        o, lse = tfa.blockwise_block_partials(qg, kk, v[:, :, :kk.shape[2]],
+                                              q_off, k_off, causal=True)
+        torch.autograd.grad((o, lse), qg, (torch.ones_like(o),
+                                           torch.ones_like(lse)))
+        assert calls[-1] == want
+        assert bwd[-2:] == [("dkv", *want), ("dq", *want)]
+    o, lse = tfa.blockwise_block_partials(qg, k, v, 0, 64, causal=True)
+    assert not o.requires_grad and not lse.requires_grad
     with torch.no_grad():
-        tfa.blockwise_block_partials(q, k, v, 64, 32, causal=True)
-    assert len(calls) == 6
+        tfa.blockwise_block_partials(qg, k, v, 64, 32, causal=True)
+    assert len(calls) == 10 and len(bwd) == 8
 
 
 def test_blockwise_attention_is_the_kernel_route():
@@ -449,3 +473,92 @@ def test_forward_ring_on_one_rank_is_forward():
     want = jattn.forward(jc, jax.tree_util.tree_map(jnp.asarray, params),
                          jnp.asarray(x.numpy()))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+# ------------------------------------------- the block partials' backward --
+
+PARTIAL_CASES = [(64, 64, 96, 57), (32, 96, 64, 0), (96, 32, 0, 40),
+                 (96, 32, 60, 80)]
+
+
+def _merged(partials, q, k, v, q_off, k_off, causal, w_o, w_l, seen):
+    """Two K/V shards' partials merged by logsumexp weights, then a loss
+    with cotangents on the merged output and the merged lse of the rows
+    that see any key (zero on the rest)."""
+    half = k.shape[2] // 2
+    lib = jnp if isinstance(q, jnp.ndarray) else torch
+    parts = [partials(q, k[:, :, s], v[:, :, s], q_off, k_off + s.start,
+                      causal) for s in (slice(0, half),
+                                        slice(half, k.shape[2]))]
+    (o1, l1), (o2, l2) = parts
+    big = lib.maximum(l1, l2)
+    w1, w2 = lib.exp(l1 - big), lib.exp(l2 - big)
+    lse = big + lib.log(w1 + w2)
+    o = (o1 * (w1 / (w1 + w2))[..., None] + o2 * (w2 / (w1 + w2))[..., None])
+    return (o * w_o * seen[:, None]).sum() + (lse * w_l * seen).sum()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("tq,tk,q_off,k_off", PARTIAL_CASES)
+def test_block_partials_grads_through_a_merge_match_jax(tq, tk, q_off, k_off,
+                                                        causal):
+    """``blockwise_block_partials`` is differentiable in q, k and v through
+    both outputs, as JAX's lax version is: over two K/V shards at their
+    global offsets (Tq != Tk, shifts that are no multiple of a shard),
+    merged by logsumexp weights, the q, k, v grads of a loss on the merged
+    output and lse equal ``jax.vjp`` of JAX's. Rows that see no key of
+    either shard get zero cotangent (the port's (0, -1e30) and JAX's
+    mean(v) both weigh 0 there)."""
+    rng = np.random.RandomState(tq + 7 * tk + q_off)
+    arrs = [(rng.randn(2, 2, t, 16) * 0.5).astype(np.float32)
+            for t in (tq, tk, tk)]
+    w_o = rng.randn(2, 2, tq, 16).astype(np.float32)
+    w_l = rng.randn(2, 2, tq).astype(np.float32)
+    seen = ((q_off + np.arange(tq) >= k_off) if causal
+            else np.ones(tq, bool)).astype(np.float32)
+    jloss = jax.value_and_grad(
+        lambda a, b, c: _merged(jfa.blockwise_block_partials, a, b, c,
+                                q_off, k_off, causal, jnp.asarray(w_o),
+                                jnp.asarray(w_l), jnp.asarray(seen)),
+        argnums=(0, 1, 2))
+    want_loss, want = jloss(*(jnp.asarray(a) for a in arrs))
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in arrs)
+    before = dict(_kernels.LAUNCHES)
+    loss = _merged(tfa.blockwise_block_partials, q, k, v, q_off, k_off,
+                   causal, torch.from_numpy(w_o), torch.from_numpy(w_l),
+                   torch.from_numpy(seen))
+    got = torch.autograd.grad(loss, (q, k, v))
+    assert _kernels.LAUNCHES == before
+    np.testing.assert_allclose(loss.item(), float(want_loss), atol=ATOL,
+                               rtol=ATOL)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=GRAD_ATOL,
+                                   rtol=GRAD_ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("tq,tk,shift", [(32, 48, -10), (48, 32, 5),
+                                         (40, 40, -50)])
+def test_plain_backward_at_a_shift_zeroes_masked_p(tq, tk, shift):
+    """The plain backward at a shift selects P to 0 where the mask hides a
+    key, as the kernels do: a row that sees no key (lse = -1e30) gets zero
+    dq and adds nothing to dk, dv (exp(s - lse) would be 1 on every key),
+    and the rest equal torch's autograd of the plain forward, with
+    cotangents on o and on lse folded into delta - dlse."""
+    rng = np.random.RandomState(tq + tk)
+    q, k, v = (torch.from_numpy(rng.randn(1, 2, t, 16).astype(np.float32))
+               .double().requires_grad_() for t in (tq, tk, tk))
+    do = torch.from_numpy(rng.randn(1, 2, tq, 16)).double()
+    dlse = torch.from_numpy(rng.randn(1, 2, tq)).double()
+    o, lse = tfa.flash_attention_reference(q, k, v, True, shift)
+    blind = torch.arange(tq) + shift < 0
+    p, _ = tfa._bwd_p_ds(q, k, v, lse, do, tfa.attention_delta(o, do), True,
+                         shift)
+    assert (p.masked_select(tfa._hidden(q, k, shift)) == 0).all()
+    assert (p[:, :, blind] == 0).all()
+    delta = tfa.attention_delta(o, do) - dlse
+    dk, dv = tfa._bwd_dkv_plain(q, k, v, lse, do, delta, True, shift)
+    dq = tfa._bwd_dq_plain(q, k, v, lse, do, delta, True, shift)
+    want = torch.autograd.grad((o, lse), (q, k, v), (do, dlse))
+    assert (dq[:, :, blind] == 0).all()
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        torch.testing.assert_close(g, w, atol=1e-12, rtol=1e-10, msg=name)

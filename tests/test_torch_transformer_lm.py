@@ -296,3 +296,31 @@ def test_sample_tokens_greedy_per_slot():
         assert int(out[i]) == int(greedy[i])
     one = tlm.sample_tokens(logits[0], gen, torch.tensor(0.0))
     assert one.shape == () and int(one) == int(greedy[0])
+
+
+@pytest.mark.parametrize("d_model", [256, 512])
+def test_lm_step_at_head_dim_256_matches_jax(d_model):
+    """One SGD step of the LM with heads of 256 (1 layer, vocab 64, T 64;
+    one head at d_model 256, two at 512) through the "blockwise" core,
+    which the wide kernels carry on the card (their plain versions here),
+    against JAX's step (its lax blockwise_attention) at the f32
+    tolerance: the loss and every leaf of the updated params."""
+    from _torch_lm_init import lm_params_np
+    from deeplearning4j_tpu_torch.interop import tree_to_numpy
+
+    heads = d_model // 256
+    np_p = lm_params_np(0, 64, d_model, heads, 2, 64, 1)
+    toks = np.random.RandomState(3).randint(0, 64, (2, 65)).astype(np.int32)
+    tok, tgt = toks[:, :-1], toks[:, 1:]
+    jstep = jlm.make_single_device_train_step(heads, attn_impl="blockwise")
+    tstep = tlm.make_single_device_train_step(heads, attn_impl="blockwise",
+                                              device="cpu")
+    jp, jloss = jstep(jax.tree_util.tree_map(jnp.asarray, np_p),
+                      jnp.asarray(tok), jnp.asarray(tgt))
+    tp, tloss = tstep(lm_params_from_numpy(np_p, "cpu"), tok, tgt)
+    np.testing.assert_allclose(float(tloss), float(jloss), **TOL["f32"])
+    got = jax.tree_util.tree_leaves(tree_to_numpy(tp))
+    want = jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.asarray, jp))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, **TOL["f32"])
